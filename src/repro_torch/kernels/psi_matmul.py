@@ -1,0 +1,98 @@
+"""Wrappers of the CUDA PSI matmul kernels (``csrc/psi_matmul.cu``).
+
+``psi_matmul_codes_cuda`` replaces the Pallas ``psi_matmul_int8`` (alias
+``psi_matmul_codes``) and ``psi_matmul_packed_cuda`` replaces the Pallas
+``psi_matmul_packed``; their plain versions are in
+:mod:`repro_torch.kernels.ref`.  Each wrapper takes CUDA tensors only,
+checks them, allocates its output with ``torch.empty``, launches on the
+current stream, raises if the launch failed, and counts its launches in
+``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    lib = _build.load("psi_matmul")
+    if not getattr(lib, "_argtypes_set", False):
+        lib.psi_matmul_codes.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.psi_matmul_codes.restype = _I
+        lib.psi_matmul_packed.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          _P]
+        lib.psi_matmul_packed.restype = _I
+        lib._argtypes_set = True
+    return lib
+
+
+def _check_common(x, w, scale, wdtype, N):
+    if not x.is_cuda:
+        raise ValueError("the CUDA psi_matmul takes CUDA tensors; a CPU "
+                         "tensor goes to kernels.ref")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 2 or not x.is_contiguous() or x.shape[0] < 1:
+        raise ValueError(f"x must be a contiguous (M>=1, K) matrix, got "
+                         f"{tuple(x.shape)}")
+    if w.dtype != wdtype or not w.is_contiguous() or w.device != x.device:
+        raise ValueError(f"weight must be contiguous {wdtype} on "
+                         f"{x.device}, got {w.dtype} on {w.device}")
+    if (scale.dtype != torch.float32 or scale.shape != (N,)
+            or not scale.is_contiguous() or scale.device != x.device):
+        raise ValueError(f"scale must be contiguous float32 ({N},) on "
+                         f"{x.device}, got {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+
+
+def psi_matmul_codes_cuda(x: torch.Tensor, codes: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ (codes (K, N) int8 * scale (N,)) -> (M, N) in x.dtype."""
+    if codes.dim() != 2 or codes.shape[0] != x.shape[-1]:
+        raise ValueError(f"codes {tuple(codes.shape)} do not match x "
+                         f"{tuple(x.shape)}")
+    M, K = x.shape
+    N = codes.shape[1]
+    _check_common(x, codes, scale, torch.int8, N)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    err = _lib().psi_matmul_codes(
+        x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, K, N, _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "psi_matmul_codes")
+    psi_matmul_codes_cuda.launches += 1
+    return out
+
+
+psi_matmul_codes_cuda.launches = 0
+
+
+def psi_matmul_packed_cuda(x: torch.Tensor, planes: torch.Tensor,
+                           scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """x (M, K) @ dequant(planes (bits, K//8, N) uint8, scale (N,))."""
+    if not 2 <= bits <= 7:
+        raise ValueError(f"packed widths are 2..7 bits, got {bits}")
+    if (planes.dim() != 3 or planes.shape[0] != bits
+            or planes.shape[1] * 8 != x.shape[-1]):
+        raise ValueError(f"planes {tuple(planes.shape)} do not hold {bits} "
+                         f"planes of K/8 rows for x {tuple(x.shape)}")
+    M, K = x.shape
+    N = planes.shape[2]
+    _check_common(x, planes, scale, torch.uint8, N)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    err = _lib().psi_matmul_packed(
+        x.data_ptr(), planes.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, K, N, int(bits), _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "psi_matmul_packed")
+    psi_matmul_packed_cuda.launches += 1
+    return out
+
+
+psi_matmul_packed_cuda.launches = 0

@@ -1,0 +1,173 @@
+"""The port's kernel modules against the JAX package: the plain versions
+of the three kernels against the JAX oracles and the Pallas kernels in
+interpret mode, the traffic model, and the device routing.  The CUDA
+kernels themselves are held against these plain versions by
+``tests/test_torch_cuda.py`` on a card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import psi as jpsi
+from repro.kernels import paged_attention as jpa
+from repro.kernels import psi_matmul as jpk
+from repro.kernels import ref as jref
+from repro_torch.core import psi as tpsi
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import psi_matmul as tpm
+from repro_torch.kernels import ref as tref
+
+torch.set_num_threads(1)
+
+# f32 sums in another order: ~K * 2^-24 relative on outputs of size ~sqrt(K)
+F32 = dict(rtol=1e-5, atol=1e-5)
+RAGGED = [(1, 64, 32), (3, 40, 36), (7, 72, 100), (16, 64, 256)]
+
+
+def _qt(seed, K, N, bits, packed):
+    w = np.random.default_rng(seed).normal(size=(K, N)).astype(np.float32)
+    q = jpsi.quantize_weights(jnp.asarray(w), bits, axis=(0,))
+    return q.pack() if packed else q
+
+
+@pytest.mark.parametrize("M,K,N", RAGGED)
+def test_codes_ref_matches_jax_oracle_and_interpret(M, K, N):
+    x = np.random.default_rng(M).normal(size=(M, K)).astype(np.float32)
+    q = _qt(K + N, K, N, 8, False)
+    scale = np.array(q.scale).reshape(-1)
+    got = tref.psi_matmul_codes_ref(torch.from_numpy(x),
+                                    torch.from_numpy(np.array(q.data)),
+                                    torch.from_numpy(scale)).numpy()
+    oracle = np.asarray(jref.psi_matmul_codes_ref(jnp.asarray(x), q.data,
+                                                  jnp.asarray(scale)))
+    interp = np.asarray(jpk.psi_matmul_int8(jnp.asarray(x), q.data,
+                                            jnp.asarray(scale),
+                                            interpret=True))
+    np.testing.assert_allclose(got, oracle, **F32)
+    np.testing.assert_allclose(got, interp, **F32)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 5, 7])
+@pytest.mark.parametrize("M,K,N", RAGGED[1:3])
+def test_packed_ref_matches_jax_oracle_and_interpret(bits, M, K, N):
+    x = np.random.default_rng(bits).normal(size=(M, K)).astype(np.float32)
+    q = _qt(bits * 7 + K, K, N, bits, True)
+    scale = np.array(q.scale).reshape(-1)
+    got = tref.psi_matmul_packed_ref(torch.from_numpy(x),
+                                     torch.from_numpy(np.array(q.data)),
+                                     torch.from_numpy(scale), bits).numpy()
+    oracle = np.asarray(jref.psi_matmul_packed_ref(
+        jnp.asarray(x), q.data, jnp.asarray(scale), bits))
+    interp = np.asarray(jpk.psi_matmul_packed(
+        jnp.asarray(x), q.data, jnp.asarray(scale), bits=bits,
+        interpret=True))
+    np.testing.assert_allclose(got, oracle, **F32)
+    np.testing.assert_allclose(got, interp, **F32)
+
+
+# ---------------------------------------------------------------------------
+# Paged attention: fuzzed tables (holes, -1 rows, permuted blocks, stale
+# garbage, boundary positions), as tests/test_paged_attention.py builds them.
+# ---------------------------------------------------------------------------
+BS, HQ, HKV, HD = 4, 8, 2, 16
+
+
+def _case(seed, B, n_bt, mode, bs=BS, hq=HQ, hkv=HKV, hd=HD):
+    rng = np.random.default_rng(seed)
+    N = B * n_bt + B
+    q = rng.normal(size=(B, hq, hd)).astype(np.float32)
+    if mode == "int8":
+        kp = rng.integers(-127, 128, size=(N, bs, hkv, hd)).astype(np.int8)
+        vp = rng.integers(-127, 128, size=(N, bs, hkv, hd)).astype(np.int8)
+        ks = rng.uniform(1e-3, 0.05, size=(N, bs, hkv, 1)).astype(np.float32)
+        vs = rng.uniform(1e-3, 0.05, size=(N, bs, hkv, 1)).astype(np.float32)
+    else:
+        kp = rng.normal(size=(N, bs, hkv, hd)).astype(np.float32)
+        vp = rng.normal(size=(N, bs, hkv, hd)).astype(np.float32)
+        ks = vs = None
+    bt = rng.permutation(B * n_bt).astype(np.int32).reshape(B, n_bt)
+    bt = np.where(rng.random((B, n_bt)) < 0.3, -1, bt).astype(np.int32)
+    if B > 1:
+        bt[rng.integers(B)] = -1
+    bounds = np.array([0, bs - 1, bs, n_bt * bs - 1])
+    pos = np.where(rng.random(B) < 0.5, rng.choice(bounds, size=B),
+                   rng.integers(0, n_bt * bs, size=B)).astype(np.int32)
+    return q, kp, vp, bt, pos, ks, vs
+
+
+def _visible_rows(bt, pos, bs=BS):
+    j = np.arange(bt.shape[1]) * bs
+    return ((bt >= 0) & (j[None, :] <= pos[:, None])).any(axis=1)
+
+
+def _torch_args(case, device="cpu", act=torch.float32):
+    q, kp, vp, bt, pos, ks, vs = case
+    t = lambda a: None if a is None else torch.from_numpy(a).to(device)
+    qt = t(q).to(act)
+    kt, vt = t(kp), t(vp)
+    if ks is None:
+        kt, vt = kt.to(act), vt.to(act)
+    return qt, kt, vt, t(bt), t(pos), t(ks), t(vs)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+@pytest.mark.parametrize("B,n_bt", [(1, 2), (3, 3), (4, 6)])
+def test_paged_attention_ref_matches_jax(seed, mode, B, n_bt):
+    case = _case(seed * 31 + B, B, n_bt, mode)
+    q, kp, vp, bt, pos, ks, vs = case
+    want = np.asarray(jpa.paged_attention_ref(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(pos), None if ks is None else jnp.asarray(ks),
+        None if vs is None else jnp.asarray(vs)))
+    got = tpa.paged_attention_ref(*_torch_args(case)).numpy()
+    rows = _visible_rows(bt, pos)
+    np.testing.assert_allclose(got[rows], want[rows], **F32)
+
+
+def test_synth_positions_match():
+    bt = np.array([[2, -1, 0], [-1, -1, -1]], np.int32)
+    np.testing.assert_array_equal(
+        np.asarray(jpa.synth_positions(jnp.asarray(bt), 4)),
+        tpa.synth_positions(torch.from_numpy(bt), 4).numpy())
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_traffic_model_matches(quantized):
+    for args in [(4, 32, 16, 8, 128), (1, 3, 4, 2, 16)]:
+        assert (jpa.gathered_bytes(*args, quantized=quantized)
+                == tpa.gathered_bytes(*args, quantized=quantized))
+    for args in [(128, 16, 8, 128), (5, 4, 2, 16)]:
+        assert (jpa.streamed_bytes(*args, quantized=quantized)
+                == tpa.streamed_bytes(*args, quantized=quantized))
+
+
+# ---------------------------------------------------------------------------
+# Routing: by device only.
+# ---------------------------------------------------------------------------
+def test_cpu_tensors_take_the_plain_versions():
+    ops.reset_launch_counts()
+    q = tpsi.quantize_weights(torch.randn(16, 8), 8, axis=(0,))
+    x = torch.randn(3, 16)
+    torch.testing.assert_close(
+        ops.psi_matmul(x, q), tref.psi_matmul_codes_ref(x, q.data, q.scale),
+        rtol=0, atol=0)
+    case = _torch_args(_case(1, 2, 3, "f32"))
+    torch.testing.assert_close(ops.paged_decode_attention(*case),
+                               tpa.paged_attention_ref(*case), rtol=0, atol=0)
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    q = tpsi.quantize_weights(torch.randn(16, 8), 8, axis=(0,))
+    with pytest.raises(ValueError, match="CUDA"):
+        tpm.psi_matmul_codes_cuda(torch.randn(2, 16), q.data,
+                                  q.scale.reshape(-1))
+    with pytest.raises(ValueError, match="CUDA"):
+        q5 = tpsi.quantize_weights(torch.randn(16, 8), 5, axis=(0,)).pack()
+        tpm.psi_matmul_packed_cuda(torch.randn(2, 16), q5.data,
+                                   q5.scale.reshape(-1), 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpa.paged_attention_cuda(*_torch_args(_case(1, 2, 3, "f32")))
