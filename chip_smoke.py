@@ -11,9 +11,12 @@ before the result line:
 
   1. card and build    — nvidia-smi name and power limit, kernel build time;
   2. kernels           — each kernel against its plain version at the
-                         serving shapes (and ragged reduced ones), with its
-                         median time, the plain version's, one library
-                         call's (yardstick only) and the memory bound;
+                         serving shapes (and ragged reduced ones; for paged
+                         attention also tables long enough to split, every
+                         (G, D) of the configs), with its median time, the
+                         plain version's, one library call's (yardstick
+                         only) and the memory bound; paged attention's
+                         times are device times from CUDA-graph replays;
   3. serve psi8        — Server.serve of qwen3-8b, all 36 layers, in
                          continuous and static modes: identical tokens, and
                          253 PSI-matmul + 36 attention launches per decode
@@ -157,6 +160,51 @@ def _median_ms(torch, fn, n_variants, iters=10, reps=5):
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e) / iters)
+    return statistics.median(times)
+
+
+def _graph_ms(torch, fn, n_variants, iters=20, reps=5):
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed, so the host's cost of launching them is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i % n_variants)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i % n_variants)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / iters)
+    del graph
+    return statistics.median(times)
+
+
+def _host_ms(torch, fn, n_variants, iters=50, reps=5):
+    """Host time to issue one call: ``iters`` calls with no sync between
+    them, on the host's clock.  Where it exceeds the device time per call,
+    an eager loop runs at the host's pace."""
+    for i in range(3):
+        fn(i % n_variants)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(i % n_variants)
+        times.append((time.perf_counter() - t0) * 1e3 / iters)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -391,6 +439,66 @@ def phase_kernels(torch, dev, bw, peak):
                             else "1e-5 (|want| + A)") +
                            ", A = plain version on |V|"})
 
+    # -- the split path: tables the kernel splits across blocks, with pos
+    # on the first split boundary, one short of it, inside the first split
+    # only, an all -1 slot, visible keys only in the last split, and a full
+    # slot; every (G, D) the configs use, in all four q/pool types
+    def split_case(seed, n_bt, G, hkv, D, qdt, pool, bs=16):
+        B = 6
+        chunk, n_split = pa.split_plan(B, hkv, G, n_bt, bs, pa._n_sm(0))
+        check(n_split > 1, f"split case n_bt={n_bt} G={G} did not split")
+        q, kp, vp, bt, _, ks, vs = case(seed, B, n_bt, G * hkv, hkv, D, bs,
+                                        qdt, pool)
+        bt[:, 0] = bt[:, 0].abs()
+        bt[3] = -1
+        bt[4, :(n_split - 1) * chunk] = -1
+        bt[4, -1] = B * n_bt + 4
+        pos = torch.tensor([chunk * bs, chunk * bs - 1, bs + 3] + [
+            n_bt * bs - 1] * 3, dtype=torch.int32, device=dev)
+        return q, kp, vp, bt, pos, ks, vs
+
+    def held(args, bs=16):
+        """Worst |kernel - plain| on rows with a visible key, after checking
+        the per-element tolerance above and exact zeros elsewhere."""
+        q, kp, vp, bt, pos, ks, vs = args
+        got = ops.paged_decode_attention(*args)
+        want = pa.paged_attention_ref(*args)
+        rows = visible(bt, pos, bs)
+        check(bool((got[~rows] == 0).all()),
+              "paged_attention: rows with no visible key not zero")
+        want = want[rows].float()
+        a = pa.paged_attention_ref(q, kp, vp.abs(), bt, pos, ks,
+                                   vs)[rows].float()
+        tol = (2.0 ** -7 * want.abs() + 2.0 ** -5 * a
+               if q.dtype == bf16 else 1e-5 * (want.abs() + a))
+        d = (got[rows].float() - want).abs()
+        check(not bool((d > tol).any()), f"paged_attention split path "
+              f"{tuple(q.shape)} {kp.dtype}: err {float(d.max())} over its "
+              f"per-element tolerance")
+        return float(d.max())
+
+    types = [(bf16, "bf16"), (bf16, "int8"), (torch.float32, "f32"),
+             (torch.float32, "int8")]
+    worst = 0.0
+    for n_bt in (64, 160):
+        for qdt, pool in types:
+            for seed in range(2):
+                worst = max(worst, held(split_case(seed, n_bt, 4, 8, 128, qdt,
+                                                   pool)))
+    for G in (1, 2, 4, 6, 8, 16, 48):
+        for D in (16, 64, 128, 256):
+            for qdt, pool in types:
+                worst = max(worst, held(split_case(
+                    G * 1000 + D, 64, G, 1 if G == 48 else 2, D, qdt, pool)))
+    max_err["paged_attention"] = max(max_err["paged_attention"], worst)
+    emit({"phase": "kernel_paged_attention_split", "ok": True,
+          "max_abs_err": worst,
+          "cases": "n_bt 64/160 at 32/8/128 (pos on, one short of, inside "
+                   "the first split; all -1 slot; last split only), and "
+                   "G in 1,2,4,6,8,16,48 x D in 16,64,128,256 at n_bt 64; "
+                   "q/pool bf16/bf16, bf16/int8, f32/f32, f32/int8",
+          "tolerance": "as kernel_paged_attention"})
+
     import torch.nn.functional as F
 
     def attn_times(B, n_pos, pool):
@@ -414,10 +522,27 @@ def phase_kernels(torch, dev, bw, peak):
         bt = torch.randperm(B * n_bt, generator=g, device=dev).to(
             torch.int32).reshape(B, n_bt).contiguous()
         pos = torch.full((B,), n_pos - 1, dtype=torch.int32, device=dev)
-        t_k = _median_ms(torch, lambda i: ops.paged_decode_attention(
-            q, kp, vp, bt, pos, ks, vs), 1, iters=50)
-        t_p = _median_ms(torch, lambda i: pa.paged_attention_ref(
-            q, kp, vp, bt, pos, ks, vs), 1, iters=10)
+        # cold: cycle through enough copies of the pools (and of the
+        # gathered K/V below) that each call streams from HBM, not L2
+        pools = [kp, vp] + ([ks, vs] if ks is not None else [])
+        sets = list(zip(*(_copies(t, sum(u.numel() * u.element_size()
+                                         for u in pools)) for t in pools)))
+        sets = [s if ks is not None else s + (None, None) for s in sets]
+        attend = lambda i: ops.paged_decode_attention(
+            q, sets[i][0], sets[i][1], bt, pos, sets[i][2], sets[i][3])
+        # ms, plain_ms, library_ms: eager loops timed by CUDA events, as for
+        # the matmul kernels; an eager call costs its host time (host_ms)
+        # where that exceeds its device time.  *device_ms: the same calls
+        # replayed from a CUDA graph, i.e. device time without the host.
+        # warm_ms: the eager loop on one pool set, L2-resident at 4 x 80.
+        plain = lambda i: pa.paged_attention_ref(
+            q, sets[i][0], sets[i][1], bt, pos, sets[i][2], sets[i][3])
+        t_k = _median_ms(torch, attend, len(sets), iters=50)
+        t_warm = _median_ms(torch, attend, 1, iters=50)
+        t_host = _host_ms(torch, attend, len(sets))
+        t_dev = _graph_ms(torch, attend, len(sets))
+        t_p = _median_ms(torch, plain, len(sets), iters=10)
+        t_p_dev = _graph_ms(torch, plain, len(sets), iters=5)
         # yardstick: SDPA on K/V gathered (and dequantized) beforehand
         kg = pa._gather(kp, bt)
         vg = pa._gather(vp, bt)
@@ -430,17 +555,25 @@ def phase_kernels(torch, dev, bw, peak):
         mask = (torch.arange(S, device=dev)[None] <= pos[:, None])
         mask = mask[:, None, None, :]
         q4 = q[:, :, None, :]
+        kgs = _copies(kg, 2 * kg.numel() * kg.element_size())
+        vgs = [vg] + [vg.clone() for _ in kgs[1:]]
         try:
             F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask,
                                            enable_gqa=True)
             lib = lambda i: F.scaled_dot_product_attention(
-                q4, kg, vg, attn_mask=mask, enable_gqa=True)
+                q4, kgs[i], vgs[i], attn_mask=mask, enable_gqa=True)
         except TypeError:
             ke = kg.repeat_interleave(hq // hkv, dim=1)
             ve = vg.repeat_interleave(hq // hkv, dim=1)
+            kgs = _copies(ke, 2 * ke.numel() * ke.element_size())
+            vgs = [ve] + [ve.clone() for _ in kgs[1:]]
             lib = lambda i: F.scaled_dot_product_attention(
-                q4, ke, ve, attn_mask=mask)
-        t_l = _median_ms(torch, lib, 1, iters=50)
+                q4, kgs[i], vgs[i], attn_mask=mask)
+        t_l = _median_ms(torch, lib, len(kgs), iters=50)
+        t_l_dev = _graph_ms(torch, lib, len(kgs))
+        del sets, kgs, vgs
+        chunk, n_split = pa.split_plan(B, hkv, hq // hkv, n_bt, bs,
+                                       pa._n_sm(0))
         valid = int((bt >= 0).sum())
         nbytes = (pa.streamed_bytes(valid, bs, hkv, D,
                                     quantized=pool == "int8")
@@ -448,15 +581,19 @@ def phase_kernels(torch, dev, bw, peak):
         flops = 4.0 * B * hq * D * n_pos
         bound = max(nbytes / bw, flops / peak) * 1e3
         return {"B": B, "positions": n_pos, "pool": pool, "ms": t_k,
-                "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+                "warm_ms": t_warm, "host_ms": t_host, "device_ms": t_dev,
+                "chunk": chunk, "n_split": n_split, "plain_ms": t_p,
+                "plain_device_ms": t_p_dev, "library_ms": t_l,
+                "library_device_ms": t_l_dev, "bound_ms": bound,
                 "bytes": nbytes, "bound_by": ("bytes" if nbytes / bw >=
                                               flops / peak else "operations"),
-                "roofline_share": bound / t_k}
+                "roofline_share": bound / t_k,
+                "device_roofline_share": bound / t_dev}
 
     main_shape = attn_times(4, 80, "bf16")      # the serve phase's decode
     emit({"phase": "kernel_paged_attention_time", **main_shape})
     for extra in (attn_times(4, 512, "bf16"), attn_times(4, 512, "int8"),
-                  attn_times(16, 2048, "bf16")):
+                  attn_times(16, 2048, "bf16"), attn_times(16, 2048, "int8")):
         emit({"phase": "kernel_paged_attention_time", **extra})
     out["paged_attention"] = {
         "name": "paged_attention", "route": "cuda",
@@ -467,7 +604,12 @@ def phase_kernels(torch, dev, bw, peak):
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
-        "scope": "one launch: 4 slots x 80 positions, bf16 pool, full width",
+        "device_ms": main_shape["device_ms"],
+        "library_device_ms": main_shape["library_device_ms"],
+        "scope": "one call: 4 slots x 80 positions, bf16 pool, full "
+                 "width, pools cold; ms, plain_ms and library_ms are eager "
+                 "loops (host cost included), device_ms and "
+                 "library_device_ms CUDA-graph replays",
         "bytes": main_shape["bytes"]}
     torch.cuda.empty_cache()
     return out
@@ -584,6 +726,7 @@ def _decode_window(torch, server, steps=5):
         return {"wall_ms_per_step": wall_ms,
                 "device_ms_per_step": "not measured"}
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
+            "paged_attn_ms_per_step": by["paged_attn"],
             "device_ms_by_kernel": by,
             "device_idle_share": max(0.0, 1.0 - dev_ms / wall_ms)}
 

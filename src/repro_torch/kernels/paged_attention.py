@@ -15,6 +15,7 @@ least one visible key.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -81,16 +82,59 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, pos,
 def _lib():
     lib = _build.load("paged_attention")
     if not getattr(lib, "_argtypes_set", False):
-        lib.paged_attention.argtypes = [_P] * 8 + [_I] * 8 + [_P]
+        lib.paged_attention.argtypes = [_P] * 9 + [_I] * 10 + [_P]
         lib.paged_attention.restype = _I
         lib._argtypes_set = True
     return lib
 
 
+# the kernel's limits (csrc/paged_attention.cu, which checks them and
+# returns an error past them): a split's table entries sit in a shared list
+# of MAX_CHUNK; a lane holds 8 elements of a row, so D <= 256; a block takes
+# 1, 2, 4 or 8 query heads of one kv head
+MAX_CHUNK = 512
+MAX_D = 256
+MAX_HEADS = 8
+MIN_SPLIT_ROWS = 128           # key rows per split: 2 steps of 8 warps
+
+
+def heads_per_block(G):
+    """Query heads a block takes of the G that share its kv head: 1, 2, 4
+    or 8.  The kernel is told this number; it does not choose its own."""
+    return 1 if G <= 1 else 2 if G <= 2 else 4 if G <= 4 else MAX_HEADS
+
+
+def head_groups(G):
+    """Blocks per kv head (the grid's head_groups)."""
+    return -(-G // heads_per_block(G))
+
+
+def split_plan(B, Hkv, G, n_bt, block_size, n_sm=132):
+    """(chunk, n_split): table entries per split and the number of splits.
+    Chosen from the shapes alone, never from ``pos`` (a device sync): as
+    many splits as one wave of B*Hkv*head_groups*n_split blocks holds on
+    ``n_sm`` SMs (one 8-warp block fills an SM: its registers on the
+    CUDA-core path, its shared ring on the tensor-core path; a second wave
+    or a merge costs more than the splits gain), none shorter than
+    MIN_SPLIT_ROWS key rows, none longer than MAX_CHUNK entries."""
+    blocks = B * Hkv * head_groups(G)
+    want = max(1, n_sm // blocks)
+    min_chunk = -(-MIN_SPLIT_ROWS // block_size)
+    chunk = min(MAX_CHUNK, n_bt, max(min_chunk, -(-n_bt // want)))
+    return chunk, -(-n_bt // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos,
                          k_scale=None, v_scale=None):
-    """The CUDA flash-decode kernel; same signature as the plain version.
-    Takes contiguous CUDA tensors only and raises on anything else."""
+    """The CUDA split-KV flash-decode kernel; same signature as the plain
+    version.  Takes contiguous CUDA tensors only and raises on anything
+    else.  One call is one kernel launch, or two (split, then merge) when
+    the table is split; ``launches`` counts calls."""
     if not q.is_cuda:
         raise ValueError("the CUDA paged attention takes CUDA tensors; a "
                          "CPU tensor goes to paged_attention_ref")
@@ -100,9 +144,11 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos,
     B, Hq, D = q.shape
     N, bs, Hkv, Dk = k_pool.shape
     quant = k_scale is not None
-    if Dk != D or v_pool.shape != k_pool.shape or Hq % Hkv or Hq // Hkv > 128:
+    if (Dk != D or v_pool.shape != k_pool.shape or Hq % Hkv
+            or Hq // Hkv > 128 or D > MAX_D):
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, pools "
-                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)} "
+                         f"(D <= {MAX_D})")
     if q.dtype not in _Q_CODE:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if quant:
@@ -129,13 +175,21 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos,
             raise ValueError("every input must be contiguous and on "
                              f"{q.device}")
     n_bt = block_tables.shape[1]
+    chunk, n_split = split_plan(B, Hkv, Hq // Hkv, n_bt, bs,
+                                _n_sm(q.device.index or 0))
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+    # the splits' partial (m, l, acc) rows, merged by a second kernel
+    part = (torch.empty((B, Hq, n_split, D + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     err = _lib().paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, D, n_bt, bs, _Q_CODE[q.dtype], _KV_CODE[k_pool.dtype],
+        None if part is None else part.data_ptr(),
+        B, Hq, Hkv, D, n_bt, bs, chunk, heads_per_block(Hq // Hkv),
+        _Q_CODE[q.dtype],
+        _KV_CODE[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention")
     paged_attention_cuda.launches += 1

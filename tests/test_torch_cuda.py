@@ -95,6 +95,116 @@ def test_paged_attention_matches_plain(cuda, seed, mode, shape):
     assert bool((got[~rows] == 0).all())
 
 
+# ---------------------------------------------------------------------------
+# The split path: tables long enough that the kernel splits them across
+# blocks, with positions on and around the split boundaries.
+# ---------------------------------------------------------------------------
+MODES = {"bf16": (torch.bfloat16, False), "bf16-int8": (torch.bfloat16, True),
+         "f32": (torch.float32, False), "f32-int8": (torch.float32, True)}
+GD = [(g, d) for g in (1, 2, 4, 6, 8, 16, 48) for d in (16, 64, 128, 256)]
+
+
+def _split_case(seed, n_bt, G, Hkv, D, mode, dev, bs=16, q_mul=1.0):
+    """Six slots: pos on the first split boundary, one short of it, inside
+    the first split only, an all -1 slot, a slot whose only visible keys lie
+    in its last split, and a full one; 30 % holes elsewhere.  ``q_mul``
+    scales q (a power of two keeps bf16 q exact): at 4 the scores spread
+    over a few units and a few keys carry each row."""
+    B = 6
+    chunk, n_split = pa.split_plan(B, Hkv, G, n_bt, bs, pa._n_sm(0))
+    assert n_split > 1
+    rng = np.random.default_rng(seed)
+    act, quant = MODES[mode]
+    N = B * n_bt + B
+    q = torch.from_numpy(rng.normal(size=(B, G * Hkv, D)).astype(np.float32))
+    q = q * q_mul
+    if quant:
+        kp, vp = (torch.from_numpy(rng.integers(
+            -127, 128, size=(N, bs, Hkv, D)).astype(np.int8))
+            for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(
+            1e-3, 0.05, size=(N, bs, Hkv, 1)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    else:
+        kp, vp = (torch.from_numpy(rng.normal(
+            size=(N, bs, Hkv, D)).astype(np.float32)).to(act)
+            for _ in range(2))
+        ks = vs = None
+    bt = rng.permutation(B * n_bt).astype(np.int32).reshape(B, n_bt)
+    bt = np.where(rng.random((B, n_bt)) < 0.3, -1, bt).astype(np.int32)
+    bt[:, 0] = np.abs(bt[:, 0])             # the first entry always present
+    bt[3] = -1
+    bt[4, :(n_split - 1) * chunk] = -1
+    bt[4, -1] = B * n_bt + 4
+    pos = np.array([chunk * bs, chunk * bs - 1, bs + 3, n_bt * bs - 1,
+                    n_bt * bs - 1, n_bt * bs - 1], np.int32)
+    return (q.to(act).to(dev), kp.to(dev), vp.to(dev),
+            torch.from_numpy(bt).to(dev), torch.from_numpy(pos).to(dev),
+            ks, vs)
+
+
+def _check_split(case, bs=16):
+    """The kernel against the plain version under chip_smoke.py's
+    per-element tolerances; rows with no visible key are exact zeros."""
+    q, kp, vp, bt, pos, ks, vs = case
+    before = ops.launch_counts()["paged_attention"]
+    got = ops.paged_decode_attention(*case)
+    assert ops.launch_counts()["paged_attention"] == before + 1
+    want = pa.paged_attention_ref(*case)
+    j = torch.arange(bt.shape[1], device=bt.device) * bs
+    rows = ((bt >= 0) & (j[None] <= pos[:, None])).any(dim=1)
+    assert bool((got[~rows] == 0).all())
+    want = want[rows].float()
+    a = pa.paged_attention_ref(q, kp, vp.abs(), bt, pos, ks, vs)[rows].float()
+    tol = (2.0 ** -7 * want.abs() + 2.0 ** -5 * a
+           if q.dtype == torch.bfloat16 else 1e-5 * (want.abs() + a))
+    d = (got[rows].float() - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((d <= tol).all()), float((d - tol).max())
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("n_bt", [64, 160])
+def test_paged_attention_split_boundaries(cuda, seed, mode, n_bt):
+    _check_split(_split_case(seed, n_bt, 4, 8, 128, mode, cuda))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("G,D", GD)
+def test_paged_attention_split_every_group_and_width(cuda, mode, G, D):
+    _check_split(_split_case(G * 1000 + D, 64, G, 1 if G == 48 else 2, D,
+                             mode, cuda))
+
+
+TIGHT = [(g, d, 1 if g == 48 else 2, 64) for g, d in GD] + [(4, 128, 8, 160)]
+
+
+@pytest.mark.parametrize("q_mul", [1.0, 4.0])
+@pytest.mark.parametrize("G,D,Hkv,n_bt", TIGHT)
+def test_paged_attention_bf16_tight(cuda, q_mul, G, D, Hkv, n_bt):
+    """bf16 q and pool (the tensor-core path at D 64 and 128) against the
+    plain version run in f32 on the same bf16 values.  The kernel rounds
+    twice: p to bf16 before P.V (at most 2^-8 of each term, so 2^-8 A) and
+    the output to bf16 (2^-8 |want|); its dots, exps and sums are f32.  The
+    check allows twice that, 2^-7 (|want| + A): a few per cent off in p, as
+    from a wrong score scale, shows at q_mul 4, where a few keys carry each
+    row and |want| is of the size of A."""
+    case = _split_case(G * 1000 + D + 7, n_bt, G, Hkv, D, "bf16", cuda,
+                       q_mul=q_mul)
+    q, kp, vp, bt, pos, _, _ = case
+    got = ops.paged_decode_attention(*case).float()
+    q32, k32, v32 = (t.float() for t in (q, kp, vp))
+    want = pa.paged_attention_ref(q32, k32, v32, bt, pos)
+    a = pa.paged_attention_ref(q32, k32, v32.abs(), bt, pos)
+    j = torch.arange(bt.shape[1], device=bt.device) * 16
+    rows = ((bt >= 0) & (j[None] <= pos[:, None])).any(dim=1)
+    assert bool((got[~rows] == 0).all())
+    d = (got - want)[rows].abs()
+    tol = 2.0 ** -7 * (want[rows].abs() + a[rows])
+    assert bool((d <= tol).all()), float((d - tol).max())
+
+
 def test_serving_on_the_card_matches_the_cpu(cuda):
     """Reduced qwen3-8b psi8 (float32): the same params and trace give the
     same greedy tokens on the card and on the CPU, through kernels 1 and 3

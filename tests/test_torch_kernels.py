@@ -114,17 +114,25 @@ def _torch_args(case, device="cpu", act=torch.float32):
 
 @pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("mode", ["f32", "int8"])
-@pytest.mark.parametrize("B,n_bt", [(1, 2), (3, 3), (4, 6)])
+@pytest.mark.parametrize("B,n_bt", [(1, 2), (3, 3), (4, 6), (2, 40)])
 def test_paged_attention_ref_matches_jax(seed, mode, B, n_bt):
+    """The plain version against the JAX oracle; at the long table (40
+    entries, long enough for the CUDA kernel to split it) also against the
+    Pallas kernel in interpret mode, which returns exact zeros on rows with
+    no visible key."""
     case = _case(seed * 31 + B, B, n_bt, mode)
     q, kp, vp, bt, pos, ks, vs = case
-    want = np.asarray(jpa.paged_attention_ref(
-        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
-        jnp.asarray(pos), None if ks is None else jnp.asarray(ks),
-        None if vs is None else jnp.asarray(vs)))
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, bt, pos)] + [
+        None if a is None else jnp.asarray(a) for a in (ks, vs)]
+    want = np.asarray(jpa.paged_attention_ref(*jargs))
     got = tpa.paged_attention_ref(*_torch_args(case)).numpy()
     rows = _visible_rows(bt, pos)
     np.testing.assert_allclose(got[rows], want[rows], **F32)
+    if n_bt >= 40:
+        interp = np.asarray(jpa.paged_attention_pallas(*jargs,
+                                                       interpret=True))
+        np.testing.assert_allclose(got[rows], interp[rows], **F32)
+        assert (interp[~rows] == 0).all()
 
 
 def test_synth_positions_match():
@@ -142,6 +150,33 @@ def test_traffic_model_matches(quantized):
     for args in [(128, 16, 8, 128), (5, 4, 2, 16)]:
         assert (jpa.streamed_bytes(*args, quantized=quantized)
                 == tpa.streamed_bytes(*args, quantized=quantized))
+
+
+@pytest.mark.parametrize("B,Hkv,G,n_bt", [
+    (4, 8, 4, 5), (4, 8, 4, 32), (16, 8, 4, 128), (1, 1, 48, 64),
+    (64, 8, 4, 2048), (2, 2, 6, 160), (256, 8, 1, 3)])
+def test_split_plan_covers_the_table(B, Hkv, G, n_bt):
+    """Every table entry lies in exactly one split of at most MAX_CHUNK
+    entries; a table is split only while the grid fits in one wave of one
+    block per SM, and each split keeps MIN_SPLIT_ROWS key rows."""
+    bs, n_sm = 16, 132
+    chunk, n_split = tpa.split_plan(B, Hkv, G, n_bt, bs, n_sm)
+    assert 1 <= chunk <= tpa.MAX_CHUNK
+    assert (n_split - 1) * chunk < n_bt <= n_split * chunk
+    blocks = B * Hkv * tpa.head_groups(G)
+    if n_split > 1 and chunk < tpa.MAX_CHUNK:
+        assert chunk * bs >= tpa.MIN_SPLIT_ROWS
+        assert blocks * n_split <= n_sm
+    if blocks >= n_sm:
+        assert n_split == -(-n_bt // tpa.MAX_CHUNK)
+
+
+@pytest.mark.parametrize("G,groups", [(1, 1), (2, 1), (4, 1), (6, 1),
+                                      (8, 1), (16, 2), (48, 6)])
+def test_head_groups(G, groups):
+    per = tpa.heads_per_block(G)
+    assert per in (1, 2, 4, 8)
+    assert tpa.head_groups(G) == groups == -(-G // per)
 
 
 # ---------------------------------------------------------------------------
