@@ -13,15 +13,17 @@ before the result line:
   2. kernels           — each kernel against its plain version at the
                          serving shapes (and ragged reduced ones; for paged
                          attention also tables long enough to split, every
-                         (G, D) of the configs), with its median time, the
+                         (G, D) of the configs), with its eager median time
+                         (ms), its device time from CUDA-graph replays
+                         (device_ms), its host time per call (host_ms), the
                          plain version's, one library call's (yardstick
-                         only) and the memory bound; paged attention's
-                         times are device times from CUDA-graph replays;
+                         only) and the memory bound;
   3. serve psi8        — Server.serve of qwen3-8b, all 36 layers, in
                          continuous and static modes: identical tokens, and
-                         253 PSI-matmul + 36 attention launches per decode
-                         step;
-  4. serve psi5        — the packed path, depth cut to 2 layers;
+                         253 PSI-matmul (kernel 1) + 36 attention launches
+                         per decode step; a profiled decode window;
+  4. serve psi5        — the same at psi5, all 36 layers, fewer requests:
+                         the packed path (kernel 2), 253 launches per step;
   5. card vs CPU       — prefill + 8 greedy decode steps of a 2-layer
                          float32 psi8 model on the card and on the CPU;
   6. summary           — {"kernels": [...]}, the card line, then the result
@@ -118,14 +120,17 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": round(build_s, 3),
           "build_dir": str(build.relative_to(ROOT)),
-          "registers_per_thread": regs, "bytes_per_s": bw,
-          "bf16_flop_per_s": peak})
+          "registers_per_thread": regs,
+          "psi5_mma_ptxas": _ptxas_report(
+              (build / "psi_matmul.log").read_text(),
+              "psi_gemm_mma_kernelILi5E"),
+          "bytes_per_s": bw, "bf16_flop_per_s": peak})
 
     from repro_torch.kernels import ops
     summary = phase_kernels(torch, dev, bw, peak)
     launches = {}
-    phase_serve_psi8(torch, dev, launches)
-    phase_serve_psi5(torch, dev, launches)
+    phase_serve(torch, dev, launches, "psi8")
+    phase_serve(torch, dev, launches, "psi5")
     phase_card_vs_cpu(torch, dev)
 
     # ---------------------------------------------------------- 6. summary
@@ -141,6 +146,22 @@ def main():
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _ptxas_report(log, key):
+    """{"BITS,NT,VEC": "N registers, ... smem"} from ptxas -v for the kernels
+    whose mangled names contain ``key`` (template arguments ILi5ELi1ELb1 ->
+    "5,1,1")."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if key in line else None
+        elif fn and "Used " in line:
+            args = fn.split(key[:-4], 1)[1].split("EE")[0]
+            label = ",".join(c for c in args if c.isdigit())
+            out[label] = line.split("Used ", 1)[1].strip()
+            fn = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +259,7 @@ def _gemm_errors(torch, ops, ref, qt, plain, Ms, dtype, gen, dev):
 
 def phase_kernels(torch, dev, bw, peak):
     from repro_torch.core import psi
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -246,8 +267,9 @@ def phase_kernels(torch, dev, bw, peak):
     out = {}
     max_err = {"psi_matmul_codes": 0.0, "psi_matmul_packed": 0.0,
                "paged_attention": 0.0}
-    agg = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bytes": 0.0, "flops": 0.0}
+    agg = {k: dict.fromkeys(("ms", "device_ms", "host_ms", "plain_ms",
+                             "library_ms", "library_device_ms", "bytes",
+                             "flops"), 0.0)
            for k in ("psi_matmul_codes", "psi_matmul_packed")}
 
     # -- ragged shapes, f32 (the reduced configs' dtype): reduced widths,
@@ -300,15 +322,22 @@ def phase_kernels(torch, dev, bw, peak):
             row[f"psi{bits}_max_abs_err"] = err
             if bits not in (8, 5):
                 continue
-            # times at the decode shape (M = max_batch), weights cold
+            # times at the decode shape (M = max_batch), weights cold.
+            # ms, plain_ms, library_ms: eager loops timed by CUDA events (an
+            # eager call costs its host time, host_ms, where that exceeds its
+            # device time); device_ms, library_device_ms: the same calls
+            # replayed from a CUDA graph, i.e. device time without the host
             wbytes = qt.data.numel() * qt.data.element_size()
             datas = _copies(qt.data, wbytes)
             scale = qt.scale.reshape(-1)
             x = torch.randn(DECODE_M, K, generator=gen, device=dev).to(bf16)
             sub = psi.QuantizedTensor
-            kern = lambda i: ops.psi_matmul_2d(
+            kern = lambda i, x=x: ops.psi_matmul_2d(
                 x, sub(datas[i], scale, qt.fmt, qt.packed))
             t_k = _median_ms(torch, kern, len(datas))
+            n_graph = max(20, len(datas))   # every copy once: cold
+            t_dev = _graph_ms(torch, kern, len(datas), iters=n_graph)
+            t_host = _host_ms(torch, kern, len(datas))
             if bits == 8:
                 pl = lambda i: ref.psi_matmul_codes_ref(x, datas[i], scale)
             else:
@@ -317,29 +346,34 @@ def phase_kernels(torch, dev, bw, peak):
             t_p = _median_ms(torch, pl, len(datas), iters=3, reps=3)
             wdq = qt.dequantize(bf16)
             libs = _copies(wdq, wdq.numel() * 2)
-            t_l = _median_ms(torch, lambda i: torch.matmul(x, libs[i]),
-                             len(libs))
+            lib = lambda i: torch.matmul(x, libs[i])
+            t_l = _median_ms(torch, lib, len(libs))
+            t_l_dev = _graph_ms(torch, lib, len(libs),
+                                iters=max(20, len(libs)))
             del libs, wdq
             nbytes = (wbytes + 4 * N + 2 * DECODE_M * K + 2 * DECODE_M * N)
             flops = 2.0 * DECODE_M * K * N
             bound = max(nbytes / bw, flops / peak) * 1e3
             row[f"psi{bits}_decode"] = {
-                "M": DECODE_M, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                "bound_ms": bound, "bytes": nbytes,
-                "roofline_share": bound / t_k}
+                "M": DECODE_M, "ms": t_k, "device_ms": t_dev,
+                "host_ms": t_host, "plain_ms": t_p, "library_ms": t_l,
+                "library_device_ms": t_l_dev, "bound_ms": bound,
+                "bytes": nbytes, "roofline_share": bound / t_k,
+                "device_roofline_share": bound / t_dev}
             a = agg[key]
-            a["ms"] += per_step * t_k
-            a["plain_ms"] += per_step * t_p
-            a["library_ms"] += per_step * t_l
-            a["bytes"] += per_step * nbytes
-            a["flops"] += per_step * flops
-            if bits == 8:                       # one prefill-shaped time
-                xp = torch.randn(PREFILL_M, K, generator=gen,
-                                 device=dev).to(bf16)
-                row["psi8_prefill_ms"] = _median_ms(
-                    torch, lambda i: ops.psi_matmul_2d(
-                        xp, sub(datas[i], scale, qt.fmt, False)),
-                    len(datas), iters=3, reps=3)
+            for f, t in (("ms", t_k), ("device_ms", t_dev),
+                         ("host_ms", t_host), ("plain_ms", t_p),
+                         ("library_ms", t_l), ("library_device_ms", t_l_dev),
+                         ("bytes", nbytes), ("flops", flops)):
+                a[f] += per_step * t
+            # one prefill-shaped time (an admission's bucketed prompt)
+            xp = torch.randn(PREFILL_M, K, generator=gen, device=dev).to(bf16)
+            row[f"psi{bits}_prefill"] = {
+                "M": PREFILL_M,
+                "ms": _median_ms(torch, lambda i: kern(i, xp), len(datas),
+                                 iters=3, reps=3),
+                "device_ms": _graph_ms(torch, lambda i: kern(i, xp),
+                                       len(datas), iters=5)}
             del datas
         emit(row)
         del w
@@ -359,8 +393,13 @@ def phase_kernels(torch, dev, bw, peak):
             "bound_by": ("bytes" if a["bytes"] / bw >= a["flops"] / peak
                          else "operations"),
             "library_ms": a["library_ms"],
+            "device_ms": a["device_ms"], "host_ms": a["host_ms"],
+            "library_device_ms": a["library_device_ms"],
+            "device_roofline_share": bound / a["device_ms"],
             "scope": f"one full-width decode step at psi{bits}: 253 "
-                     f"launches at M={DECODE_M}, weights cold",
+                     f"launches at M={DECODE_M}, weights cold; ms, plain_ms "
+                     f"and library_ms are eager loops (host cost included), "
+                     f"device_ms and library_device_ms CUDA-graph replays",
             "bytes": a["bytes"]}
 
     # -- paged attention
@@ -445,7 +484,8 @@ def phase_kernels(torch, dev, bw, peak):
     # slot; every (G, D) the configs use, in all four q/pool types
     def split_case(seed, n_bt, G, hkv, D, qdt, pool, bs=16):
         B = 6
-        chunk, n_split = pa.split_plan(B, hkv, G, n_bt, bs, pa._n_sm(0))
+        chunk, n_split = pa.split_plan(B, hkv, G, n_bt, bs,
+                                       _build.sm_count(0))
         check(n_split > 1, f"split case n_bt={n_bt} G={G} did not split")
         q, kp, vp, bt, _, ks, vs = case(seed, B, n_bt, G * hkv, hkv, D, bs,
                                         qdt, pool)
@@ -573,7 +613,7 @@ def phase_kernels(torch, dev, bw, peak):
         t_l_dev = _graph_ms(torch, lib, len(kgs))
         del sets, kgs, vgs
         chunk, n_split = pa.split_plan(B, hkv, hq // hkv, n_bt, bs,
-                                       pa._n_sm(0))
+                                       _build.sm_count(0))
         valid = int((bt >= 0).sum())
         nbytes = (pa.streamed_bytes(valid, bs, hkv, D,
                                     quantized=pool == "int8")
@@ -628,10 +668,16 @@ def _serve_args(**kw):
     return argparse.Namespace(**base)
 
 
-def phase_serve_psi8(torch, dev, launches):
+def phase_serve(torch, dev, launches, quant):
+    """Server.serve of full-width qwen3-8b (all 36 layers) from ``quant``
+    codes, continuous then static: identical tokens, 253 PSI-matmul
+    launches per forward (kernel 1 at psi8, kernel 2 at psi5) and 36
+    attention launches per decode step, then a profiled decode window."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    args = _serve_args()
+    args = (_serve_args() if quant == "psi8" else
+            _serve_args(quant=quant, requests=4, max_new=8, min_new=4))
+    key = "psi_matmul_codes" if quant == "psi8" else "psi_matmul_packed"
     t0 = time.perf_counter()
     server, cfg = serve.build_server(args)
     torch.cuda.synchronize()
@@ -648,16 +694,18 @@ def phase_serve_psi8(torch, dev, launches):
     torch.cuda.synchronize()
     got = ops.launch_counts()                         # ... and ends here
     (tc, sc, done_c), (ts, ss, _) = runs["continuous"], runs["static"]
-    check(tc == ts, "continuous and static modes emitted different tokens")
+    check(tc == ts, f"{quant}: continuous and static modes emitted "
+                    f"different tokens")
     check(all(len(r.tokens) == r.max_new for r in done_c),
-          "a request did not get its max_new tokens")
+          f"{quant}: a request did not get its max_new tokens")
     check(all(0 <= t < cfg.vocab_size for toks in tc.values() for t in toks),
           "token id out of the vocabulary")
     steps = sc["decode_steps"] + ss["decode_steps"]
     fwd = sc["prefill_forwards"] + ss["prefill_forwards"]
-    want = {"psi_matmul_codes": 253 * (steps + fwd),
-            "psi_matmul_packed": 0, "paged_attention": 36 * steps}
-    check(got == want, f"launch counts {got} != expected {want} "
+    want = {"psi_matmul_codes": 0, "psi_matmul_packed": 0,
+            "paged_attention": 36 * steps}
+    want[key] = 253 * (steps + fwd)
+    check(got == want, f"{quant} launch counts {got} != expected {want} "
                        f"(253 per forward, 36 attention per decode step)")
     ex = server.executor
     r0 = done_c[0]
@@ -666,13 +714,15 @@ def phase_serve_psi8(torch, dev, launches):
             ex.params, torch.as_tensor(r0.prompt[None], device=dev))
     check(bool(torch.isfinite(logits).all()) and logits.shape ==
           (1, len(r0.prompt), cfg.vocab_size), "prefill logits not finite")
-    launches.update(got)
+    launches[key] = got[key]
+    launches["paged_attention"] = (launches.get("paged_attention", 0)
+                                   + got["paged_attention"])
     window = _decode_window(torch, server)
     keep = ("tok_per_s", "wall_s", "tokens", "p50_latency_s",
             "p99_latency_s", "p50_ttft_s", "p99_ttft_s", "p50_itl_s",
             "p99_itl_s", "decode_steps", "prefill_forwards",
             "peak_concurrency", "cache_bytes", "block_util_pct")
-    emit({"phase": "serve_psi8_full_width", "layers": cfg.n_layers,
+    emit({"phase": f"serve_{quant}_full_width", "layers": cfg.n_layers,
           "requests": args.requests, "max_batch": args.max_batch,
           "prompt_len": f"{args.prompt_len}+-{args.prompt_jitter}",
           "max_new": args.max_new, "init_quantize_s": round(init_s, 3),
@@ -726,6 +776,8 @@ def _decode_window(torch, server, steps=5):
         return {"wall_ms_per_step": wall_ms,
                 "device_ms_per_step": "not measured"}
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": dev_ms,
+            "psi_gemm_ms_per_step": by["psi_gemm"],
+            "psi_gemm_share": by["psi_gemm"] / dev_ms,
             "paged_attn_ms_per_step": by["paged_attn"],
             "device_ms_by_kernel": by,
             "device_idle_share": max(0.0, 1.0 - dev_ms / wall_ms)}
@@ -734,35 +786,6 @@ def _decode_window(torch, server, steps=5):
 def _param_bytes(params):
     from repro_torch.core.quantizer import quantized_bytes
     return quantized_bytes(params)
-
-
-def phase_serve_psi5(torch, dev, launches):
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
-    args = _serve_args(quant="psi5", n_layers=2, requests=4, max_new=8,
-                       min_new=4)
-    server, cfg = serve.build_server(args)
-    server.warmup(serve.trace_from_args(args, cfg))
-    ops.reset_launch_counts()                         # the psi5 path starts
-    done, stats = server.serve(serve.trace_from_args(args, cfg),
-                               warmup=False)
-    torch.cuda.synchronize()
-    got = ops.launch_counts()
-    per = 7 * cfg.n_layers + 1
-    want = {"psi_matmul_codes": 0,
-            "psi_matmul_packed": per * (stats["decode_steps"]
-                                        + stats["prefill_forwards"]),
-            "paged_attention": cfg.n_layers * stats["decode_steps"]}
-    check(got == want, f"psi5 launch counts {got} != expected {want}")
-    check(all(len(r.tokens) == r.max_new for r in done), "psi5 serve short")
-    launches["psi_matmul_packed"] = got["psi_matmul_packed"]
-    emit({"phase": "serve_psi5_cut_depth", "layers": cfg.n_layers,
-          "depth_cut": f"36 -> {cfg.n_layers} layers (full widths)",
-          "tok_per_s": stats["tok_per_s"],
-          "decode_steps": stats["decode_steps"], "launches": got,
-          "param_bytes": _param_bytes(server.executor.params)})
-    del server
-    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

@@ -3,39 +3,91 @@
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   psi_matmul_codes  <- repro/kernels/psi_matmul.py::psi_matmul_int8
-//                        (body _int8_kernel; int8 codes (K, N))
+//                        (psi_matmul.py:153, body _int8_kernel; int8 codes
+//                        (K, N))
 //   psi_matmul_packed <- repro/kernels/psi_matmul.py::psi_matmul_packed
-//                        (body _packed_kernel; uint8 bit-planes (bits, K/8, N),
-//                        bit j of planes[b][i][n] is bit b of the offset-binary
-//                        weight 8i+j, bits 2..7)
+//                        (psi_matmul.py:197, body _packed_kernel; uint8
+//                        bit-planes (bits, K/8, N), bit j of planes[b][i][n]
+//                        is bit b of the offset-binary weight 8i+j, bits 2..7)
 //
 // Bound on the H100: on the serving path M is the decode batch (1-16), so the
 // work is a GEMV over the weight: every code byte (or bits/8 plane bytes per
 // weight) is read once from HBM and used M times.  The bound is the weight
 // bytes over the memory rate (wq 16.8 MB -> 5.0 us at 3.35 TB/s; packed psi5
-// reads 5/8 of that).  Prefill (M = prompt tokens) is the only place the
-// arithmetic (2*M*K*N) could matter.
+// reads 5/8 of that, 1.42 ms for a whole qwen3-8b decode step).  Prefill
+// (M = prompt tokens) is the only place the arithmetic (2*M*K*N) could matter.
 //
-// Design against that bound (a first, simple kernel — no tensor cores, no TMA):
+// Two designs live here.
+//
+// (1) psi_gemm_kernel, CUDA cores: kernel 1 (int8 codes, x f32 or bf16) and
+// kernel 2 with f32 x (the reduced configurations; a TF32 product would miss
+// their 1e-5 tolerance).
 //   * One 256-thread block per (32-column N tile, BM-row M tile).  Lanes read
 //     4 adjacent columns per load (char4 / one 32-bit word per plane), so the
 //     8 threads of one K row fetch one 32-byte sector and a warp four rows.
 //     When N % 4 != 0 (or W is not 4-byte aligned) the rows are not word
 //     aligned, so a second instantiation (VEC = false, BM = 8 only) reads
-//     the same 4 columns byte by byte instead, masking the columns past N;
-//     the aligned shapes of the serving path keep the word loads.
+//     the same 4 columns byte by byte instead, masking the columns past N.
 //   * The TPU's sequential K grid axis becomes a loop inside the block: the
 //     32 K-lanes of the block stride over K, each accumulating BM x 4 f32
 //     partial sums in registers; one shared-memory pass reduces the K-lanes,
 //     applies scale[n] once and stores in x's dtype.
-//   * x is staged in shared memory as f32, 512 K values per pass.
-//   * BM (1, 4 or 8) follows M so a decode step does not pay for padded rows.
-//   * Ragged M, N and K are masked, never padded: the packed kernel reads only
-//     the K/8 plane rows that exist, so no padded byte (which would decode to
-//     -2^(bits-1)) is ever touched.
+//   * x is staged in shared memory as f32, 512 K values per pass; BM (1, 4
+//     or 8) follows M.
+//
+// (2) psi_gemm_mma_kernel, tensor cores: kernel 2 with bf16 x (the serving
+// path).  Rebuilding each weight bit by bit on CUDA cores (~3*bits integer
+// ops per weight, then an FMA per token) set the pace of design (1) at about
+// 9 % of the byte bound, so this route is built around the decode's
+// instruction count:
+//   * out^T = W^T x^T on mma.sync.m16n8k16 (bf16 in, f32 accumulate): 16
+//     output channels on the MMA's M side, 8 tokens on its N side, so a
+//     decode step of 1-8 tokens fills one N tile; larger M loops over up to
+//     NT token tiles per block (prefill).  PSI weights are integers with
+//     |w| <= 64, exact in bf16, so every product is exact and only the order
+//     of the f32 sum differs from the plain version.
+//   * A word-parallel bit-plane decode.  The MMA sums over k, so the k slots
+//     of a fragment may stand for any K as long as A and B agree.  They are
+//     chosen so that lane (g, t) of a warp owns plane bytes, not bits: per
+//     64-K group it loads, per plane, the 32-bit words P = planes[b][i0+t]
+//     [n0+4g .. +3] and Q = planes[b][i0+4+t][same columns] straight from
+//     device memory (8 lanes of one row read one 32-byte sector; the next
+//     group's words are in flight while this one decodes), so its four
+//     channels 4g..4g+3 are the rows g, g+8 of two 16-row A tiles.  One prmt
+//     pairs P and Q per A tile, giving words of four byte lanes (two
+//     channels x K rows 8(i0+t)+j and 8(i0+4+t)+j); an 8 x 8 bit transpose
+//     of the BITS plane words (three delta-swap stages, a shift and a lop3
+//     per word per swap, on all four byte lanes at once) leaves word j
+//     holding the four offset-binary weights of bit j.  Two prmt turn the
+//     byte lanes into bf16 pairs 0x43vv (= 128+v) and one bf16x2 subtract
+//     of 128 + 2^(bits-1) leaves the signed weight: about 2.5 integer ops
+//     per weight at psi5, against ~3*bits + 2 in design (1).  x is read as
+//     two 16-byte loads per token and group and paired in the same K order
+//     by prmt.
+//   * Enough blocks at every shape: a block is 8 warps on one 32-channel
+//     tile; the warps take the block's 64-K groups in turn and sum through
+//     shared memory in warp order.  Where N/32 tiles cannot give one block
+//     per SM, K is split across the blocks of a cluster (at most 8 splits
+//     of `chunk` groups, chosen on the host from K and N only:
+//     kernels/psi_matmul.py::split_plan), which add their sums in split
+//     order through distributed shared memory.  No atomics and no second
+//     pass: a row's output depends only on its own x row and W, bit for
+//     bit, whatever M or the other rows are.
+//   * What bounds it now: the integer pipe (64 lanes per clock per SM, so
+//     ~2.5 integer ops a weight at psi5 take about as long as streaming its
+//     5/8 byte), and at the small shapes the start-up of a launch; PERF.md
+//     has the measured times against the byte bound.
+//   * Edges are masked, never padded: columns past N load 0 and are never
+//     stored; plane rows past K/8 load 0 (decoding to -2^(bits-1)) against x
+//     loaded as 0, so they add exact zeros; tokens past M load x = 0 and are
+//     never stored.  Unaligned rows (N % 4 != 0 or planes not 4-byte
+//     aligned) take a byte-load instantiation (VEC = false).
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -171,6 +223,280 @@ psi_gemm_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// (2) Tensor-core route of kernel 2 (bf16 x).
+// ---------------------------------------------------------------------------
+constexpr int kMmaWarps = 8;            // warps per block, one channel tile
+constexpr int kMmaBN = 32;              // channels per block (two A tiles)
+constexpr int kGroupRows = 8;           // plane rows per group (64 K)
+constexpr int kMaxSplit = 8;            // K splits: a portable cluster
+
+// One step of an 8 x 8 bit transpose (Hacker's Delight, transpose8),
+// done in four byte lanes at once: bits j + S of `lo` (j in the lower half
+// of each 2S-bit field, the bits MASK selects) trade places with bits j of
+// `hi`.  A shift and a lop3 for each word.
+template <int S, uint32_t MASK>
+__device__ __forceinline__ void transpose_step(uint32_t& lo, uint32_t& hi) {
+  const uint32_t l = (lo & ~(MASK << S)) | ((hi << S) & (MASK << S));
+  hi = (hi & ~MASK) | ((lo >> S) & MASK);
+  lo = l;
+}
+
+// bf16x2 a - b (exact here: small integers)
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 32-bit word at p: columns n .. n+3 of a plane row (0 past the edges;
+// bytewise where rows are not word aligned).
+template <bool VEC>
+__device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ p,
+                                              bool row_ok, int n, int N) {
+  if (!row_ok || n >= N) return 0u;
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    uint32_t v = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (n + c < N) v |= (uint32_t)__ldg(p + c) << (8 * c);
+    return v;
+  }
+}
+
+// x[tok][8*row .. 8*row+7] as 16 bytes (0 past M or past K/8 rows)
+__device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* __restrict__ x,
+                                         int tok, int M, int row, int rows,
+                                         int K) {
+  if (tok >= M || row >= rows) return make_uint4(0u, 0u, 0u, 0u);
+  return __ldg(reinterpret_cast<const uint4*>(x + (size_t)tok * K + 8 * row));
+}
+
+// Grid (ceil(N/32), n_split, ceil(M/(8*NT))), 8 warps, launched as clusters
+// of (1, n_split, 1): split s takes the 64-K groups [s*chunk, min(groups,
+// (s+1)*chunk)) and warp w groups w, w+8, ... of them.  Each block sums its
+// warps in shared memory; the blocks of a cluster then add the splits, in
+// split order, through distributed shared memory, and store bf16.  Up to two
+// token tiles, registers are held to three blocks per SM; four tiles' 32
+// accumulators need more.
+template <int BITS, int NT, bool VEC>
+__global__ void __launch_bounds__(kMmaWarps * 32, NT == 4 ? 1 : 3)
+psi_gemm_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                    const uint8_t* __restrict__ planes,
+                    const float* __restrict__ scale,
+                    __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                    int chunk) {
+  __shared__ float red[kMmaWarps][NT * 8 * kMmaBN];   // [warp][tok][ch]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rows = K >> 3;                          // plane rows
+  const int groups = (rows + kGroupRows - 1) / kGroupRows;
+  const int gs = blockIdx.y * chunk;
+  const int ge = min(groups, gs + chunk);
+  const int nb = blockIdx.x * kMmaBN;
+  const int n = nb + 4 * g;                         // this lane's 4 channels
+  const int m0 = blockIdx.z * 8 * NT;
+  const size_t pstride = (size_t)rows * N;
+  // bf16 pairs (128 + 2^(BITS-1)) and the 0x43 exponent byte of 128 + v
+  constexpr uint32_t kBias = (0x4300u | (1u << (BITS - 1))) * 0x10001u;
+  constexpr uint32_t kExp = 0x43434343u;
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][nt][c] = 0.f;
+
+  // plane 0, row t, this lane's columns; a group is 8 rows further on
+  const uint8_t* pw = planes + (size_t)t * N + n;
+  const size_t q_off = (size_t)4 * N;
+  // P: row 8*grp + t of every plane, Q: row 8*grp + 4 + t
+  auto load_group = [&](int grp, uint32_t(&P)[BITS], uint32_t(&Q)[BITS]) {
+    const uint8_t* p = pw + (size_t)grp * 8 * N;
+    const bool pa = grp * 8 + t < rows, pb = grp * 8 + 4 + t < rows;
+#pragma unroll
+    for (int b = 0; b < BITS; ++b, p += pstride) {
+      P[b] = load_word<VEC>(p, pa, n, N);
+      Q[b] = load_word<VEC>(p + q_off, pb, n, N);
+    }
+  };
+  uint32_t P[BITS], Q[BITS];
+  int grp = gs + warp;
+  if (grp < ge) load_group(grp, P, Q);
+  for (; grp < ge; grp += kMmaWarps) {
+    const int ra = grp * 8 + t, rb = ra + 4;
+    // the two A tiles' words, byte lanes [ch 4g|4g+2 @ ra, ch 4g+1|4g+3 @
+    // ra, the same @ rb]; planes past BITS are 0
+    uint32_t W[2][8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const uint32_t p = P[b % BITS], q = Q[b % BITS];
+      W[0][b] = b < BITS ? __byte_perm(p, q, 0x5410) : 0u;
+      W[1][b] = b < BITS ? __byte_perm(p, q, 0x7632) : 0u;
+    }
+    if (grp + kMmaWarps < ge) load_group(grp + kMmaWarps, P, Q);  // prefetch
+    uint4 xa[NT], xb[NT];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int tok = m0 + nt * 8 + g;
+      xa[nt] = load_x8(x, tok, M, ra, rows, K);
+      xb[nt] = load_x8(x, tok, M, rb, rows, K);
+    }
+    // per byte lane, an 8 x 8 bit transpose (plane b, bit j) -> (j, b):
+    // afterwards W[a][j] holds in each byte lane the offset-binary weight of
+    // K row 8*(ra or rb) + j
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      transpose_step<4, 0x0F0F0F0Fu>(W[a][0], W[a][4]);
+      transpose_step<4, 0x0F0F0F0Fu>(W[a][1], W[a][5]);
+      transpose_step<4, 0x0F0F0F0Fu>(W[a][2], W[a][6]);
+      transpose_step<4, 0x0F0F0F0Fu>(W[a][3], W[a][7]);
+      transpose_step<2, 0x33333333u>(W[a][0], W[a][2]);
+      transpose_step<2, 0x33333333u>(W[a][1], W[a][3]);
+      transpose_step<2, 0x33333333u>(W[a][4], W[a][6]);
+      transpose_step<2, 0x33333333u>(W[a][5], W[a][7]);
+      transpose_step<1, 0x55555555u>(W[a][0], W[a][1]);
+      transpose_step<1, 0x55555555u>(W[a][2], W[a][3]);
+      transpose_step<1, 0x55555555u>(W[a][4], W[a][5]);
+      transpose_step<1, 0x55555555u>(W[a][6], W[a][7]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {                   // MMA k-step: bits 2q, 2q+1
+      uint32_t afrag[2][4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // rows g (bytes 0, 2) and g+8 (bytes 1, 3) as bf16 pairs
+          const uint32_t v = W[a][2 * q + h];
+          afrag[a][2 * h] = bf16x2_sub(__byte_perm(v, kExp, 0x4240),
+                                       kBias);
+          afrag[a][2 * h + 1] = bf16x2_sub(__byte_perm(v, kExp, 0x4341),
+                                           kBias);
+        }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint32_t wa = q == 0 ? xa[nt].x : q == 1 ? xa[nt].y
+                          : q == 2 ? xa[nt].z : xa[nt].w;
+        const uint32_t wb = q == 0 ? xb[nt].x : q == 1 ? xb[nt].y
+                          : q == 2 ? xb[nt].z : xb[nt].w;
+        // K rows 8ra+2q, 8rb+2q and 8ra+2q+1, 8rb+2q+1
+        const uint32_t b0 = __byte_perm(wa, wb, 0x5410);
+        const uint32_t b1 = __byte_perm(wa, wb, 0x7632);
+        mma_bf16(acc[0][nt], afrag[0], b0, b1);
+        mma_bf16(acc[1][nt], afrag[1], b0, b1);
+      }
+    }
+  }
+
+  // C fragment: acc[a][nt] = {(row g, tok 2t), (row g, tok 2t+1),
+  // (row g+8, tok 2t), (row g+8, tok 2t+1)}; A tile a row g is channel
+  // 4g + 2a, row g+8 channel 4g + 2a + 1
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float* r = red[warp] + (nt * 8 + 2 * t) * kMmaBN + 4 * g + 2 * a;
+      r[0] = acc[a][nt][0];
+      r[kMmaBN] = acc[a][nt][1];
+      r[1] = acc[a][nt][2];
+      r[kMmaBN + 1] = acc[a][nt][3];
+    }
+  __syncthreads();
+  // the block's sum over its warps, in warp order, into red[0]
+  for (int idx = threadIdx.x; idx < NT * 8 * kMmaBN;
+       idx += kMmaWarps * 32) {
+    float s = red[0][idx];
+#pragma unroll
+    for (int w = 1; w < kMmaWarps; ++w) s += red[w][idx];
+    red[0][idx] = s;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  // the splits' sums, in split order: the cluster's blocks share the
+  // outputs of the tile between them
+  const int n_split = (int)cluster.num_blocks();
+  for (int idx = cluster.block_rank() * kMmaWarps * 32 + threadIdx.x;
+       idx < NT * 8 * kMmaBN; idx += n_split * kMmaWarps * 32) {
+    const int ch = idx % kMmaBN, row = m0 + idx / kMmaBN;
+    const int col = nb + ch;
+    if (row >= M || col >= N) continue;
+    float s = 0.f;
+    for (int r = 0; r < n_split; ++r)
+      s += cluster.map_shared_rank(&red[0][0], r)[idx];
+    out[(size_t)row * N + col] = __float2bfloat16(s * scale[col]);
+  }
+  cluster.sync();              // keep red alive until the cluster has read it
+}
+
+template <int BITS, int NT, bool VEC>
+int launch_mma_t(const void* x, const void* w, const void* scale, void* out,
+                 int M, int K, int N, int chunk, int n_split,
+                 cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kMmaBN - 1) / kMmaBN, n_split,
+                     (M + 8 * NT - 1) / (8 * NT));
+  cfg.blockDim = dim3(kMmaWarps * 32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = n_split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, psi_gemm_mma_kernel<BITS, NT, VEC>,
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M,
+      K, N, chunk);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <int BITS, bool VEC>
+int launch_mma_v(const void* x, const void* w, const void* scale, void* out,
+                 int M, int K, int N, int chunk, int n_split,
+                 cudaStream_t s) {
+  if (M <= 8)
+    return launch_mma_t<BITS, 1, VEC>(x, w, scale, out, M, K, N, chunk,
+                                      n_split, s);
+  if (M <= 16)
+    return launch_mma_t<BITS, 2, VEC>(x, w, scale, out, M, K, N, chunk,
+                                      n_split, s);
+  return launch_mma_t<BITS, 4, VEC>(x, w, scale, out, M, K, N, chunk,
+                                    n_split, s);
+}
+
+// The tensor-core route: x bf16 (16-byte aligned), planes (BITS, K/8, N).
+template <int BITS>
+int launch_mma(const void* x, const void* w, const void* scale, void* out,
+               int M, int K, int N, int chunk, cudaStream_t stream) {
+  const int groups = (K / 8 + kGroupRows - 1) / kGroupRows;
+  if (chunk < 1 || chunk > groups || reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int n_split = (groups + chunk - 1) / chunk;
+  if (n_split > kMaxSplit) return (int)cudaErrorInvalidValue;
+  if (N % 4 || reinterpret_cast<uintptr_t>(w) % 4)
+    return launch_mma_v<BITS, false>(x, w, scale, out, M, K, N, chunk,
+                                     n_split, stream);
+  return launch_mma_v<BITS, true>(x, w, scale, out, M, K, N, chunk, n_split,
+                                  stream);
+}
+
 template <int BITS, typename T>
 int launch_t(const void* x, const void* w, const void* scale, void* out,
              int M, int K, int N, cudaStream_t stream) {
@@ -196,16 +522,6 @@ int launch_t(const void* x, const void* w, const void* scale, void* out,
   return (int)cudaGetLastError();
 }
 
-template <int BITS>
-int launch(const void* x, const void* w, const void* scale, void* out,
-           int M, int K, int N, int dtype, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_t<BITS, float>(x, w, scale, out, M, K, N, stream);
-  if (dtype == 1)
-    return launch_t<BITS, __nv_bfloat16>(x, w, scale, out, M, K, N, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x and out).  Returns cudaGetLastError().
@@ -213,23 +529,38 @@ extern "C" int psi_matmul_codes(const void* x, const void* codes,
                                 const void* scale, void* out, int M, int K,
                                 int N, int dtype, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  return launch<8>(x, codes, scale, out, M, K, N, dtype,
-                   static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_t<8, float>(x, codes, scale, out, M, K, N, s);
+  if (dtype == 1)
+    return launch_t<8, __nv_bfloat16>(x, codes, scale, out, M, K, N, s);
+  return (int)cudaErrorInvalidValue;
 }
 
+// bits 2..7.  dtype 0 (f32 x): the CUDA-core kernel; chunk is unused.
+// dtype 1 (bf16 x, 16-byte aligned): the tensor-core kernel, K split into
+// at most 8 chunks of `chunk` 64-K groups (kernels/psi_matmul.py::
+// split_plan).
 extern "C" int psi_matmul_packed(const void* x, const void* planes,
                                  const void* scale, void* out, int M, int K,
-                                 int N, int bits, int dtype, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % 8)
+                                 int N, int bits, int dtype, int chunk,
+                                 void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || bits < 2 || bits > 7)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    using Fn = int (*)(const void*, const void*, const void*, void*, int,
+                       int, int, int, cudaStream_t);
+    constexpr Fn kRoute[] = {launch_mma<2>, launch_mma<3>, launch_mma<4>,
+                             launch_mma<5>, launch_mma<6>, launch_mma<7>};
+    return kRoute[bits - 2](x, planes, scale, out, M, K, N, chunk, s);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   switch (bits) {
-    case 2: return launch<2>(x, planes, scale, out, M, K, N, dtype, s);
-    case 3: return launch<3>(x, planes, scale, out, M, K, N, dtype, s);
-    case 4: return launch<4>(x, planes, scale, out, M, K, N, dtype, s);
-    case 5: return launch<5>(x, planes, scale, out, M, K, N, dtype, s);
-    case 6: return launch<6>(x, planes, scale, out, M, K, N, dtype, s);
-    case 7: return launch<7>(x, planes, scale, out, M, K, N, dtype, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 2: return launch_t<2, float>(x, planes, scale, out, M, K, N, s);
+    case 3: return launch_t<3, float>(x, planes, scale, out, M, K, N, s);
+    case 4: return launch_t<4, float>(x, planes, scale, out, M, K, N, s);
+    case 5: return launch_t<5, float>(x, planes, scale, out, M, K, N, s);
+    case 6: return launch_t<6, float>(x, planes, scale, out, M, K, N, s);
+    default: return launch_t<7, float>(x, planes, scale, out, M, K, N, s);
   }
 }

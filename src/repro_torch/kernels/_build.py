@@ -14,6 +14,7 @@ built when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -90,6 +91,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_all() / f"{name}.so"))
         _LIBS[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernels'
+    split plans size their grids by it)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

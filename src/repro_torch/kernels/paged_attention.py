@@ -15,7 +15,6 @@ least one visible key.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -124,11 +123,6 @@ def split_plan(B, Hkv, G, n_bt, block_size, n_sm=132):
     return chunk, -(-n_bt // chunk)
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos,
                          k_scale=None, v_scale=None):
     """The CUDA split-KV flash-decode kernel; same signature as the plain
@@ -176,7 +170,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, pos,
                              f"{q.device}")
     n_bt = block_tables.shape[1]
     chunk, n_split = split_plan(B, Hkv, Hq // Hkv, n_bt, bs,
-                                _n_sm(q.device.index or 0))
+                                _build.sm_count(q.device.index or 0))
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     # the splits' partial (m, l, acc) rows, merged by a second kernel
     part = (torch.empty((B, Hq, n_split, D + 2), dtype=torch.float32,

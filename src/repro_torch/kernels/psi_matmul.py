@@ -7,6 +7,10 @@
 checks them, allocates its output with ``torch.empty``, launches on the
 current stream, raises if the launch failed, and counts its launches in
 ``<wrapper>.launches``.
+
+The packed kernel has two routes, picked from x's dtype: f32 x runs on CUDA
+cores, bf16 x on tensor cores with K split across the blocks of a cluster
+as :func:`split_plan` says.
 """
 from __future__ import annotations
 
@@ -25,11 +29,37 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         lib.psi_matmul_codes.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
         lib.psi_matmul_codes.restype = _I
-        lib.psi_matmul_packed.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          _P]
+        lib.psi_matmul_packed.argtypes = [_P] * 4 + [_I] * 6 + [_P]
         lib.psi_matmul_packed.restype = _I
         lib._argtypes_set = True
     return lib
+
+
+# the tensor-core route's tiles (csrc/psi_matmul.cu): a block is WARPS warps
+# on TILE_N output channels; K goes in groups of GROUP_K (8 plane rows), the
+# warps of a block taking the groups of its split in turn; the splits of a
+# tile are one cluster of at most MAX_SPLIT blocks
+WARPS = 8
+TILE_N = 32
+GROUP_K = 64
+MAX_SPLIT = 8
+
+
+def split_plan(K, N, n_sm=132):
+    """(chunk, n_split): 64-K groups per split of K, and the number of
+    splits, for the bf16 route at a (K, N) weight.  From the weight's shape
+    alone, never from M, so a row's sums run in the same order whatever the
+    batch: as many splits as it takes for one block per SM (ceil(N/32)
+    channel tiles x n_split), but no more than MAX_SPLIT, nor more than
+    leave each of a block's WARPS warps one group.  (On the H100 at M = 4,
+    more splits lost: each adds a block's start-up and a cluster
+    reduction, and a block of 8 warps already streams its tile.)"""
+    groups = -(-K // GROUP_K)
+    tiles = -(-N // TILE_N)
+    want = -(-n_sm // tiles)
+    split = max(1, min(want, MAX_SPLIT, groups // WARPS))
+    chunk = -(-groups // split)
+    return chunk, -(-groups // chunk)
 
 
 def _check_common(x, w, scale, wdtype, N):
@@ -85,10 +115,15 @@ def psi_matmul_packed_cuda(x: torch.Tensor, planes: torch.Tensor,
     M, K = x.shape
     N = planes.shape[2]
     _check_common(x, planes, scale, torch.uint8, N)
+    chunk = 0
+    if x.dtype == torch.bfloat16:
+        if x.data_ptr() % 16:                 # the kernel reads x in 16 bytes
+            x = x.clone()
+        chunk, _ = split_plan(K, N, _build.sm_count(x.device.index or 0))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     err = _lib().psi_matmul_packed(
         x.data_ptr(), planes.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, int(bits), _DTYPE_CODE[x.dtype],
+        M, K, N, int(bits), _DTYPE_CODE[x.dtype], chunk,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "psi_matmul_packed")
     psi_matmul_packed_cuda.launches += 1

@@ -6,14 +6,17 @@ machine with a card and PyTorch only:
 
 Every test skips when no CUDA device is present.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import psi
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ref
 from repro_torch.launch import scheduler, serve
 from repro_torch.models import build_model
 
@@ -111,7 +114,7 @@ def _split_case(seed, n_bt, G, Hkv, D, mode, dev, bs=16, q_mul=1.0):
     scales q (a power of two keeps bf16 q exact): at 4 the scores spread
     over a few units and a few keys carry each row."""
     B = 6
-    chunk, n_split = pa.split_plan(B, Hkv, G, n_bt, bs, pa._n_sm(0))
+    chunk, n_split = pa.split_plan(B, Hkv, G, n_bt, bs, _build.sm_count(0))
     assert n_split > 1
     rng = np.random.default_rng(seed)
     act, quant = MODES[mode]
@@ -230,3 +233,90 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
                                    + stats["prefill_forwards"]),
         "psi_matmul_packed": 0,
         "paged_attention": cfg.n_layers * stats["decode_steps"]}
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2's tensor-core route (bf16 x): tight against the plain version in
+# f32, at every qwen3-8b weight shape and ragged ones, and batch invariant.
+# ---------------------------------------------------------------------------
+QWEN_KN = [(4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096),
+           (4096, 151936)]
+RAGGED_KN = [(40, 36), (40, 37), (64, 33), (72, 100), (8, 5), (1032, 1000)]
+
+
+@functools.lru_cache(maxsize=4)
+def _packed_weight(K, N, bits, misaligned=False):
+    """PSI-quantized (K, N) weight, packed, on the card; ``misaligned`` puts
+    the planes one byte into a larger buffer (a view the word loads cannot
+    take)."""
+    g = torch.Generator(device="cuda").manual_seed(K * 7 + N + bits)
+    w = torch.randn(K, N, generator=g, device="cuda") * K ** -0.5
+    q = psi.quantize_weights(w, bits, axis=(0,)).pack()
+    planes = q.data
+    if misaligned:
+        buf = torch.empty(planes.numel() + 1, dtype=torch.uint8,
+                          device="cuda")
+        buf[1:] = planes.reshape(-1)
+        planes = buf[1:].view(planes.shape)
+        assert planes.data_ptr() % 4
+    return planes, q.scale.reshape(-1)
+
+
+def _check_packed_tight(cuda, K, N, bits, M, misaligned=False):
+    """The kernel's bf16 output against the plain version run in f32 on the
+    same bf16 x: |got - want| <= 2^-8 |want| + A.  Every product is exact
+    (integer weights |w| <= 64 times bf16 x), so the two differ by the f32
+    sums' order and by the kernel's one rounding to bf16 (at most 2^-8 of
+    the value).  A = 2^-16 (|x| @ |W|) scale: two f32 sums of the same
+    terms in other orders differ by a few 2^-24 of the sum of |terms| (the
+    tensor cores' own sums too), so 2^-16 leaves a wide margin, while an
+    offset off by one moves each output by scale * sum(x), about sqrt(K)
+    x scale, which is far above A."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    planes, scale = _packed_weight(K, N, bits, misaligned)
+    g = torch.Generator(device="cuda").manual_seed(M * 131 + bits)
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    before = ops.launch_counts()["psi_matmul_packed"]
+    got = ops.psi_matmul_2d(x, psi.QuantizedTensor(
+        planes, scale, psi.get_format(bits), True)).float()
+    assert ops.launch_counts()["psi_matmul_packed"] == before + 1
+    codes = psi.unpack_codes(planes, bits)
+    x32 = x.float()
+    want = ref.psi_matmul_codes_ref(x32, codes, scale)
+    a = 2.0 ** -16 * ref.psi_matmul_codes_ref(x32.abs(), codes.abs(), scale)
+    d = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    tol = 2.0 ** -8 * want.abs() + a
+    assert bool((d <= tol).all()), float((d - tol).max())
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 64, 72])
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("K,N", QWEN_KN + RAGGED_KN)
+def test_psi_matmul_packed_bf16_tight(cuda, K, N, bits, M):
+    _check_packed_tight(cuda, K, N, bits, M)
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 72])
+@pytest.mark.parametrize("bits", [2, 5, 7])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (1032, 1000), (64, 36)])
+def test_psi_matmul_packed_bf16_misaligned(cuda, K, N, bits, M):
+    _check_packed_tight(cuda, K, N, bits, M, misaligned=True)
+
+
+@pytest.mark.parametrize("bits", [2, 5, 7])
+@pytest.mark.parametrize("K,N", QWEN_KN[:4] + [(1032, 1000), (40, 37)])
+def test_psi_matmul_packed_batch_invariant(cuda, K, N, bits):
+    """A row's output depends only on its own x row and W: computed alone,
+    in an M = 4 launch and in an M = 16 launch it is the same, bit for bit
+    (the K split is planned from K and N only)."""
+    planes, scale = _packed_weight(K, N, bits)
+    qt = psi.QuantizedTensor(planes, scale, psi.get_format(bits), True)
+    g = torch.Generator(device="cuda").manual_seed(K + N + bits)
+    x = torch.randn(16, K, generator=g, device="cuda").to(torch.bfloat16)
+    y16 = ops.psi_matmul_2d(x, qt)
+    y4 = ops.psi_matmul_2d(x[:4].contiguous(), qt)
+    assert torch.equal(y4, y16[:4])
+    for i in range(16):
+        assert torch.equal(ops.psi_matmul_2d(x[i:i + 1].contiguous(), qt)[0],
+                           y16[i]), i

@@ -180,6 +180,65 @@ def test_head_groups(G, groups):
 
 
 # ---------------------------------------------------------------------------
+# Kernel 2's tensor-core route: the host-side tile and split-K plan.
+# ---------------------------------------------------------------------------
+def _weight_shapes():
+    """(K, N) of every PSI-quantized matmul of the registered configs."""
+    from repro_torch.configs.base import _REGISTRY
+    shapes = set()
+    for cfg in _REGISTRY.values():
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        shapes |= {(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+                   (cfg.n_heads * hd, d), (d, cfg.d_ff), (cfg.d_ff, d),
+                   (d, cfg.vocab_size)}
+    return sorted(shapes)
+
+
+PLAN_SHAPES = _weight_shapes() + [(8, 5), (40, 37), (64, 33), (72, 100),
+                                  (1032, 1000), (4104, 4100), (520, 151937)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 1])
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+def test_packed_split_plan_covers_every_row_and_column(K, N, n_sm):
+    """The blocks of the bf16 route (channel tiles of TILE_N x splits of
+    chunk 64-K groups, each group 8 plane rows, warps taking a split's
+    groups in turn) cover every K row and every N column exactly once, every
+    split has work, a tile's splits fit one cluster (MAX_SPLIT blocks), and
+    no split leaves a warp of a block idle because of the plan (a block has
+    WARPS warps)."""
+    chunk, n_split = tpm.split_plan(K, N, n_sm)
+    groups = -(-K // tpm.GROUP_K)
+    assert 1 <= chunk <= groups and n_split == -(-groups // chunk)
+    assert n_split <= tpm.MAX_SPLIT
+    k_hits = np.zeros(K, np.int64)
+    for s in range(n_split):
+        mine = range(s * chunk, min(groups, (s + 1) * chunk))
+        assert len(mine) >= 1
+        for w in range(tpm.WARPS):
+            for grp in mine[w::tpm.WARPS]:
+                k_hits[grp * tpm.GROUP_K:(grp + 1) * tpm.GROUP_K] += 1
+    assert (k_hits == 1).all()
+    n_hits = np.zeros(N, np.int64)
+    for tile in range(-(-N // tpm.TILE_N)):
+        n_hits[tile * tpm.TILE_N:(tile + 1) * tpm.TILE_N] += 1
+    assert (n_hits == 1).all()
+    if n_split > 1:
+        assert chunk >= tpm.WARPS or groups < 2 * tpm.WARPS
+        assert -(-N // tpm.TILE_N) * (n_split - 1) < n_sm
+
+
+def test_packed_split_plan_depends_on_the_weight_only():
+    """The plan takes K, N and the SM count, never M: a row's sums run in
+    the same order whatever the batch it is launched in."""
+    import inspect
+    assert list(inspect.signature(tpm.split_plan).parameters) == [
+        "K", "N", "n_sm"]
+    assert tpm.split_plan(4096, 1024) == (13, 5)
+    assert tpm.split_plan(4096, 151936) == (64, 1)
+
+
+# ---------------------------------------------------------------------------
 # Routing: by device only.
 # ---------------------------------------------------------------------------
 def test_cpu_tensors_take_the_plain_versions():
@@ -200,9 +259,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tpm.psi_matmul_codes_cuda(torch.randn(2, 16), q.data,
                                   q.scale.reshape(-1))
-    with pytest.raises(ValueError, match="CUDA"):
-        q5 = tpsi.quantize_weights(torch.randn(16, 8), 5, axis=(0,)).pack()
-        tpm.psi_matmul_packed_cuda(torch.randn(2, 16), q5.data,
-                                   q5.scale.reshape(-1), 5)
+    q5 = tpsi.quantize_weights(torch.randn(16, 8), 5, axis=(0,)).pack()
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="CUDA"):
+            tpm.psi_matmul_packed_cuda(torch.randn(2, 16).to(dtype), q5.data,
+                                       q5.scale.reshape(-1), 5)
     with pytest.raises(ValueError, match="CUDA"):
         tpa.paged_attention_cuda(*_torch_args(_case(1, 2, 3, "f32")))
