@@ -11,7 +11,8 @@ before the result line:
 
   1. card and build    — nvidia-smi name and power limit, kernel build time;
   2. kernels           — each kernel against its plain version at the
-                         serving shapes (and ragged reduced ones; for paged
+                         serving shapes (and ragged reduced ones, f32 and,
+                         for kernel 1, bf16 with any K; for paged
                          attention also tables long enough to split, every
                          (G, D) of the configs), with its eager median time
                          (ms), its device time from CUDA-graph replays
@@ -121,6 +122,9 @@ def main():
           "cuda": torch.version.cuda, "build_s": round(build_s, 3),
           "build_dir": str(build.relative_to(ROOT)),
           "registers_per_thread": regs,
+          "psi8_mma_ptxas": _ptxas_report(
+              (build / "psi_matmul.log").read_text(),
+              "psi_gemm_codes_kernelI"),
           "psi5_mma_ptxas": _ptxas_report(
               (build / "psi_matmul.log").read_text(),
               "psi_gemm_mma_kernelILi5E"),
@@ -149,15 +153,16 @@ def main():
 
 
 def _ptxas_report(log, key):
-    """{"BITS,NT,VEC": "N registers, ... smem"} from ptxas -v for the kernels
-    whose mangled names contain ``key`` (template arguments ILi5ELi1ELb1 ->
-    "5,1,1")."""
+    """{"template arguments": "N registers, ... smem"} from ptxas -v for the
+    kernels whose mangled names contain ``key``: psi_gemm_mma_kernel
+    <BITS, NT, VEC> (ILi5ELi1ELb1 -> "5,1,1") and psi_gemm_codes_kernel
+    <NT, VEC, XVEC> (ILi1ELb1ELb1 -> "1,1,1")."""
     out, fn = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if key in line else None
         elif fn and "Used " in line:
-            args = fn.split(key[:-4], 1)[1].split("EE")[0]
+            args = fn.split("_kernelI", 1)[1].split("EE")[0]
             label = ",".join(c for c in args if c.isdigit())
             out[label] = line.split("Used ", 1)[1].strip()
             fn = None
@@ -297,6 +302,27 @@ def phase_kernels(torch, dev, bw, peak):
           "shapes": "M,K,N in (1,64,32) (3,64,64) (7,64,128) (16,64,256) "
                     "(5,40,36) (5,40,37) (2,64,33) (4,512,51865), bits 2..8",
           "tolerance": "1e-5 x max|plain| (f32 sums in another order)"})
+
+    # -- ragged shapes, bf16 codes (kernel 1's tensor-core route takes any
+    # K: K % 8 != 0 reads x element by element, a partial last 64-K group)
+    worst = 0.0
+    for (M, K, N) in [(5, 40, 37), (3, 37, 33), (72, 1032, 1000),
+                      (16, 72, 100), (1, 100, 36), (4, 4101, 1024)]:
+        w = torch.randn(K, N, generator=gen, device=dev)
+        qt = psi.quantize_weights(w, 8, axis=(0,))
+        err, ratio = _gemm_errors(
+            torch, ops, ref, qt,
+            lambda x, q=qt: ref.psi_matmul_codes_ref(x, q.data, q.scale),
+            [M], bf16, gen, dev)
+        check(ratio <= 1.0, f"psi_matmul_codes ({M},{K},{N}) bf16 err {err} "
+                            f"over one bf16 ulp of the output")
+        worst = max(worst, err)
+    max_err["psi_matmul_codes"] = max(max_err["psi_matmul_codes"], worst)
+    emit({"phase": "kernels_reduced_bf16_codes", "ok": True,
+          "shapes": "M,K,N in (5,40,37) (3,37,33) (72,1032,1000) (16,72,100) "
+                    "(1,100,36) (4,4101,1024), bits 8",
+          "max_abs_err": worst,
+          "tolerance": "2^-7 x max|plain| (one bf16 ulp of the output)"})
 
     # -- full-width shapes, bf16 activations
     for label, ((K, N), per_step) in SHAPES.items():

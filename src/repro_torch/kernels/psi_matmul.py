@@ -8,9 +8,9 @@ checks them, allocates its output with ``torch.empty``, launches on the
 current stream, raises if the launch failed, and counts its launches in
 ``<wrapper>.launches``.
 
-The packed kernel has two routes, picked from x's dtype: f32 x runs on CUDA
+Both kernels have two routes, picked from x's dtype: f32 x runs on CUDA
 cores, bf16 x on tensor cores with K split across the blocks of a cluster
-as :func:`split_plan` says.
+as :func:`codes_split_plan` (codes) or :func:`split_plan` (planes) says.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     lib = _build.load("psi_matmul")
     if not getattr(lib, "_argtypes_set", False):
-        lib.psi_matmul_codes.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+        lib.psi_matmul_codes.argtypes = [_P] * 4 + [_I] * 6 + [_P]
         lib.psi_matmul_codes.restype = _I
         lib.psi_matmul_packed.argtypes = [_P] * 4 + [_I] * 6 + [_P]
         lib.psi_matmul_packed.restype = _I
@@ -35,31 +35,59 @@ def _lib():
     return lib
 
 
-# the tensor-core route's tiles (csrc/psi_matmul.cu): a block is WARPS warps
-# on TILE_N output channels; K goes in groups of GROUP_K (8 plane rows), the
-# warps of a block taking the groups of its split in turn; the splits of a
-# tile are one cluster of at most MAX_SPLIT blocks
+# the packed tensor-core route's tiles (csrc/psi_matmul.cu): a block is
+# WARPS warps on TILE_N output channels; K goes in groups of GROUP_K (8
+# plane rows), the warps of a block taking the groups of its split in turn;
+# the splits of a tile are one cluster of at most MAX_SPLIT blocks
 WARPS = 8
 TILE_N = 32
 GROUP_K = 64
 MAX_SPLIT = 8
+# the codes route's: a block of WARPS warps on CODES_TILES channels (128:
+# one 128-byte line of a code row, or 64), K in steps of CODES_STEP_K rows
+# (the last may be partial), taken by the warps in turn; splits as above
+CODES_TILES = (128, 64)
+CODES_STEP_K = 16
+CODES_BLOCKS_PER_SM = 2
+
+
+def _plan(units, tiles, blocks):
+    want = -(-blocks // tiles)
+    split = max(1, min(want, MAX_SPLIT, units // WARPS))
+    chunk = -(-units // split)
+    return chunk, -(-units // chunk)
 
 
 def split_plan(K, N, n_sm=132):
     """(chunk, n_split): 64-K groups per split of K, and the number of
-    splits, for the bf16 route at a (K, N) weight.  From the weight's shape
-    alone, never from M, so a row's sums run in the same order whatever the
-    batch: as many splits as it takes for one block per SM (ceil(N/32)
-    channel tiles x n_split), but no more than MAX_SPLIT, nor more than
-    leave each of a block's WARPS warps one group.  (On the H100 at M = 4,
-    more splits lost: each adds a block's start-up and a cluster
+    splits, for the packed bf16 route at a (K, N) weight.  From the weight's
+    shape alone, never from M, so a row's sums run in the same order
+    whatever the batch: as many splits as it takes for one block per SM
+    (ceil(N/32) channel tiles x n_split), but no more than MAX_SPLIT, nor
+    more than leave each of a block's WARPS warps one group.  (On the H100
+    at M = 4, more splits lost: each adds a block's start-up and a cluster
     reduction, and a block of 8 warps already streams its tile.)"""
-    groups = -(-K // GROUP_K)
-    tiles = -(-N // TILE_N)
-    want = -(-n_sm // tiles)
-    split = max(1, min(want, MAX_SPLIT, groups // WARPS))
-    chunk = -(-groups // split)
-    return chunk, -(-groups // chunk)
+    return _plan(-(-K // GROUP_K), -(-N // TILE_N), n_sm)
+
+
+def codes_split_plan(K, N, n_sm=132):
+    """(tile, chunk, n_split) for the codes bf16 route at a (K, N) weight:
+    channels per block, 16-K steps per split of K (any K: the last step may
+    be partial), and the number of splits.  From K and N only, never M, so
+    a row's sums run in the same order whatever the batch.  128-channel
+    tiles (a whole line of each code row) where they alone give
+    CODES_BLOCKS_PER_SM blocks per SM (lm_head); else 64-channel tiles, with
+    as many splits as it takes to get there, but no more than MAX_SPLIT, nor
+    more than leave each of a block's WARPS warps one step.  (On the H100
+    at M = 4 this plan was the fastest of tiles 32/64/128 x splits 1-8 at
+    every qwen3-8b shape but wk/wv, where 32-channel tiles were a little
+    faster.)"""
+    steps = -(-K // CODES_STEP_K)
+    blocks = CODES_BLOCKS_PER_SM * n_sm
+    wide, narrow = CODES_TILES
+    if -(-N // wide) >= blocks:
+        return wide, steps, 1
+    return (narrow,) + _plan(steps, -(-N // narrow), blocks)
 
 
 def _check_common(x, w, scale, wdtype, N):
@@ -90,10 +118,14 @@ def psi_matmul_codes_cuda(x: torch.Tensor, codes: torch.Tensor,
     M, K = x.shape
     N = codes.shape[1]
     _check_common(x, codes, scale, torch.int8, N)
+    tile = chunk = 0
+    if x.dtype == torch.bfloat16:
+        tile, chunk, _ = codes_split_plan(
+            K, N, _build.sm_count(x.device.index or 0))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     err = _lib().psi_matmul_codes(
         x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, _DTYPE_CODE[x.dtype],
+        M, K, N, _DTYPE_CODE[x.dtype], tile, chunk,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "psi_matmul_codes")
     psi_matmul_codes_cuda.launches += 1

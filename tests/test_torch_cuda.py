@@ -236,51 +236,70 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
-# Kernel 2's tensor-core route (bf16 x): tight against the plain version in
-# f32, at every qwen3-8b weight shape and ragged ones, and batch invariant.
+# The tensor-core routes of kernels 1 and 2 (bf16 x): tight against the plain
+# version in f32, at every qwen3-8b weight shape and ragged ones, and batch
+# invariant.
 # ---------------------------------------------------------------------------
 QWEN_KN = [(4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096),
            (4096, 151936)]
 RAGGED_KN = [(40, 36), (40, 37), (64, 33), (72, 100), (8, 5), (1032, 1000)]
+# codes take any K: K % 8 != 0, K % 64 != 0, N % 4 != 0
+CODES_RAGGED_KN = [(40, 37), (72, 100), (1032, 1000), (37, 33), (100, 36),
+                   (1, 4)]
 
 
 @functools.lru_cache(maxsize=4)
 def _packed_weight(K, N, bits, misaligned=False):
-    """PSI-quantized (K, N) weight, packed, on the card; ``misaligned`` puts
-    the planes one byte into a larger buffer (a view the word loads cannot
-    take)."""
+    """PSI-quantized (K, N) weight on the card: bit-planes for bits < 8,
+    int8 codes for bits = 8; ``misaligned`` puts them one byte into a
+    larger buffer (a view the word loads cannot take)."""
     g = torch.Generator(device="cuda").manual_seed(K * 7 + N + bits)
     w = torch.randn(K, N, generator=g, device="cuda") * K ** -0.5
-    q = psi.quantize_weights(w, bits, axis=(0,)).pack()
-    planes = q.data
+    q = psi.quantize_weights(w, bits, axis=(0,))
+    if bits < 8:
+        q = q.pack()
+    data = q.data
     if misaligned:
-        buf = torch.empty(planes.numel() + 1, dtype=torch.uint8,
-                          device="cuda")
-        buf[1:] = planes.reshape(-1)
-        planes = buf[1:].view(planes.shape)
-        assert planes.data_ptr() % 4
-    return planes, q.scale.reshape(-1)
+        buf = torch.empty(data.numel() + 1, dtype=data.dtype, device="cuda")
+        buf[1:] = data.reshape(-1)
+        data = buf[1:].view(data.shape)
+        assert data.data_ptr() % 4
+    return data, q.scale.reshape(-1)
 
 
-def _check_packed_tight(cuda, K, N, bits, M, misaligned=False):
+def _x(M, K, seed, misaligned=False):
+    """bf16 x (M, K) on the card; ``misaligned`` starts it one element into
+    a larger buffer (rows the 16-byte x loads cannot take)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    if misaligned:
+        buf = torch.empty(M * K + 1, dtype=torch.bfloat16, device="cuda")
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(M, K)
+        assert x.data_ptr() % 16
+    return x
+
+
+def _check_tight(cuda, K, N, bits, M, misaligned=False, x_misaligned=False):
     """The kernel's bf16 output against the plain version run in f32 on the
     same bf16 x: |got - want| <= 2^-8 |want| + A.  Every product is exact
-    (integer weights |w| <= 64 times bf16 x), so the two differ by the f32
-    sums' order and by the kernel's one rounding to bf16 (at most 2^-8 of
-    the value).  A = 2^-16 (|x| @ |W|) scale: two f32 sums of the same
-    terms in other orders differ by a few 2^-24 of the sum of |terms| (the
-    tensor cores' own sums too), so 2^-16 leaves a wide margin, while an
-    offset off by one moves each output by scale * sum(x), about sqrt(K)
-    x scale, which is far above A."""
+    (integer weights |w| <= 128, codes and PSI weights alike, times bf16
+    x), so the two differ by the f32 sums' order and by the kernel's one
+    rounding to bf16 (at most 2^-8 of the value).  A = 2^-16 (|x| @ |W|)
+    scale: two f32 sums of the same terms in other orders differ by a few
+    2^-24 of the sum of |terms| (the tensor cores' own sums too), so 2^-16
+    leaves a wide margin, while an offset off by one moves each output by
+    scale * sum(x), about sqrt(K) x scale, which is far above A."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    planes, scale = _packed_weight(K, N, bits, misaligned)
-    g = torch.Generator(device="cuda").manual_seed(M * 131 + bits)
-    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
-    before = ops.launch_counts()["psi_matmul_packed"]
+    data, scale = _packed_weight(K, N, bits, misaligned)
+    x = _x(M, K, M * 131 + bits, x_misaligned)
+    packed = bits < 8
+    key = "psi_matmul_packed" if packed else "psi_matmul_codes"
+    before = ops.launch_counts()[key]
     got = ops.psi_matmul_2d(x, psi.QuantizedTensor(
-        planes, scale, psi.get_format(bits), True)).float()
-    assert ops.launch_counts()["psi_matmul_packed"] == before + 1
-    codes = psi.unpack_codes(planes, bits)
+        data, scale, psi.get_format(bits), packed)).float()
+    assert ops.launch_counts()[key] == before + 1
+    codes = psi.unpack_codes(data, bits) if packed else data
     x32 = x.float()
     want = ref.psi_matmul_codes_ref(x32, codes, scale)
     a = 2.0 ** -16 * ref.psi_matmul_codes_ref(x32.abs(), codes.abs(), scale)
@@ -290,33 +309,56 @@ def _check_packed_tight(cuda, K, N, bits, M, misaligned=False):
     assert bool((d <= tol).all()), float((d - tol).max())
 
 
-@pytest.mark.parametrize("M", [1, 4, 16, 64, 72])
-@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7])
-@pytest.mark.parametrize("K,N", QWEN_KN + RAGGED_KN)
-def test_psi_matmul_packed_bf16_tight(cuda, K, N, bits, M):
-    _check_packed_tight(cuda, K, N, bits, M)
-
-
-@pytest.mark.parametrize("M", [1, 4, 16, 72])
-@pytest.mark.parametrize("bits", [2, 5, 7])
-@pytest.mark.parametrize("K,N", [(4096, 1024), (1032, 1000), (64, 36)])
-def test_psi_matmul_packed_bf16_misaligned(cuda, K, N, bits, M):
-    _check_packed_tight(cuda, K, N, bits, M, misaligned=True)
-
-
-@pytest.mark.parametrize("bits", [2, 5, 7])
-@pytest.mark.parametrize("K,N", QWEN_KN[:4] + [(1032, 1000), (40, 37)])
-def test_psi_matmul_packed_batch_invariant(cuda, K, N, bits):
+def _check_batch_invariant(K, N, bits):
     """A row's output depends only on its own x row and W: computed alone,
     in an M = 4 launch and in an M = 16 launch it is the same, bit for bit
     (the K split is planned from K and N only)."""
-    planes, scale = _packed_weight(K, N, bits)
-    qt = psi.QuantizedTensor(planes, scale, psi.get_format(bits), True)
-    g = torch.Generator(device="cuda").manual_seed(K + N + bits)
-    x = torch.randn(16, K, generator=g, device="cuda").to(torch.bfloat16)
+    data, scale = _packed_weight(K, N, bits)
+    qt = psi.QuantizedTensor(data, scale, psi.get_format(bits), bits < 8)
+    x = _x(16, K, K + N + bits)
     y16 = ops.psi_matmul_2d(x, qt)
     y4 = ops.psi_matmul_2d(x[:4].contiguous(), qt)
     assert torch.equal(y4, y16[:4])
     for i in range(16):
         assert torch.equal(ops.psi_matmul_2d(x[i:i + 1].contiguous(), qt)[0],
                            y16[i]), i
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 64, 72])
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("K,N", QWEN_KN + RAGGED_KN)
+def test_psi_matmul_packed_bf16_tight(cuda, K, N, bits, M):
+    _check_tight(cuda, K, N, bits, M)
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 72])
+@pytest.mark.parametrize("bits", [2, 5, 7])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (1032, 1000), (64, 36)])
+def test_psi_matmul_packed_bf16_misaligned(cuda, K, N, bits, M):
+    _check_tight(cuda, K, N, bits, M, misaligned=True)
+
+
+@pytest.mark.parametrize("bits", [2, 5, 7])
+@pytest.mark.parametrize("K,N", QWEN_KN[:4] + [(1032, 1000), (40, 37)])
+def test_psi_matmul_packed_batch_invariant(cuda, K, N, bits):
+    _check_batch_invariant(K, N, bits)
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 64, 72])
+@pytest.mark.parametrize("K,N", QWEN_KN + CODES_RAGGED_KN)
+def test_psi_matmul_codes_bf16_tight(cuda, K, N, M):
+    _check_tight(cuda, K, N, 8, M)
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 72])
+@pytest.mark.parametrize("which", ["codes", "x"])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (1032, 1000), (37, 33)])
+def test_psi_matmul_codes_bf16_misaligned(cuda, K, N, which, M):
+    _check_tight(cuda, K, N, 8, M, misaligned=which == "codes",
+                 x_misaligned=which == "x")
+
+
+@pytest.mark.parametrize("K,N", QWEN_KN[:4] + [(1032, 1000), (40, 37),
+                                               (37, 33)])
+def test_psi_matmul_codes_batch_invariant(cuda, K, N):
+    _check_batch_invariant(K, N, 8)

@@ -198,17 +198,14 @@ PLAN_SHAPES = _weight_shapes() + [(8, 5), (40, 37), (64, 33), (72, 100),
                                   (1032, 1000), (4104, 4100), (520, 151937)]
 
 
-@pytest.mark.parametrize("n_sm", [132, 114, 1])
-@pytest.mark.parametrize("K,N", PLAN_SHAPES)
-def test_packed_split_plan_covers_every_row_and_column(K, N, n_sm):
-    """The blocks of the bf16 route (channel tiles of TILE_N x splits of
-    chunk 64-K groups, each group 8 plane rows, warps taking a split's
-    groups in turn) cover every K row and every N column exactly once, every
-    split has work, a tile's splits fit one cluster (MAX_SPLIT blocks), and
-    no split leaves a warp of a block idle because of the plan (a block has
-    WARPS warps)."""
-    chunk, n_split = tpm.split_plan(K, N, n_sm)
-    groups = -(-K // tpm.GROUP_K)
+def _check_plan(chunk, n_split, K, N, blocks, group_k, tile_n):
+    """The blocks of a bf16 route (channel tiles of tile_n x splits of
+    chunk groups of group_k K rows, warps taking a split's groups in turn)
+    cover every K row and every N column exactly once, every split has
+    work, a tile's splits fit one cluster (MAX_SPLIT blocks), and no split
+    leaves a warp of a block idle because of the plan (a block has WARPS
+    warps) or adds blocks past ``blocks``."""
+    groups = -(-K // group_k)
     assert 1 <= chunk <= groups and n_split == -(-groups // chunk)
     assert n_split <= tpm.MAX_SPLIT
     k_hits = np.zeros(K, np.int64)
@@ -217,15 +214,51 @@ def test_packed_split_plan_covers_every_row_and_column(K, N, n_sm):
         assert len(mine) >= 1
         for w in range(tpm.WARPS):
             for grp in mine[w::tpm.WARPS]:
-                k_hits[grp * tpm.GROUP_K:(grp + 1) * tpm.GROUP_K] += 1
+                k_hits[grp * group_k:(grp + 1) * group_k] += 1
     assert (k_hits == 1).all()
     n_hits = np.zeros(N, np.int64)
-    for tile in range(-(-N // tpm.TILE_N)):
-        n_hits[tile * tpm.TILE_N:(tile + 1) * tpm.TILE_N] += 1
+    for tile in range(-(-N // tile_n)):
+        n_hits[tile * tile_n:(tile + 1) * tile_n] += 1
     assert (n_hits == 1).all()
     if n_split > 1:
         assert chunk >= tpm.WARPS or groups < 2 * tpm.WARPS
-        assert -(-N // tpm.TILE_N) * (n_split - 1) < n_sm
+        assert -(-N // tile_n) * (n_split - 1) < blocks
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 1])
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+def test_packed_split_plan_covers_every_row_and_column(K, N, n_sm):
+    """The packed route's plan (plane rows are 8 K rows, so K % 8 ==
+    0) covers its weight as :func:`_check_plan` says, at one block per
+    SM."""
+    chunk, n_split = tpm.split_plan(K, N, n_sm)
+    _check_plan(chunk, n_split, K, N, n_sm, tpm.GROUP_K, tpm.TILE_N)
+
+
+# codes take any K: ragged ones beside every weight shape of the configs
+CODES_PLAN_SHAPES = PLAN_SHAPES + [(1, 4), (37, 33), (100, 36), (4097, 1024),
+                                   (12289, 4096), (4095, 151936)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 1])
+@pytest.mark.parametrize("K,N", CODES_PLAN_SHAPES)
+def test_codes_split_plan_covers_every_row_and_column(K, N, n_sm):
+    """The codes route's plan (64- or 128-channel tiles, 16-K steps) covers
+    every K row (the last step may be partial, K need not be a multiple of
+    8 or 64) and every N column exactly once, at CODES_BLOCKS_PER_SM blocks
+    per SM."""
+    tile, chunk, n_split = tpm.codes_split_plan(K, N, n_sm)
+    assert tile in tpm.CODES_TILES
+    _check_plan(chunk, n_split, K, N, tpm.CODES_BLOCKS_PER_SM * n_sm,
+                tpm.CODES_STEP_K, tile)
+
+
+def test_codes_split_plan_depends_on_the_weight_only():
+    """The codes plan takes K, N and the SM count, never M: a row's sums
+    run in the same order whatever the batch it is launched in."""
+    import inspect
+    assert list(inspect.signature(tpm.codes_split_plan).parameters) == [
+        "K", "N", "n_sm"]
 
 
 def test_packed_split_plan_depends_on_the_weight_only():
