@@ -22,9 +22,17 @@ before the result line:
   3. serve psi8        — Server.serve of qwen3-8b, all 36 layers, in
                          continuous and static modes: identical tokens, and
                          253 PSI-matmul (kernel 1) + 36 attention launches
-                         per decode step; a profiled decode window;
-  4. serve psi5        — the same at psi5, all 36 layers, fewer requests:
-                         the packed path (kernel 2), 253 launches per step;
+                         per decode step, each step a replay of the captured
+                         decode graph; a profiled decode window three ways:
+                         the eager step, the horizon-1 graph and a horizon-8
+                         round graph over 8;
+  3b. serve psi8 at horizon 8 (serve_psi8_horizon) — the same trace in
+                         rounds of 8 steps: tokens identical to horizon 1,
+                         the same launch counts per step under replay, one
+                         captured round graph;
+  4. serve psi5        — the same as 3 at psi5, all 36 layers, fewer
+                         requests: the packed path (kernel 2), 253 launches
+                         per step;
   5. card vs CPU       — prefill + 8 greedy decode steps of a 2-layer
                          float32 psi8 model on the card and on the CPU;
   6. summary           — {"kernels": [...]}, the card line, then the result
@@ -57,6 +65,7 @@ SHAPES = {
     "lm_head": ((4096, 151936), 1),
 }
 DECODE_M = 4                     # decode rows = max_batch of the serve phase
+HORIZON = 8                      # decode steps per round, serve_psi8_horizon
 PREFILL_M = 64                   # one admission's bucketed prompt
 L2_BYTES = 50e6                  # H100 L2: rotate weight copies past it
 
@@ -698,7 +707,10 @@ def phase_serve(torch, dev, launches, quant):
     """Server.serve of full-width qwen3-8b (all 36 layers) from ``quant``
     codes, continuous then static: identical tokens, 253 PSI-matmul
     launches per forward (kernel 1 at psi8, kernel 2 at psi5) and 36
-    attention launches per decode step, then a profiled decode window."""
+    attention launches per decode step, each decode step a replay of the
+    captured horizon-1 graph; then a profiled decode window three ways
+    (eager step, horizon-1 graph, horizon-8 round) and, at psi8, the same
+    trace served at horizon 8 (phase serve_psi8_horizon)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     args = (_serve_args() if quant == "psi8" else
@@ -726,6 +738,9 @@ def phase_serve(torch, dev, launches, quant):
           f"{quant}: a request did not get its max_new tokens")
     check(all(0 <= t < cfg.vocab_size for toks in tc.values() for t in toks),
           "token id out of the vocabulary")
+    check(sc["decode_compiles"] == ss["decode_compiles"] == 1,
+          f"{quant}: want one captured decode graph, got "
+          f"{sc['decode_compiles']} / {ss['decode_compiles']}")
     steps = sc["decode_steps"] + ss["decode_steps"]
     fwd = sc["prefill_forwards"] + ss["prefill_forwards"]
     want = {"psi_matmul_codes": 0, "psi_matmul_packed": 0,
@@ -740,14 +755,21 @@ def phase_serve(torch, dev, launches, quant):
             ex.params, torch.as_tensor(r0.prompt[None], device=dev))
     check(bool(torch.isfinite(logits).all()) and logits.shape ==
           (1, len(r0.prompt), cfg.vocab_size), "prefill logits not finite")
-    launches[key] = got[key]
+    launches[key] = launches.get(key, 0) + got[key]
     launches["paged_attention"] = (launches.get("paged_attention", 0)
                                    + got["paged_attention"])
-    window = _decode_window(torch, server)
+    # the same params behind a horizon-8 server: its warmup captures the
+    # one 8-step round graph
+    server8 = serve.Server(cfg, ex.params, max_batch=args.max_batch,
+                           max_seq=server.max_seq, eos_id=args.eos_id,
+                           device=dev, decode_horizon=HORIZON)
+    server8.warmup(serve.trace_from_args(args, cfg))
+    window = _decode_window(torch, server, server8)
     keep = ("tok_per_s", "wall_s", "tokens", "p50_latency_s",
             "p99_latency_s", "p50_ttft_s", "p99_ttft_s", "p50_itl_s",
             "p99_itl_s", "decode_steps", "prefill_forwards",
-            "peak_concurrency", "cache_bytes", "block_util_pct")
+            "peak_concurrency", "cache_bytes", "block_util_pct",
+            "host_syncs", "host_syncs_per_token", "decode_compiles")
     emit({"phase": f"serve_{quant}_full_width", "layers": cfg.n_layers,
           "requests": args.requests, "max_batch": args.max_batch,
           "prompt_len": f"{args.prompt_len}+-{args.prompt_jitter}",
@@ -758,45 +780,130 @@ def phase_serve(torch, dev, launches, quant):
           "tokens_identical": True, "launches": got,
           "decode_window": window,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
-    del server, ex, logits
+    if quant == "psi8":
+        phase_serve_horizon(torch, server8, args, cfg, tc, launches, keep)
+    del server, server8, ex, logits
     torch.cuda.empty_cache()
 
 
-def _decode_window(torch, server, steps=5):
-    """Where a steady decode step's time goes: wall time per step (host
-    clock, synchronized) against device time by kernel from a
-    torch.profiler trace of the same window (all slots active at 72
-    positions, full table).  Device numbers are "not measured" when the
-    profiler records no device time."""
+def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
+                        keep):
+    """The psi8 trace of phase_serve served at horizon 8 (continuous, then
+    static) on a server whose warmup captured its round graph: tokens
+    identical to horizon 1, 253 matmul launches per forward and 36
+    attention launches per decode step under replay (decode_steps = 8 x
+    rounds), one captured decode graph."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ops.reset_launch_counts()                         # the main path starts
+    runs = {}
+    for mode in ("continuous", "static"):
+        done, stats = server.serve(serve.trace_from_args(args, cfg),
+                                   continuous=(mode == "continuous"),
+                                   warmup=False)
+        runs[mode] = ({r.rid: r.tokens for r in done}, stats)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()                         # ... and ends here
+    (tc, sc), (ts, ss) = runs["continuous"], runs["static"]
+    check(tc == want_tokens and ts == want_tokens,
+          f"horizon {HORIZON}: tokens differ from horizon 1")
+    steps = sc["decode_steps"] + ss["decode_steps"]
+    rounds = sc["decode_rounds"] + ss["decode_rounds"]
+    fwd = sc["prefill_forwards"] + ss["prefill_forwards"]
+    check(steps == HORIZON * rounds, "decode steps != horizon x rounds")
+    want = {"psi_matmul_codes": 253 * (steps + fwd), "psi_matmul_packed": 0,
+            "paged_attention": 36 * steps}
+    check(got == want, f"horizon {HORIZON} launch counts {got} != expected "
+                       f"{want} (253 per forward, 36 attention per step)")
+    check(sc["decode_compiles"] == ss["decode_compiles"] == 1
+          and server.executor.graph_counts() == {"decode": 0,
+                                                 "decode_multi": 1},
+          f"horizon {HORIZON}: want exactly one captured round graph, got "
+          f"{server.executor.graph_counts()}")
+    for k in got:
+        launches[k] = launches.get(k, 0) + got[k]
+    emit({"phase": "serve_psi8_horizon", "decode_horizon": HORIZON,
+          "layers": cfg.n_layers, "requests": args.requests,
+          "continuous": {k: sc[k] for k in keep + ("decode_rounds",
+                                                   "loop_iters")},
+          "static": {k: ss[k] for k in keep + ("decode_rounds",
+                                               "loop_iters")},
+          "tokens_identical_to_horizon_1": True, "launches": got})
+
+
+def _decode_window(torch, server, multi=None, steps=5):
+    """Where a steady decode step's time goes, three ways: the model's
+    decode_step called eagerly, the horizon-1 graph (Executor.decode) and,
+    with ``multi``, its horizon-M round graph (Executor.decode_multi), per
+    step (a round's time over M).  Wall time per step on the host clock
+    (synchronized at the end of the window), against device time by kernel
+    from a torch.profiler trace of the same window (all slots active at 72
+    positions, full table; a round rebuilt from host arrays each time).
+    Device numbers are "not measured" when the profiler records no device
+    time."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     ex = server.executor
     B = server.max_batch
-    cache = ex.init_cache()
+    dev = ex.device
     table = np.arange(B * ex.n_bt, dtype=np.int32).reshape(B, ex.n_bt)
     tok = np.arange(B, dtype=np.int32)[:, None]
     pos = np.full((B, 1), 72, np.int32)
     act = np.ones((B,), bool)
+    cache = ex.init_cache()
+    batch = {"token": torch.from_numpy(tok).to(dev),
+             "pos": torch.from_numpy(pos).to(dev),
+             "active": torch.from_numpy(act).to(dev),
+             "block_table": torch.from_numpy(table).to(dev)}
+
+    def eager():
+        with torch.inference_mode():
+            ex.model.decode_step(ex.params, batch, cache)
+
+    modes = {"eager": (eager, 1),
+             "graph": (lambda: ex.decode(tok, pos, act, cache, table), 1)}
+    if multi is not None:
+        mex = multi.executor
+        mcache = mex.init_cache()
+        rem = np.full((B,), 1 << 20, np.int32)
+        modes[f"horizon_{mex.decode_horizon}"] = (
+            lambda: mex.decode_multi(tok, pos, act, rem, mcache, table),
+            mex.decode_horizon)
+    return {name: _window(torch, fn, per_call, steps)
+            for name, (fn, per_call) in modes.items()}
+
+
+def _window(torch, fn, per_call, calls):
+    """Wall and device time per step of ``calls`` calls of ``fn``, each
+    ``per_call`` decode steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     def run(n):
         for _ in range(n):
-            ex.decode(tok, pos, act, cache, table)
+            fn()
         torch.cuda.synchronize()
 
     run(3)
+    n_steps = calls * per_call
     t0 = time.perf_counter()
-    run(steps)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    run(calls)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run(steps)
+        run(calls)
+    # each kernel once, from its own device event: a CPU op's row repeats
+    # the time of the kernels it launched as its self device time, so
+    # summing every row would count each eager aten kernel twice
     by = {"psi_gemm": 0.0, "paged_attn": 0.0, "other": 0.0}
     for ev in prof.key_averages():
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
+            continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0)) or 0.0
         key = next((k for k in ("psi_gemm", "paged_attn") if k in ev.key),
                    "other")
-        by[key] += us / 1e3 / steps
+        by[key] += us / 1e3 / n_steps
     dev_ms = sum(by.values())
     if dev_ms <= 0:
         return {"wall_ms_per_step": wall_ms,

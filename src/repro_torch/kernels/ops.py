@@ -31,6 +31,14 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (by kernel name) to the launch counts.  A CUDA-graph
+    replay runs the launches its capture recorded without calling the
+    wrappers, so the executor adds them here on every replay."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
+
+
 def _route(t: torch.Tensor) -> str:
     if t.device.type in ("cuda", "cpu"):
         return t.device.type

@@ -97,6 +97,40 @@ def poisson_trace(n_requests: int, *, rate_rps: float, prompt_len: int,
     return reqs
 
 
+def replay_round(toks: np.ndarray, active: np.ndarray,
+                 remaining: np.ndarray, eos_id: int):
+    """Host replay of a horizon-M decode round's on-device retirement
+    recurrence (``Model.decode_scan``).
+
+    ``toks`` is the raw (M, B) per-step greedy token block of one round;
+    ``active`` / ``remaining`` are the round-entry mirrors.  Step by step,
+    as the device did::
+
+        for each step, for each entry-active slot:
+            emit toks[step, slot]; remaining -= 1
+            active &= (token != eos_id) and (remaining > 0)
+
+    The recurrence is the device's, and a retired slot's state is frozen
+    by the masked decode, so the emitted streams equal a step-at-a-time
+    loop's and the returned exit state equals the device carry row for
+    row.  Returns (emitted, active_out, remaining_out): ``emitted[slot]``
+    lists the tokens the slot emitted this round (EOS included, as in the
+    single-step loop); the arrays are fresh copies.
+    """
+    M, B = toks.shape
+    act = np.asarray(active).astype(bool)
+    rem = np.asarray(remaining).copy()
+    emitted = [[] for _ in range(B)]
+    for m in range(M):
+        for b in np.flatnonzero(act):
+            t = int(toks[m, b])
+            emitted[b].append(t)
+            rem[b] -= 1
+            if t == eos_id or rem[b] <= 0:
+                act[b] = False
+    return emitted, act, rem
+
+
 class SlotAllocator:
     """Fixed pool of decode slots, lowest free index first."""
 

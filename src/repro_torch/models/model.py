@@ -8,6 +8,9 @@
   * ``prefill(params, tokens, ...)``         -> (last logits, dense cache)
   * ``decode_step(params, batch, cache)``     -> (logits, cache updated in
                                                 place)
+  * ``decode_scan(params, batch, cache, M)``  -> ((M, B) tokens, carry,
+                                                cache): M steps with EOS
+                                                and budget retirement
   * ``init_cache`` / ``insert_cache``         -> the paged pool
 """
 from __future__ import annotations
@@ -173,6 +176,44 @@ class Model:
             batch["block_table"], active=batch.get("active"))
         x = layers.apply_norm(params["norm_f"], x, self.cfg)
         return self._logits(params, x)[:, 0], cache
+
+    def decode_scan(self, params, batch, cache: KVCache, length: int):
+        """``length`` greedy decode steps with retirement on the device.
+
+        batch: {"token": (B, 1), "pos": (B, 1) int32, "active": (B,) bool,
+        "remaining": (B,) int32 emission budget per slot, "eos_id": int32
+        scalar tensor (-1 disables; greedy tokens are >= 0), "block_table":
+        (B, n_bt) int32}.  Each step is a masked :meth:`decode_step`, then::
+
+            remaining -= active
+            active   &= (next != eos_id) & (remaining > 0)
+
+        ``token`` freezes at the last live emission and ``pos`` advances
+        only on entry-active steps, so the carry is the state a
+        step-at-a-time loop would reach; the host recovers the streams with
+        ``scheduler.replay_round``.  The block table is the same for every
+        step: the caller allocates every block the round can touch first.
+
+        Returns ((length, B) raw per-step greedy tokens, carry dict with the
+        token/pos/active/remaining keys, cache updated in place).
+        """
+        tok, p = batch["token"], batch["pos"]
+        act, rem = batch["active"], batch["remaining"]
+        eos, bt = batch["eos_id"], batch["block_table"]
+        toks = []
+        for _ in range(length):
+            logits, cache = self.decode_step(
+                params, {"token": tok, "pos": p, "active": act,
+                         "block_table": bt}, cache)
+            nxt = torch.argmax(logits, -1).to(torch.int32)
+            rem = rem - act.to(torch.int32)
+            new_act = act & (nxt != eos) & (rem > 0)
+            tok = torch.where(act[:, None], nxt[:, None], tok)
+            p = p + act[:, None].to(torch.int32)
+            act = new_act
+            toks.append(nxt)
+        carry = {"token": tok, "pos": p, "active": act, "remaining": rem}
+        return torch.stack(toks), carry, cache
 
     def insert_cache(self, cache: KVCache, seq_cache: KVCache, slot: int,
                      block_row) -> KVCache:

@@ -362,3 +362,171 @@ def test_psi_matmul_codes_bf16_misaligned(cuda, K, N, which, M):
                                                (37, 33)])
 def test_psi_matmul_codes_batch_invariant(cuda, K, N):
     _check_batch_invariant(K, N, 8)
+
+
+# ---------------------------------------------------------------------------
+# The decode step and the horizon-M round as CUDA graphs.
+# ---------------------------------------------------------------------------
+def _graph_executor(dtype, horizon):
+    """A reduced qwen3-8b psi8 executor on the card with two prefilled
+    slots and a live block table: (executor, cache, table, inputs)."""
+    from repro_torch.runtime import Executor
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode="psi8",
+                         dtype=dtype)
+    params = build_model(cfg).init(seed=0, device="cuda", bits=8)
+    ex = Executor(cfg, params, max_batch=3, max_seq=64, device="cuda",
+                  decode_horizon=horizon)
+    cache = ex.init_cache()
+    bt = ex.make_block_table()
+    rng = np.random.default_rng(0)
+    for slot in range(2):
+        row = np.full((ex.n_bt,), -1, np.int32)
+        row[:2] = [2 * slot, 2 * slot + 1]
+        prompt = rng.integers(0, cfg.vocab_size, size=(1, 16)).astype(
+            np.int32)
+        ex.prefill_insert(prompt, np.array([13], np.int32), cache, slot, row)
+        bt[slot] = row
+    inputs = dict(token=np.array([[5], [7], [0]], np.int32),
+                  pos=np.array([[13], [13], [0]], np.int32),
+                  active=np.array([True, True, False]),
+                  remaining=np.array([20, 3, 0], np.int32))
+    return ex, cache, bt, inputs
+
+
+def _pool_copy(cache):
+    from repro_torch.models.kvcache import KVCache
+    return KVCache([{k: t.clone() for k, t in layer.items()}
+                    for layer in cache.kv], cache.layout, cache.block_size,
+                   cache.n_blocks)
+
+
+def _eager_batch(inputs, bt, with_round=False):
+    b = {"token": torch.from_numpy(inputs["token"]).cuda(),
+         "pos": torch.from_numpy(inputs["pos"]).cuda(),
+         "active": torch.from_numpy(inputs["active"]).cuda(),
+         "block_table": torch.from_numpy(bt.host.copy()).cuda()}
+    if with_round:
+        b["remaining"] = torch.from_numpy(inputs["remaining"]).cuda()
+        b["eos_id"] = torch.tensor(-1, dtype=torch.int32, device="cuda")
+    return b
+
+
+def _assert_pools_equal(cache, ref_cache):
+    """Every usable block bit for bit.  The per-slot scratch blocks past
+    ``n_blocks`` are left out: nothing reads them, and the capture's warm
+    run (all rows inactive) wrote into them."""
+    for a, b in zip(cache.kv, ref_cache.kv):
+        for k in a:
+            assert torch.equal(a[k][:cache.n_blocks],
+                               b[k][:cache.n_blocks]), k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_graph_replay_equals_eager_step(cuda, dtype):
+    """Two replays of the horizon-1 graph against two eager decode_steps on
+    a copy of the pool: tokens and pools bit for bit, and the launches
+    each replay adds are one step's (7 * n_layers + 1 matmuls, n_layers
+    attention reads; 253 / 36 at 36 layers)."""
+    ex, cache, bt, inp = _graph_executor(dtype, 1)
+    ref_cache = _pool_copy(cache)
+    L = ex.model.cfg.n_layers
+    for step in range(2):
+        with torch.inference_mode():
+            logits, _ = ex.model.decode_step(ex.params, _eager_batch(inp, bt),
+                                             ref_cache)
+        want = torch.argmax(logits, -1).to(torch.int32)
+        before = ops.launch_counts()
+        got, _ = ex.decode(inp["token"], inp["pos"], inp["active"], cache,
+                           bt)
+        after = ops.launch_counts()
+        assert torch.equal(got, want), step
+        if step:                     # the first call also ran the warm step
+            assert after["psi_matmul_codes"] - before["psi_matmul_codes"] \
+                == 7 * L + 1
+            assert after["paged_attention"] - before["paged_attention"] == L
+        inp["token"] = got.cpu().numpy()[:, None]
+        inp["pos"] = inp["pos"] + 1
+    assert ex.graph_counts() == {"decode": 1, "decode_multi": 0}
+    _assert_pools_equal(cache, ref_cache)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_round_graph_equals_eager_steps(cuda, dtype):
+    """One horizon-4 graph round against 4 eager decode_steps plus the
+    retirement recurrence (Model.decode_scan, eagerly) on a copy of the
+    pool: tokens, carry and pools bit for bit; slot 1's budget of 3 ends
+    inside the round; the carry chains into a second round with no
+    upload; the round's launches are 4 steps'."""
+    ex, cache, bt, inp = _graph_executor(dtype, 4)
+    ref_cache = _pool_copy(cache)
+    with torch.inference_mode():
+        want, wcarry, _ = ex.model.decode_scan(
+            ex.params, _eager_batch(inp, bt, True), ref_cache, 4)
+    toks, carry, _ = ex.decode_multi(inp["token"], inp["pos"],
+                                     inp["active"], inp["remaining"], cache,
+                                     bt)
+    np.testing.assert_array_equal(np.asarray(toks), want.cpu().numpy())
+    for k in ("token", "pos", "remaining"):
+        assert torch.equal(carry[k], wcarry[k].to(torch.int32)), k
+    assert carry["active"].tolist() == wcarry["active"].int().tolist() \
+        == [1, 0, 0]
+    _assert_pools_equal(cache, ref_cache)
+    L = ex.model.cfg.n_layers
+    before = ops.launch_counts()
+    toks2, _, _ = ex.decode_multi(carry["token"], carry["pos"],
+                                  carry["active"], carry["remaining"], cache,
+                                  bt)
+    after = ops.launch_counts()
+    assert after["psi_matmul_codes"] - before["psi_matmul_codes"] == \
+        4 * (7 * L + 1)
+    assert after["paged_attention"] - before["paged_attention"] == 4 * L
+    with torch.inference_mode():
+        want2, _, _ = ex.model.decode_scan(
+            ex.params, dict(wcarry, eos_id=torch.tensor(
+                -1, dtype=torch.int32, device="cuda"),
+                block_table=torch.from_numpy(bt.host.copy()).cuda()),
+            ref_cache, 4)
+    np.testing.assert_array_equal(np.asarray(toks2), want2.cpu().numpy())
+    assert ex.graph_counts() == {"decode": 0, "decode_multi": 1}
+
+
+def test_block_table_upload_keeps_its_buffer(cuda):
+    ex, cache, bt, _ = _graph_executor("float32", 1)
+    ptr = bt.device().data_ptr()
+    assert ptr == ex._bt.data_ptr()
+    full = bt.stats["full_uploads"]
+    for slot in range(3):
+        bt[slot, :] = np.arange(ex.n_bt, dtype=np.int32) + slot
+    dev = bt.device()
+    assert bt.stats["full_uploads"] == full + 1
+    assert dev.data_ptr() == ptr
+    assert dev.cpu().numpy().tolist() == bt.host.tolist()
+    bt[1, 0] = 9                                  # one dirty row of three
+    assert bt.device().data_ptr() == ptr and bt.stats["row_updates"] == 1
+    assert int(ex._bt[1, 0]) == 9
+
+
+@pytest.mark.parametrize("horizon", [1, 4])
+def test_second_serve_reuses_the_graph(cuda, horizon):
+    """Two serves on one Server capture one decode graph between them, and
+    give the same tokens as the CPU at the same horizon."""
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode="psi8")
+    params = build_model(cfg).init(seed=0, device="cpu", bits=8)
+    trace = lambda: scheduler.poisson_trace(
+        4, rate_rps=1e9, prompt_len=12, max_new=9, vocab_size=256, seed=3,
+        prompt_jitter=4)
+    cpu = serve.Server(cfg, params, max_batch=2, max_seq=64, device="cpu",
+                       decode_horizon=horizon)
+    want = {r.rid: r.tokens for r in cpu.serve(trace())[0]}
+    server = serve.Server(cfg, params, max_batch=2, max_seq=64,
+                          device="cuda", decode_horizon=horizon)
+    pool = server.executor.init_cache()
+    graphs = []
+    for _ in range(2):
+        done, stats = server.serve(trace())
+        assert {r.rid: r.tokens for r in done} == want
+        assert stats["decode_compiles"] == 1
+        graphs.append(dict(server.executor._graphs))
+    assert graphs[0].keys() == graphs[1].keys() and all(
+        graphs[0][k][0] is graphs[1][k][0] for k in graphs[0])
+    assert server.executor.init_cache() is pool
