@@ -30,11 +30,23 @@ before the result line:
                          rounds of 8 steps: tokens identical to horizon 1,
                          the same launch counts per step under replay, one
                          captured round graph;
+  3c. context serving (serve_psi8_ctx) — the psi8 model, all 36 layers,
+                         serving (a) a shared-prefix trace with the prefix
+                         cache off and (b) on, (c) a bursty heavy-tail
+                         trace under FIFO and (d) the same trace under
+                         --slo with --prefill-chunk 128 at horizon 4 on a
+                         pool tight enough to preempt: tokens of (b) equal
+                         (a)'s and (d) equal (c)'s, or a divergence only
+                         where the baseline's top-2 margin is a near tie;
+                         reuse and chunk counts worked out from the runs'
+                         fills; exact launch counts; no block leaks;
   4. serve psi5        — the same as 3 at psi5, all 36 layers, fewer
                          requests: the packed path (kernel 2), 253 launches
                          per step;
   5. card vs CPU       — prefill + 8 greedy decode steps of a 2-layer
-                         float32 psi8 model on the card and on the CPU;
+                         float32 psi8 model on the card and on the CPU, and
+                         on the card a suffix prefill (the prompt split at
+                         a block boundary) against the full prefill;
   6. summary           — {"kernels": [...]}, the card line, then the result
                          {"ok": true, "device": {...}} as the last line.
 
@@ -42,6 +54,7 @@ It exits non-zero, printing no result, without a CUDA device or when the
 repository's ``src/repro_torch`` is not beside it.
 """
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -66,7 +79,27 @@ SHAPES = {
 }
 DECODE_M = 4                     # decode rows = max_batch of the serve phase
 HORIZON = 8                      # decode steps per round, serve_psi8_horizon
+# serve_psi8_ctx: the bursty trace's seed (its first burst holds two long
+# requests), its pool (two long requests' optimistic reservations, 2 x 29
+# blocks: the second long request is preempted when the first outgrows
+# its reservation), the chunk and the horizon of run (d)
+CTX_SEED = 3
+CTX_CACHE_BLOCKS = 58
+CTX_CHUNK = 128
+CTX_HORIZON = 4
+# the token rule: a divergence between two context runs is accepted only
+# where the baseline's top-2 logit margin is below this many times the
+# largest logit difference of the two runs' replays before it
+MARGIN_FACTOR = 4.0
 PREFILL_M = 64                   # one admission's bucketed prompt
+# the rows kernels 1 and 2 are checked at for the served widths (psi8,
+# psi5): the decode rows and every multiple of the prefill bucket (16) up
+# to CTX_LONG_SEQ, the longest sequence of serve_psi8_ctx (448-token
+# prompts, 24 new tokens, 8 of slack and one bucket for a restore, as
+# build_server sizes it).  Each serve phase checks that its prefill
+# forwards ran at these rows only.
+CTX_LONG_SEQ = 448 + 24 + 8 + 16
+PREFILL_MS = tuple(range(16, CTX_LONG_SEQ + 1, 16))
 L2_BYTES = 50e6                  # H100 L2: rotate weight copies past it
 
 
@@ -143,6 +176,7 @@ def main():
     summary = phase_kernels(torch, dev, bw, peak)
     launches = {}
     phase_serve(torch, dev, launches, "psi8")
+    phase_serve_ctx(torch, dev, launches)
     phase_serve(torch, dev, launches, "psi5")
     phase_card_vs_cpu(torch, dev)
 
@@ -337,7 +371,10 @@ def phase_kernels(torch, dev, bw, peak):
     for label, ((K, N), per_step) in SHAPES.items():
         w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
         row = {"phase": "kernel_shape", "weight": label, "K": K, "N": N,
-               "launches_per_decode_step": per_step}
+               "launches_per_decode_step": per_step,
+               "checked_M": f"psi8, psi5: 1, {DECODE_M}, 16-{CTX_LONG_SEQ} "
+                            f"step 16; psi2-4, 6, 7: 1, {DECODE_M}, 16, "
+                            f"{PREFILL_M}"}
         for bits in (8, 2, 3, 4, 5, 6, 7):
             qt = psi.quantize_weights(w, bits, axis=(0,))
             key = "psi_matmul_codes" if bits == 8 else "psi_matmul_packed"
@@ -348,8 +385,9 @@ def phase_kernels(torch, dev, bw, peak):
             else:
                 plain = lambda x, q=qt: ref.psi_matmul_codes_ref(
                     x, q.data, q.scale)
-            err, ratio = _gemm_errors(torch, ops, ref, qt, plain,
-                                      [1, DECODE_M, 16, PREFILL_M], bf16,
+            Ms = ([1, DECODE_M, *PREFILL_MS] if bits in (8, 5)
+                  else [1, DECODE_M, 16, PREFILL_M])
+            err, ratio = _gemm_errors(torch, ops, ref, qt, plain, Ms, bf16,
                                       gen, dev)
             check(ratio <= 1.0, f"{key} bits={bits} {label} bf16 err {err} "
                                 f"over one bf16 ulp of the output")
@@ -722,15 +760,20 @@ def phase_serve(torch, dev, launches, quant):
     init_s = time.perf_counter() - t0
     check(cfg.n_layers == 36 and cfg.d_model == 4096, "not full width")
     server.warmup(serve.trace_from_args(args, cfg))
+    rows, undo = _record_prefill_rows(server.executor)
     ops.reset_launch_counts()                         # the main path starts
     runs = {}
-    for mode in ("continuous", "static"):
-        done, stats = server.serve(serve.trace_from_args(args, cfg),
-                                   continuous=(mode == "continuous"),
-                                   warmup=False)
-        runs[mode] = ({r.rid: r.tokens for r in done}, stats, done)
+    try:
+        for mode in ("continuous", "static"):
+            done, stats = server.serve(serve.trace_from_args(args, cfg),
+                                       continuous=(mode == "continuous"),
+                                       warmup=False)
+            runs[mode] = ({r.rid: r.tokens for r in done}, stats, done)
+    finally:
+        undo()
     torch.cuda.synchronize()
     got = ops.launch_counts()                         # ... and ends here
+    _check_prefill_rows(rows, quant)
     (tc, sc, done_c), (ts, ss, _) = runs["continuous"], runs["static"]
     check(tc == ts, f"{quant}: continuous and static modes emitted "
                     f"different tokens")
@@ -829,6 +872,373 @@ def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
           "static": {k: ss[k] for k in keep + ("decode_rounds",
                                                "loop_iters")},
           "tokens_identical_to_horizon_1": True, "launches": got})
+
+
+def _record_prefill_rows(ex):
+    """Wrap ``ex.prefill_insert`` to record the rows of each prefill
+    forward (the M of all its matmuls, the lm-head's included); returns
+    (rows, undo)."""
+    rows = []
+    insert = ex.prefill_insert
+
+    def recorded(tokens, *a, **kw):
+        rows.append(int(tokens.shape[1]))
+        return insert(tokens, *a, **kw)
+
+    ex.prefill_insert = recorded
+
+    def undo():
+        del ex.prefill_insert
+    return rows, undo
+
+
+def _check_prefill_rows(rows, label):
+    """The prefill rows a serve ran must be rows phase_kernels checked
+    kernels 1 and 2 at."""
+    off = sorted(set(rows) - set(PREFILL_MS))
+    check(not off, f"{label}: prefill forwards ran at rows {off}, where "
+                   f"the PSI kernels were not checked against their plain "
+                   f"versions (PREFILL_MS)")
+
+
+def _fill_log(server, serve_mod):
+    """Record each fill of ``server`` (rid, pos0, len(full_seq)) and each
+    preemption (rid, covered) for the chunk and forward counts that
+    :func:`_fills_expect` works out; returns (log, undo)."""
+    log = []
+    bs = server.block_size
+    begin = server._begin_fill
+
+    def logged_begin(cache, slot, req, sched, bt, chunking):
+        log.append(("fill", req.rid, len(req.prefix_blocks) * bs,
+                    len(req.full_seq)))
+        return begin(cache, slot, req, sched, bt, chunking)
+
+    class LoggedScheduler(serve_mod.Scheduler):
+        def preempt(self, slot, now, covered=None):
+            log.append(("cut", self.running[slot].rid, covered))
+            return super().preempt(slot, now, covered=covered)
+
+    server._begin_fill = logged_begin
+    plain = serve_mod.Scheduler
+    serve_mod.Scheduler = LoggedScheduler
+
+    def undo():
+        serve_mod.Scheduler = plain
+        del server._begin_fill
+    return log, undo
+
+
+def _fills_expect(log, chunk):
+    """(prefill forwards, of them without the lm-head, chunk pieces) that
+    the logged fills must have run.  A fill longer than one chunk runs
+    ceil((L - pos0) / chunk) pieces, the last with the lm-head, unless a
+    preemption cut it while chunking (covered < L): then it ran (covered -
+    pos0) / chunk pieces, none with the head.  A shorter fill is one
+    forward with the head and no chunk."""
+    fwd = headless = chunks = 0
+    open_fill = {}
+    for ev in log:
+        if ev[0] == "fill":
+            _, rid, pos0, L = ev
+            open_fill[rid] = (pos0, L)
+            if not (chunk and L - pos0 > chunk):
+                fwd += 1
+                continue
+            n = -(-(L - pos0) // chunk)
+            fwd, headless, chunks = fwd + n, headless + n - 1, chunks + n
+        else:
+            _, rid, covered = ev
+            pos0, L = open_fill[rid]
+            if chunk and L - pos0 > chunk and covered < L:
+                # cut while chunking: take back the pieces it never ran
+                n = -(-(L - pos0) // chunk)
+                ran = (covered - pos0) // chunk
+                fwd -= n - ran
+                headless -= n - 1 - ran
+                chunks -= n - ran
+    return fwd, headless, chunks
+
+
+def _replay(torch, server, seq, P, events, last):
+    """One request's computation in a served run, replayed on the model
+    alone and teacher-forced on ``seq`` (its prompt and baseline tokens):
+    each fill as the server ran it (pieces of ``prefill_chunk``, the last
+    bucketed, over the context KV already in the pool; a fill cut by a
+    preemption stops at the KV it covered) and a decode step for every
+    other row.  Returns {absolute row: logits} up to row ``last``; row r
+    predicts the token at r + 1.  ``events``: ("fill", pos0, L) and
+    ("cut", covered) in run order."""
+    from repro_torch.models.kvcache import KVCache
+    ex = server.executor
+    model, params, dev = ex.model, ex.params, ex.device
+    bs, chunk = server.block_size, server.prefill_chunk
+    cache = model.init_cache(1, ex.n_bt * bs, device=dev, n_blocks=ex.n_bt)
+    table = torch.arange(ex.n_bt, dtype=torch.int64, device=dev)
+    x = torch.as_tensor(seq, device=dev)
+    rows = {}
+
+    def forward(cur, end, record=True):
+        """Prefill seq[cur:end] as the server's pieces, over [0, cur)."""
+        while cur < end:
+            rem = end - cur
+            final = not (chunk and rem > chunk)
+            n = server._bucket_len(rem) if final else chunk
+            take = rem if final else n
+            toks = torch.zeros((1, n), dtype=torch.int32, device=dev)
+            toks[0, :take] = x[cur:cur + take]
+            ctx = (model.gather_prefix_ctx(cache, table[:cur // bs])
+                   if cur else None)
+            logits, states = model.forward(params, toks, pos0=cur,
+                                           ctx_kv=ctx)
+            model.insert_cache(cache, KVCache([{"k": st["k"], "v": st["v"]}
+                                               for st in states]),
+                               0, table[cur // bs:])
+            if record:
+                for i in range(take):
+                    rows[cur + i] = logits[0, i]
+            cur += take
+
+    with torch.inference_mode():
+        if events[0][1]:            # a prefix hit: KV another request wrote
+            forward(0, events[0][1], record=False)
+        row, ei = P - 1, 0
+        while row <= last:
+            ev = events[ei] if ei < len(events) else None
+            if ev and ev[0] == "cut":
+                ei += 1                 # a decode victim: its restore follows
+            elif ev and ev[2] == row + 1:
+                end = ev[2]
+                nxt = events[ei + 1] if ei + 1 < len(events) else None
+                cut = nxt and nxt[0] == "cut" and nxt[1] < ev[2]
+                if cut:
+                    end = nxt[1]        # cut while chunking: [pos0, covered)
+                forward(ev[1], end)
+                ei += 2 if cut else 1
+                if not cut:
+                    row += 1
+            else:
+                batch = {"token": x[row].view(1, 1).to(torch.int32),
+                         "pos": torch.tensor([[row]], dtype=torch.int32,
+                                             device=dev),
+                         "active": torch.ones((1,), dtype=torch.bool,
+                                              device=dev),
+                         "block_table": table[None].to(torch.int32)}
+                logits, _ = model.decode_step(params, batch, cache)
+                rows[row] = logits[0]
+                row += 1
+    return rows
+
+
+def _token_rule(torch, servers, base, other, logs, label):
+    """Tokens of run ``other`` against the baseline run ``base`` (finished
+    requests of one trace; ``servers`` and ``logs`` their servers and fill
+    logs).  Identical passes.  Otherwise each request that differs is
+    replayed both ways (:func:`_replay`) up to its first differing token
+    j: the baseline's top-2 logit margin at the row predicting j must be
+    below MARGIN_FACTOR x the largest logit difference of the two replays
+    on the rows before it, and each replay must pick its own run's token
+    there.  Returns the divergences found."""
+    import numpy as np
+    got = {r.rid: r.tokens for r in other}
+    out = []
+    for r in sorted(base, key=lambda r: r.rid):
+        mine = got[r.rid]
+        check(len(mine) == len(r.tokens), f"{label}: request {r.rid} emitted "
+                                          f"{len(mine)} tokens, baseline "
+                                          f"{len(r.tokens)}")
+        j = next((i for i, (a, b) in enumerate(zip(r.tokens, mine))
+                  if a != b), None)
+        if j is None:
+            continue
+        P = len(r.prompt)
+        seq = np.concatenate([r.prompt, np.asarray(r.tokens[:j], np.int32)])
+        last = P - 1 + j
+        reps = []
+        for server, log in zip(servers, logs):
+            events = [ev[0:1] + ev[2:] for ev in log if ev[1] == r.rid]
+            reps.append(_replay(torch, server, seq, P,
+                                events or [("fill", 0, P)], last))
+        a, b = reps
+        before = [k for k in a if k in b and k < last]
+        delta = max((float((a[k].float() - b[k].float()).abs().max())
+                     for k in before), default=0.0)
+        top2 = torch.topk(a[last].float(), 2)
+        margin = float(top2.values[0] - top2.values[1])
+        picked = [int(a[last].argmax()), int(b[last].argmax())]
+        out.append({"rid": r.rid, "token": j, "baseline": r.tokens[j],
+                    "other": mine[j], "margin": margin,
+                    "max_logit_diff_before": delta, "rows_before": len(before),
+                    "bound": MARGIN_FACTOR * delta,
+                    "replayed_argmax": picked})
+        check(picked == [int(r.tokens[j]), int(mine[j])],
+              f"{label}: request {r.rid} diverged at token {j} "
+              f"({r.tokens[j]} vs {mine[j]}), but the replays of the two "
+              f"runs pick {picked}: the divergence does not come from the "
+              f"computation the replays model")
+        check(margin < MARGIN_FACTOR * delta,
+              f"{label}: request {r.rid} diverged at token {j} where the "
+              f"baseline's top-2 margin {margin} is not below "
+              f"{MARGIN_FACTOR} x {delta} (the largest logit difference of "
+              f"the two runs' replays before it)")
+        del reps, a, b
+    return out
+
+
+def phase_serve_ctx(torch, dev, launches):
+    """Context serving on full-width qwen3-8b psi8 (all 36 layers, 4
+    slots, 16-position blocks), four continuous runs:
+
+      (a) a shared-prefix trace (a 256-token prefix, 32 +- 8-token tails,
+          8 requests, 8-16 new tokens), prefix cache off;
+      (b) the same with the prefix cache on;
+      (c) a bursty heavy-tail trace (12 requests in bursts of 4, long
+          448-token prompts with 24 new tokens, short 32 with 8) under FIFO
+          on a pool of CTX_CACHE_BLOCKS;
+      (d) the same trace and pool under --slo default@reserve=0.1 with
+          --prefill-chunk 128 at horizon 4.
+
+    Checks: (b) reuses prefix tokens and prefills exactly that many fewer
+    than (a); (d) preempts, and its chunk pieces and forwards are those
+    its fills work out to; every run leaks no block, captures one decode
+    graph and launches exactly 253 matmuls per forward (252 for a chunk
+    that skips the lm-head) and 36 attention reads per decode step; (b)
+    against (a) and (d) against (c) under the token rule
+    (:func:`_token_rule`)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.slo import bursty_heavy_tail_trace
+    t_phase = time.perf_counter()
+    args = _serve_args(prompt_len=32, prompt_jitter=8, shared_prefix_len=256,
+                       max_new=16, min_new=8, prefix_cache="off")
+    server_a, cfg = serve.build_server(args)
+    check(cfg.n_layers == 36 and cfg.d_model == 4096, "not full width")
+    params = server_a.executor.params
+    cfg_on = dataclasses.replace(cfg, prefix_cache=True)
+    server_b = serve.Server(cfg_on, params, max_batch=args.max_batch,
+                            max_seq=server_a.max_seq, device=dev)
+    bursty = lambda: bursty_heavy_tail_trace(
+        12, vocab_size=cfg.vocab_size, seed=CTX_SEED, burst_size=4,
+        long_prompt=448, short_prompt=32, long_new=24, short_new=8)
+    long_seq = CTX_LONG_SEQ                              # as build_server
+    server_c = serve.Server(cfg, params, max_batch=args.max_batch,
+                            max_seq=long_seq, device=dev,
+                            n_blocks=CTX_CACHE_BLOCKS)
+    server_d = serve.Server(cfg, params, max_batch=args.max_batch,
+                            max_seq=long_seq, device=dev,
+                            n_blocks=CTX_CACHE_BLOCKS,
+                            prefill_chunk=CTX_CHUNK,
+                            slo=serve.parse_slo_spec("default@reserve=0.1"),
+                            decode_horizon=CTX_HORIZON)
+    runs = {}
+    keep = ("tok_per_s", "wall_s", "tokens", "p50_ttft_s", "p99_ttft_s",
+            "p50_itl_s", "p99_itl_s", "p50_latency_s", "p99_latency_s",
+            "decode_steps", "decode_rounds", "prefill_forwards",
+            "prefill_forwards_headless", "prefilled_tokens",
+            "prefix_tokens_reused", "preemptions", "peak_concurrency",
+            "host_syncs_per_token", "decode_compiles", "blocks_free_end",
+            "n_blocks")
+    for label, server, trace in (
+            ("a", server_a, lambda: serve.trace_from_args(args, cfg)),
+            ("b", server_b, lambda: serve.trace_from_args(args, cfg)),
+            ("c", server_c, bursty), ("d", server_d, bursty)):
+        server.warmup(trace())
+        log, undo = _fill_log(server, serve)
+        rows, undo_rows = _record_prefill_rows(server.executor)
+        ops.reset_launch_counts()                     # the main path starts
+        try:
+            done, stats = server.serve(trace(), continuous=True,
+                                       warmup=False)
+        finally:
+            undo_rows()
+            undo()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()                     # ... and ends here
+        _check_prefill_rows(rows, f"ctx ({label})")
+        fwd, headless, chunks = _fills_expect(log, server.prefill_chunk)
+        check((stats["prefill_forwards"],
+               stats["prefill_forwards_headless"],
+               stats.get("prefill_chunks", 0)) == (fwd, headless, chunks),
+              f"ctx ({label}): forwards / headless / chunks "
+              f"{stats['prefill_forwards']} / "
+              f"{stats['prefill_forwards_headless']} / "
+              f"{stats.get('prefill_chunks', 0)} != {fwd} / {headless} "
+              f"/ {chunks} worked out from the fills")
+        steps = stats["decode_steps"]
+        want = {"psi_matmul_codes": 253 * (steps + stats["prefill_forwards"])
+                - stats["prefill_forwards_headless"],
+                "psi_matmul_packed": 0, "paged_attention": 36 * steps}
+        check(got == want, f"ctx ({label}): launch counts {got} != expected "
+                           f"{want} (253 per forward, 252 for a chunk "
+                           f"without the lm-head, 36 attention per step)")
+        check(stats["decode_compiles"] == 1,
+              f"ctx ({label}): want one captured decode graph, got "
+              f"{stats['decode_compiles']}")
+        check(stats["blocks_free_end"] == stats["n_blocks"],
+              f"ctx ({label}): {stats['n_blocks'] - stats['blocks_free_end']}"
+              f" blocks leaked")
+        check(all(len(r.tokens) == r.max_new for r in done)
+              and all(0 <= t < cfg.vocab_size for r in done
+                      for t in r.tokens),
+              f"ctx ({label}): a request's tokens are short or out of the "
+              f"vocabulary")
+        for k in got:
+            launches[k] = launches.get(k, 0) + got[k]
+        row = {k: stats.get(k) for k in keep}
+        row["prefill_chunks"] = stats.get("prefill_chunks", 0)
+        row["prefix_cache"] = stats.get("prefix_cache")
+        row["fills"] = sum(1 for ev in log if ev[0] == "fill")
+        row["launches"] = got
+        row["prefill_rows"] = sorted(set(rows))
+        runs[label] = (done, stats, row, log)
+    sa, sb, sd = runs["a"][1], runs["b"][1], runs["d"][1]
+    check(sb["prefix_tokens_reused"] > 0, "ctx (b): no prefix token reused")
+    check(sa["prefilled_tokens"] - sb["prefilled_tokens"]
+          == sb["prefix_tokens_reused"],
+          f"ctx: prefilled (a) {sa['prefilled_tokens']} - (b) "
+          f"{sb['prefilled_tokens']} != reused {sb['prefix_tokens_reused']}")
+    check(sd["preemptions"] > 0, "ctx (d): the tight pool preempted nothing")
+    rule_b = _token_rule(torch, (server_a, server_b), runs["a"][0],
+                         runs["b"][0], (runs["a"][3], runs["b"][3]),
+                         "ctx (b) vs (a)")
+    rule_d = _token_rule(torch, (server_c, server_d), runs["c"][0],
+                         runs["d"][0], (runs["c"][3], runs["d"][3]),
+                         "ctx (d) vs (c)")
+    prefill = _prefill_window(torch, server_d)
+    emit({"phase": "serve_psi8_ctx", "layers": cfg.n_layers,
+          "max_batch": args.max_batch, "block_size": server_a.block_size,
+          "a_b": "shared prefix 256, tails 32+-8, 8 requests, 8-16 new; "
+                 "prefix cache off / on",
+          "c_d": f"bursty seed {CTX_SEED}: 12 requests, bursts of 4, long "
+                 f"448+24 / short 32+8; FIFO / --slo default@reserve=0.1 "
+                 f"--prefill-chunk {CTX_CHUNK} --decode-horizon "
+                 f"{CTX_HORIZON}, --cache-blocks {CTX_CACHE_BLOCKS}",
+          "runs": {k: v[2] for k, v in runs.items()},
+          "tokens_b_vs_a": "identical" if not rule_b else rule_b,
+          "tokens_d_vs_c": "identical" if not rule_d else rule_d,
+          "margin_factor": MARGIN_FACTOR,
+          "prefill_window": prefill,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    del server_a, server_b, server_c, server_d, params, runs
+    torch.cuda.empty_cache()
+
+
+def _prefill_window(torch, server, rows=(32, 128, 288, 448), calls=3):
+    """Wall and device time of one eager prefill forward (with the
+    lm-head) plus its scatter, by rows: what an admission, a suffix or a
+    chunk costs (written to the slot's scratch block; the server's table
+    must cover the largest row count)."""
+    import numpy as np
+    ex = server.executor
+    cache = ex.init_cache()
+    brow = np.full((ex.n_bt,), -1, np.int32)
+    out = {}
+    for M in rows:
+        toks = (np.arange(M, dtype=np.int32) % server.cfg.vocab_size)[None]
+        out[M] = _window(torch, lambda: ex.prefill_insert(
+            toks, np.asarray([M], np.int32), cache, 0, brow), 1, calls)
+    return out
 
 
 def _decode_window(torch, server, multi=None, steps=5):
@@ -967,10 +1377,66 @@ def phase_card_vs_cpu(torch, dev):
     # O(1)-O(10) logits leaves two decades of room
     tol = 1e-3 * max(1.0, amax / 10.0)
     check(err <= tol, f"card vs CPU logits differ by {err} > {tol}")
+    suffix = _suffix_vs_full(torch, dev, model, params)
+    check(suffix["max_abs_err"] <= tol, f"suffix prefill vs full prefill "
+                                        f"logits differ by "
+                                        f"{suffix['max_abs_err']} > {tol}")
+    check(suffix["tokens_full"] == suffix["tokens_suffix"],
+          f"suffix prefill tokens {suffix['tokens_suffix']} != full "
+          f"prefill tokens {suffix['tokens_full']}")
     emit({"phase": "card_vs_cpu", "layers": cfg.n_layers, "dtype": "float32",
           "steps": "prefill(16) + 8 decode", "max_abs_err": err,
           "max_abs_logit": amax, "tolerance": tol,
-          "argmax_agree": f"{agree}/{len(card)}", "ok": True})
+          "argmax_agree": f"{agree}/{len(card)}",
+          "suffix_vs_full": suffix, "ok": True})
+
+
+def _suffix_vs_full(torch, dev, model, params, P=40, split=32, steps=8):
+    """On the card: a P-token prompt prefilled whole, against its first
+    ``split`` tokens prefilled and scattered into the pool, then the rest
+    as a suffix prefill over that context (gathered from the pool) — the
+    prefix cache's path; each then decodes ``steps`` greedy tokens.
+    Returns the largest logit difference and both token streams."""
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, P),
+                           generator=torch.Generator().manual_seed(9)).to(dev)
+    bs = model.cfg.cache_block_size
+    nctx = split // bs
+
+    def decode(cache, table, logits):
+        outs, toks = [logits.float()], []
+        for i in range(steps + 1):
+            tok = int(logits.argmax(-1)[0])
+            toks.append(tok)
+            if i == steps:
+                break
+            batch = {"token": torch.tensor([[tok]], device=dev),
+                     "pos": torch.tensor([[P + i]], dtype=torch.int32,
+                                         device=dev),
+                     "active": torch.tensor([True], device=dev),
+                     "block_table": table}
+            logits, cache = model.decode_step(params, batch, cache)
+            outs.append(logits.float())
+        return outs, toks
+
+    with torch.inference_mode():
+        row = torch.arange(4, dtype=torch.int32, device=dev)
+        cache = model.init_cache(1, 64, device=dev, n_blocks=8)
+        logits, seq = model.prefill(params, prompt)
+        model.insert_cache(cache, seq, 0, row.long())
+        full, toks_full = decode(cache, row[None], logits)
+        row = torch.arange(4, 8, dtype=torch.int32, device=dev)
+        cache = model.init_cache(1, 64, device=dev, n_blocks=8)
+        _, seq = model.prefill(params, prompt[:, :split])
+        model.insert_cache(cache, seq, 0, row.long())
+        ctx = model.gather_prefix_ctx(cache, row[:nctx])
+        logits, seq = model.prefill(params, prompt[:, split:], pos0=split,
+                                    ctx_kv=ctx)
+        model.insert_cache(cache, seq, 0, row[nctx:].long())
+        part, toks_suffix = decode(cache, row[None], logits)
+    return {"prompt": P, "split": split, "decode_steps": steps,
+            "max_abs_err": max(float((a - b).abs().max())
+                               for a, b in zip(full, part)),
+            "tokens_full": toks_full, "tokens_suffix": toks_suffix}
 
 
 if __name__ == "__main__":

@@ -40,6 +40,10 @@ class ModelConfig:
     kv_quant: str = ""              # "" | "int8"
     cache_layout: str = "auto"      # auto | paged
     cache_block_size: int = 16      # positions per paged block
+    # shared-prefix block reuse over the paged pool: admissions serve the
+    # longest cached block-aligned prompt prefix out of ref-counted blocks
+    # and prefill only the suffix (set per serve by --prefix-cache)
+    prefix_cache: bool = False
 
     source: str = ""
 
@@ -62,6 +66,23 @@ class ModelConfig:
             raise ValueError(f"{self.name or self.family}: the port serves "
                              f"dense full-attention stacks only")
         return "paged"
+
+    @property
+    def prefix_cache_enabled(self) -> bool:
+        """``prefix_cache`` validated: block reuse shares paged pool blocks
+        and replays absolute RoPE positions from a scalar ``pos0``."""
+        if not self.prefix_cache:
+            return False
+        if self.resolved_cache_layout != "paged":
+            raise ValueError(
+                f"{self.name or self.family}: prefix_cache requires the "
+                f"paged cache layout (resolved "
+                f"{self.resolved_cache_layout!r})")
+        if self.rope != "rope":
+            raise ValueError(
+                f"{self.name or self.family}: prefix_cache requires plain "
+                f"RoPE positions, got rope={self.rope!r}")
+        return True
 
 
 _REGISTRY = {}

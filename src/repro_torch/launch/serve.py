@@ -15,6 +15,24 @@ round; the host replays the same recurrence (``scheduler.replay_round``)
 to recover the streams, which equal horizon 1's.  Round N+1 is dispatched
 from the device carry before the host replays round N.
 
+Context serving — ``--prefix-cache on``, ``--prefill-chunk N`` and
+``--slo SPEC``, alone or together — sends every admission through one
+per-request suffix prefill that starts at a block-aligned offset ``pos0``
+and reads the KV of ``[0, pos0)`` out of the pool:
+
+* the prefix cache serves the longest cached block-aligned prefix of a
+  prompt out of ref-counted pool blocks and prefills only the rest;
+* chunked prefill splits a long prefill into pieces of N tokens, one per
+  loop iteration, interleaved with decode (pieces that are not the last
+  skip the lm-head);
+* SLO scheduling orders admission by an aged priority, reserves blocks
+  optimistically and, under pool pressure, preempts a running request:
+  its written KV is published into the prefix cache, and its restore is
+  a suffix prefill over ``prompt + generated``, whose last logits are the
+  next decode output.
+
+Greedy tokens do not depend on any of them.
+
 The Server is the host half; device work goes through
 ``repro_torch.runtime.Executor``, which runs every projection through the
 PSI matmul kernel and every decode attention read through the paged
@@ -23,13 +41,17 @@ CUDA-graph replay; plain PyTorch, eagerly, with ``--device cpu``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
       --reduced --quant psi8 --mode both --device cpu --decode-horizon 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
+      --reduced --quant psi8 --mode both --device cpu --prefix-cache on \\
+      --shared-prefix-len 32
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,9 +61,11 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.quantizer import (parse_policy, parse_quant_mode,
                                         serving_mode_choices)
 from repro_torch.kernels import ops
+from repro_torch.launch.prefix_cache import PrefixCache
 from repro_torch.launch.scheduler import (BlockAllocator, Request, Scheduler,
                                           poisson_trace, replay_round,
                                           summarize)
+from repro_torch.launch.slo import parse_slo_spec, slo_report
 from repro_torch.models import build_model, kvcache as kvc
 from repro_torch.runtime.executor import Executor
 
@@ -51,13 +75,14 @@ PREFILL_BUCKET = 16
 
 
 class Server:
-    """Slot-based serving engine: continuous or batch-synchronous FIFO
-    scheduling over one masked decode step, or a round of M steps, on the
-    paged layout."""
+    """Slot-based serving engine: continuous or batch-synchronous
+    scheduling (FIFO, or an SLO policy with preemption) over one masked
+    decode step, or a round of M steps, on the paged layout."""
 
     def __init__(self, cfg, params, max_batch: int = 4, max_seq: int = 256,
                  eos_id: int = -1, device=None,
-                 n_blocks: Optional[int] = None, decode_horizon: int = 1):
+                 n_blocks: Optional[int] = None, decode_horizon: int = 1,
+                 prefill_chunk: int = 0, slo=None):
         self.cfg = cfg
         # decode in rounds of M steps with retirement on the device and one
         # host sync per round; 1 = one step at a time
@@ -65,6 +90,7 @@ class Server:
         if self.decode_horizon < 1:
             raise ValueError(
                 f"decode_horizon={decode_horizon} must be >= 1")
+        self.prefix_enabled = cfg.prefix_cache_enabled
         self.block_size = cfg.cache_block_size
         # the paged read attends over n_bt * block_size keys: align the
         # extent to the block grid
@@ -72,6 +98,29 @@ class Server:
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.eos_id = eos_id
+        # SLO scheduling and chunked prefill replay absolute positions
+        # from a block-aligned offset, as the prefix cache does
+        self.slo = slo
+        self.prefill_chunk = int(prefill_chunk or 0)
+        if self.prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0, got {prefill_chunk}")
+        if self.slo is not None or self.prefill_chunk:
+            what = "--slo" if self.slo is not None else "--prefill-chunk"
+            if cfg.resolved_cache_layout != "paged":
+                raise ValueError(f"{what} requires the paged cache layout")
+            if cfg.rope != "rope":
+                raise ValueError(
+                    f"{what} replays absolute positions from a block-"
+                    f"aligned offset, which needs plain RoPE; got "
+                    f"rope={cfg.rope!r}")
+        if self.prefill_chunk:
+            # chunk boundaries land on the block grid (the context is whole
+            # blocks) and on the bucket grid (pos0 + bucket(L - pos0) ==
+            # bucket(L) only for a bucket-aligned pos0, so the last piece
+            # stays inside the admission's reservation)
+            grid = math.lcm(self.block_size, PREFILL_BUCKET)
+            self.prefill_chunk = -(-self.prefill_chunk // grid) * grid
         self.executor = Executor(cfg, params, max_batch=max_batch,
                                  max_seq=max_seq, device=device,
                                  n_blocks=n_blocks,
@@ -82,47 +131,113 @@ class Server:
         return -(-n // PREFILL_BUCKET) * PREFILL_BUCKET
 
     def _blocks_needed(self, req: Request) -> int:
-        """Worst case at admission: the bucketed prefill extent or prompt +
-        remaining budget, whichever is longer."""
+        """Blocks to reserve at admission, over ``full_seq`` (a restore
+        reserves what it needs, not the prompt's worst case).  FIFO: the
+        worst case, the bucketed prefill extent or sequence + remaining
+        budget, whichever is longer.  Under an SLO policy: optimistic, the
+        bucketed extent plus ``reserve_frac`` of the remaining budget; the
+        shortfall is secured on demand, with preemption as the valve."""
         L = len(req.full_seq)
         remaining = max(req.max_new - len(req.tokens), 0)
         need = max(self._bucket_len(L), L + remaining)
+        if self.slo is not None:
+            expected = max(self._bucket_len(L),
+                           L + math.ceil(self.slo.reserve_frac * remaining))
+            need = min(need, expected)
         return kvc.blocks_for(need, self.block_size)
 
+    def _worst_extent(self, req: Request) -> int:
+        """The most cache a request can need.  Under an SLO policy a
+        restore re-prefills prompt + generated in one bucketed piece, so
+        the worst case is the bucketed full sequence; every request being
+        feasible alone is what makes the preemption valve terminate."""
+        if self.slo is not None:
+            return self._bucket_len(len(req.prompt) + req.max_new)
+        return max(self._bucket_len(len(req.prompt)),
+                   len(req.prompt) + req.max_new)
+
     def _prefill_admits(self, cache, admits: Sequence[Tuple[int, Request]],
-                        sched: Scheduler, bt):
-        """Prefill new admissions and scatter each into its slot's freshly
-        allocated blocks; returns the first greedy token per admission.
+                        sched: Scheduler, bt, chunking: Dict[int, int]):
+        """Prefill new admissions and scatter each into its slot's blocks;
+        returns the first greedy token per admission (None for a slot that
+        chunked prefill deferred).
 
         Each admission is its own (1, Sb) prefill: a sequence's prefill is
         then the same computation whether it arrived alone or in a burst,
         so greedy tokens cannot depend on the scheduling mode through
-        batch-shape-dependent rounding on the card."""
+        batch-shape-dependent rounding on the card.  A prefix hit's blocks
+        enter the table read-only and only the suffix of ``full_seq`` is
+        prefilled; with no hit that suffix is the whole prompt."""
         firsts = []
         for slot, req in admits:
-            sb = self._bucket_len(len(req.prompt))
-            if max(sb, len(req.prompt) + req.max_new) > self.max_seq:
-                raise ValueError(
-                    f"request {req.rid} needs more cache than max_seq="
-                    f"{self.max_seq} (bucketed prompt + max_new)")
-            bt[slot, :] = -1
-            for j in range(kvc.blocks_for(sb, self.block_size)):
-                bt[slot, j] = sched.blocks.alloc(req.rid)
-            req.prefilled_tokens += len(req.prompt)
-            toks = np.zeros((1, sb), np.int32)
-            toks[0, :len(req.prompt)] = req.prompt
-            first, cache = self.executor.prefill_insert(
-                toks, np.asarray([len(req.prompt)], np.int32), cache, slot,
-                bt[slot])
-            firsts.append(int(first[0]))
+            f, cache = self._begin_fill(cache, slot, req, sched, bt,
+                                        chunking)
+            firsts.append(f)
         return firsts, cache
 
+    def _begin_fill(self, cache, slot, req, sched, bt,
+                    chunking: Dict[int, int]):
+        """Start filling a slot for one (re-)admission: the hit's blocks
+        enter the table, then the suffix ``full_seq[pos0:]`` prefills now,
+        or, longer than one chunk, the slot enters ``chunking`` and
+        advances one piece per loop iteration.  A restored request's
+        suffix ends with its pending token (emitted, KV never written), so
+        the last piece's logits are the next decode output."""
+        pos0 = len(req.prefix_blocks) * self.block_size
+        bt[slot, :] = -1
+        if req.prefix_blocks:
+            bt[slot, :len(req.prefix_blocks)] = req.prefix_blocks
+        if (self.prefill_chunk
+                and len(req.full_seq) - pos0 > self.prefill_chunk):
+            chunking[slot] = pos0
+            return None, cache
+        return self._fill_piece(cache, slot, req, sched, bt, pos0)
+
+    def _fill_piece(self, cache, slot, req, sched, bt, cur: int):
+        """Prefill + insert one piece of ``full_seq`` from the block- and
+        bucket-aligned offset ``cur``, over the pool KV of ``[0, cur)``.
+        A piece that is not the last is exactly ``prefill_chunk`` tokens
+        and skips the lm-head; the last is the bucketed remainder and
+        returns the next greedy token.  Fresh blocks draw down the
+        reservation; coverage ends at ``bucket(len(full_seq))``."""
+        seq = req.full_seq
+        bs = self.block_size
+        rem = len(seq) - cur
+        final = not (self.prefill_chunk and rem > self.prefill_chunk)
+        n = self._bucket_len(rem) if final else self.prefill_chunk
+        take = rem if final else n
+        for j in range(cur // bs, kvc.blocks_for(cur + n, bs)):
+            if bt[slot, j] < 0:
+                bt[slot, j] = sched.blocks.alloc(req.rid)
+        toks = np.zeros((1, n), np.int32)
+        toks[0, :take] = seq[cur:cur + take]
+        req.prefilled_tokens += int(take)
+        first, cache = self.executor.prefill_insert(
+            toks, np.asarray([take], np.int32), cache, slot, bt[slot],
+            ctx_ids=bt[slot, :cur // bs], emit=final)
+        return (int(first[0]) if final else None), cache
+
+    def _advance_chunk(self, cache, slot, sched, bt,
+                       chunking: Dict[int, int]):
+        """Advance one chunking slot by one piece; a token (not None)
+        means the last piece ran and the slot can decode."""
+        req = sched.running[slot]
+        cur = chunking[slot]
+        first, cache = self._fill_piece(cache, slot, req, sched, bt, cur)
+        if first is None:
+            chunking[slot] = cur + self.prefill_chunk
+        else:
+            del chunking[slot]
+        return first, cache
+
     def warmup(self, requests: Sequence[Request]) -> int:
-        """Run every shape the trace can reach once against the pool
-        (building the kernels on first use and, on a card, capturing the
-        decode graph), so serving measures the steady state.  At horizon
-        M > 1 the decode shape is the M-step round: exactly one round graph
-        and no single-step graph.  Returns the number of shapes run."""
+        """Run every prompt bucket the trace can reach once against the
+        pool (building the kernels on first use) and, on a card, capture
+        the decode graph, so serving measures the steady state.  Prefill is
+        eager, so a context depth or a chunk needs no shape of its own.  At
+        horizon M > 1 the decode shape is the M-step round: exactly one
+        round graph and no single-step graph.  Returns the number of
+        shapes run."""
         ex = self.executor
         cache = ex.init_cache()
         brow = np.full((ex.n_bt,), -1, np.int32)
@@ -158,22 +273,30 @@ class Server:
         clock = time.perf_counter
         ex = self.executor
         bad = [r.rid for r in requests
-               if max(self._bucket_len(len(r.prompt)),
-                      len(r.prompt) + r.max_new) > self.max_seq]
+               if self._worst_extent(r) > self.max_seq]
         if bad:
             raise ValueError(f"requests {bad} need more cache than max_seq="
                              f"{self.max_seq}; size the Server for the "
                              f"longest request")
         bad = [r.rid for r in requests
-               if self._blocks_needed(r) > ex.n_blocks]
+               if kvc.blocks_for(self._worst_extent(r), self.block_size)
+               > ex.n_blocks]
         if bad:
             raise ValueError(f"requests {bad} need more blocks than the pool "
                              f"holds (n_blocks={ex.n_blocks})")
         if warmup:
             self.warmup(requests)
         blocks = BlockAllocator(ex.n_blocks)
+        prefix = None
+        if self.prefix_enabled or self.slo is not None:
+            # hits aligned to the bucket grid; under an SLO policy the
+            # cache is the swap layer preemption publishes into and a
+            # restore attaches from, even with --prefix-cache off
+            prefix = PrefixCache(self.block_size,
+                                 align_tokens=PREFILL_BUCKET)
         sched = Scheduler(requests, self.max_batch, blocks=blocks,
-                          blocks_needed=self._blocks_needed)
+                          blocks_needed=self._blocks_needed, prefix=prefix,
+                          policy=self.slo)
         cache = ex.init_cache()
         B = self.max_batch
         tok = np.zeros((B, 1), np.int32)
@@ -183,16 +306,20 @@ class Server:
         # retirement counter (unused at horizon 1)
         rem = np.zeros((B,), np.int32)
         bt = ex.make_block_table()
+        chunking: Dict[int, int] = {}      # slot -> next piece's offset
         steps = rounds = host_syncs = loop_iters = peak_running = 0
+        n_chunks = 0
         M = self.decode_horizon
         multi = M > 1
         # rounds are pipelined: round N+1 is dispatched from the device
-        # carry before the host replays round N's tokens, so host work
-        # overlaps device work (the port has no SLO preemption or chunked
-        # prefill, which would need each round drained at once)
+        # carry before the host replays round N, so host work overlaps
+        # device work.  Preemption and chunked prefill change slot state
+        # at any boundary, so under them each round is drained at once.
+        pipeline = multi and self.slo is None and not self.prefill_chunk
         pending = None        # the in-flight round's RoundTokens
         carry = None          # device carry chained round to round
         prefills0 = ex.prefill_calls
+        headless0 = ex.prefill_headless
         launches0 = ops.launch_counts()
         t0 = clock()
 
@@ -235,7 +362,9 @@ class Server:
 
         def emit_first(slot: int, req: Request, first: int,
                        now: float) -> None:
-            """Book a prefill's token and arm the slot for decode."""
+            """Book a prefill's token and arm the slot for decode (fresh
+            admission, last chunk and restore alike: the feed position is
+            the index of the newest token of ``full_seq``)."""
             nonlocal carry
             carry = None           # host mutated: rebuild from the mirrors
             req.emit(first, now)
@@ -247,6 +376,47 @@ class Server:
             act[slot] = True
             rem[slot] = req.max_new - len(req.tokens)
 
+        def preempt_slot(vslot: int, vnow: float) -> None:
+            """Evict a victim: publish only the KV actually written (a
+            decode victim's pending token has none — ``pos`` is its feed
+            position; a chunking victim has exactly ``[0, cur)``), clear
+            the slot and re-queue the request at its policy position."""
+            nonlocal carry
+            carry = None           # host mutated: rebuild from the mirrors
+            covered = chunking.pop(vslot, None)
+            if covered is None:
+                covered = int(pos[vslot, 0])
+            sched.preempt(vslot, vnow, covered=covered)
+            act[vslot] = False
+            bt[vslot, :] = -1
+            tok[vslot, 0] = 0
+            pos[vslot, 0] = 0
+
+        def secure_one(req: Request) -> bool:
+            """Make one more block allocatable for ``req`` (the optimistic
+            reservation's pressure path): spend its reservation if any is
+            left, else free capacity — LRU prefix eviction first, then
+            preempt the policy's preferred victim — and grow it.  False
+            when ``req`` itself had to yield its slot; the caller then
+            skips the alloc.  Terminates: each pass evicts or preempts, and
+            a lone runner always fits (the per-request fail-fast)."""
+            if sched.blocks.reserved_of(req.rid) > 0:
+                return True
+            while not sched.blocks.can_reserve(1):
+                if prefix is not None:
+                    prefix.evict_until(sched.blocks, 1)
+                    if sched.blocks.can_reserve(1):
+                        break
+                victims = [s for s in sched.running if s != req.slot]
+                if not victims:
+                    preempt_slot(req.slot, clock() - t0)
+                    return False
+                v = max(victims,
+                        key=lambda s: self.slo.victim_key(sched.running[s]))
+                preempt_slot(v, clock() - t0)
+            sched.blocks.grow_reserve(req.rid, 1)
+            return True
+
         while not sched.done:
             loop_iters += 1
             now = clock() - t0
@@ -256,12 +426,25 @@ class Server:
                 if admits:
                     drain()    # mirrors must be current before emit_first
                     firsts, cache = self._prefill_admits(cache, admits,
-                                                         sched, bt)
-                    host_syncs += 1
+                                                         sched, bt, chunking)
+                    if any(f is not None for f in firsts):
+                        host_syncs += 1
                     now = clock() - t0
                     peak_running = max(peak_running, len(sched.running))
                     for (slot, req), first in zip(admits, firsts):
-                        emit_first(slot, req, first, now)
+                        if first is not None:   # None: chunking, no token
+                            emit_first(slot, req, first, now)
+            if chunking:
+                # one piece per loop iteration, lowest slot first: a long
+                # prefill interleaves with decode instead of stalling it
+                slot = min(chunking)
+                first, cache = self._advance_chunk(cache, slot, sched, bt,
+                                                   chunking)
+                n_chunks += 1
+                if first is not None:
+                    host_syncs += 1
+                    emit_first(slot, sched.running[slot], first,
+                               clock() - t0)
             if not sched.running:
                 if sched.waiting:
                     continue
@@ -272,20 +455,29 @@ class Server:
                 if wait > 0:
                     time.sleep(min(wait, 0.25))
                 continue
+            if not act.any():
+                continue       # every running slot is still mid-chunking
             # alloc-on-demand: every block this step's or round's writes can
-            # touch must exist before it runs (reserved at admission).  A
-            # round writes up to M positions, and with a round in flight the
-            # device carry may already be M ahead of the host mirror, so the
-            # span doubles.  Positions past a request's last feed (prompt +
-            # max_new - 2) are never written, so the span stops there.
-            span = M if pending is None else 2 * M
-            for slot, req in sched.running.items():
+            # touch must exist before it runs.  FIFO reserved the worst
+            # case at admission; an SLO policy secures the shortfall here.
+            # A round writes up to M positions, and with a round in flight
+            # the device carry may already be M ahead of the host mirror,
+            # so the span doubles.  Positions past a request's last feed
+            # (prompt + max_new - 2) are never written.
+            span = 2 * M if pipeline and pending is not None else M
+            for slot, req in list(sched.running.items()):
+                if not act[slot]:
+                    continue        # chunking, or preempted just now
                 p0 = int(pos[slot, 0])
                 hi = min(p0 + span - 1, len(req.prompt) + req.max_new - 2)
                 for li in range(p0 // self.block_size,
                                 hi // self.block_size + 1):
                     if bt[slot, li] < 0:
+                        if self.slo is not None and not secure_one(req):
+                            break   # req itself yielded its slot
                         bt[slot, li] = sched.blocks.alloc(req.rid)
+            if not act.any():
+                continue           # the pressure path preempted every decoder
             if multi:
                 # one horizon-M round, chained from the device carry when
                 # the host has not touched its mirrors since the last round
@@ -302,6 +494,8 @@ class Server:
                     # the device already runs round N+1 while the host
                     # replays round N here
                     process_toks(prev)
+                if not pipeline:
+                    drain()
                 continue
             new_tok, cache = ex.decode(tok, pos, act, cache, bt)
             new_tok = new_tok.cpu().numpy()
@@ -309,6 +503,8 @@ class Server:
             steps += 1
             now = clock() - t0
             for slot in list(sched.running):
+                if not act[slot]:
+                    continue            # chunking slot: masked this step
                 req = sched.running[slot]
                 t = int(new_tok[slot])
                 req.emit(t, now)
@@ -322,6 +518,8 @@ class Server:
         stats = summarize(sched.finished, wall,
                           mode="continuous" if continuous else "static")
         launches = ops.launch_counts()
+        n_done = max(len(sched.finished), 1)
+        prefilled = int(sum(r.prefilled_tokens for r in sched.finished))
         stats.update({
             "device": str(ex.device),
             "decode_steps": steps,
@@ -331,6 +529,8 @@ class Server:
             "decode_compiles": ex.graph_counts()[
                 "decode_multi" if multi else "decode"],
             "prefill_forwards": ex.prefill_calls - prefills0,
+            # ... of which skipped the lm-head (chunks that are not the last)
+            "prefill_forwards_headless": ex.prefill_headless - headless0,
             "kernel_launches": {k: launches[k] - launches0[k]
                                 for k in launches},
             "cache_layout": "paged",
@@ -348,10 +548,25 @@ class Server:
             "peak_blocks_in_use": blocks.high_watermark,
             "block_util_pct": round(
                 100.0 * blocks.high_watermark / max(ex.n_blocks, 1), 1),
-            "blocks_free_end": blocks.free_count,
-            "prefilled_tokens": int(sum(r.prefilled_tokens
-                                        for r in sched.finished)),
+            # the per-request forwarded count: chunks, restores and hits
+            # all move it away from len(prompt) - hits
+            "prefilled_tokens": prefilled,
+            "prefilled_tokens_mean": round(prefilled / n_done, 2),
+            "prefix_tokens_reused": int(sum(r.prefix_hit_tokens
+                                            for r in sched.finished)),
         })
+        if self.prefill_chunk:
+            stats["prefill_chunks"] = n_chunks
+        if self.slo is not None:
+            stats["slo"] = {"aging_s": self.slo.aging_s,
+                            "reserve_frac": self.slo.reserve_frac,
+                            "classes": slo_report(sched.finished, self.slo)}
+        if prefix is not None:
+            stats["prefix_cache"] = prefix.stats()
+            # the allocator is back to its initial state only once the LRU
+            # is drained: then blocks_free_end == n_blocks (the leak check)
+            prefix.drain(blocks)
+        stats["blocks_free_end"] = blocks.free_count
         return sched.finished, stats
 
 
@@ -365,8 +580,10 @@ def build_server(args) -> Tuple[Server, object]:
                                     or cfg.cache_block_size)}
     if getattr(args, "n_layers", 0):
         over["n_layers"] = int(args.n_layers)
+    over["prefix_cache"] = getattr(args, "prefix_cache", "off") == "on"
     cfg = dataclasses.replace(cfg, **over)
     cfg.resolved_cache_layout
+    cfg.prefix_cache_enabled         # validate before the weights are drawn
     device = resolve_device(getattr(args, "device", None))
     policy = parse_policy(getattr(args, "quant_policy", None))
     model = build_model(cfg)
@@ -380,23 +597,47 @@ def build_server(args) -> Tuple[Server, object]:
         cfg = dataclasses.replace(cfg, quant_mode=mode)
     else:
         params = model.init(seed=args.seed, device=device)
-    longest = args.prompt_len + args.prompt_jitter
+    # the cache extent covers the bucketed prompt (a shared prefix
+    # included) plus the decode budget
+    longest = (args.prompt_len + args.prompt_jitter
+               + getattr(args, "shared_prefix_len", 0))
     prompt_pad = -(-longest // PREFILL_BUCKET) * PREFILL_BUCKET
+    max_seq = prompt_pad + args.max_new + 8
+    chunk = int(getattr(args, "prefill_chunk", 0) or 0)
+    slo = parse_slo_spec(getattr(args, "slo", "off") or "off")
+    if slo is not None or chunk:
+        # a restore re-prefills prompt + generated in one bucketed piece,
+        # which can pass the prompt-only pad by up to one bucket
+        max_seq += PREFILL_BUCKET
     bsz = cfg.cache_block_size
-    max_seq = -(-(prompt_pad + args.max_new + 8) // bsz) * bsz
+    max_seq = -(-max_seq // bsz) * bsz
     server = Server(cfg, params, max_batch=args.max_batch, max_seq=max_seq,
                     eos_id=args.eos_id, device=device,
                     n_blocks=getattr(args, "cache_blocks", None),
-                    decode_horizon=int(getattr(args, "decode_horizon", 1)))
+                    decode_horizon=int(getattr(args, "decode_horizon", 1)),
+                    prefill_chunk=chunk, slo=slo)
     return server, cfg
 
 
 def trace_from_args(args, cfg):
+    """The arrival trace of the CLI flags; ``--priority-mix`` draws each
+    request's SLO class from the ``--slo`` policy's classes."""
+    mix = None
+    pm = getattr(args, "priority_mix", None)
+    if pm:
+        slo = parse_slo_spec(getattr(args, "slo", "off") or "off")
+        if slo is None:
+            raise ValueError("--priority-mix draws classes from the --slo "
+                             "policy; pass --slo as well")
+        mix = slo.mix([float(x) for x in pm.split(",")])
     return poisson_trace(args.requests, rate_rps=args.arrival_rate,
                          prompt_len=args.prompt_len, max_new=args.max_new,
                          min_new=args.min_new,
                          prompt_jitter=args.prompt_jitter,
-                         vocab_size=cfg.vocab_size, seed=int(args.seed))
+                         shared_prefix_len=getattr(args, "shared_prefix_len",
+                                                   0),
+                         vocab_size=cfg.vocab_size, seed=int(args.seed),
+                         priority_mix=mix)
 
 
 def _positive_rate(s: str) -> float:
@@ -434,6 +675,30 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
                          "ceil(max_seq / block_size))")
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="-1 disables EOS retirement")
+    ap.add_argument("--prefix-cache", default="off", choices=["on", "off"],
+                    help="shared-prefix block reuse over the paged pool: "
+                         "admission serves the longest cached block-aligned "
+                         "prompt prefix out of ref-counted blocks and "
+                         "prefills only the suffix")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="prepend one fixed random prefix of this many "
+                         "tokens to every prompt (--prompt-len then sizes "
+                         "the unique tail)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prefill long prompts in pieces of this many "
+                         "tokens, one per loop iteration, interleaved with "
+                         "decode (0 = off; rounded up to lcm(block size, "
+                         "prefill bucket)); tokens stay identical")
+    ap.add_argument("--slo", default="off",
+                    help='SLO scheduling: "off", "default" (interactive/'
+                         'standard/batch) or "name:prio:ttft:itl,...", '
+                         'with optional "@aging=S" / "@reserve=F" knobs: '
+                         'aged-priority admission, optimistic block '
+                         'reservation and preemption with a restore from '
+                         'the prefix cache')
+    ap.add_argument("--priority-mix", default=None, metavar="W1,W2,...",
+                    help="per-class arrival weights, one per --slo class in "
+                         "order; each request draws its class from them")
     ap.add_argument("--decode-horizon", type=int, default=1,
                     help="decode steps per round, with retirement on the "
                          "device and one host sync per round (1 = one "
@@ -458,10 +723,20 @@ def main():
         done, stats = server.serve(trace_from_args(args, cfg),
                                    continuous=(mode == "continuous"))
         horizon = ""
+        if "prefix_cache" in stats:
+            pc = stats["prefix_cache"]
+            horizon += (f" | prefix hit rate {pc['hit_rate']:.2f}, "
+                        f"{stats['prefix_tokens_reused']} tok reused / "
+                        f"{stats['prefilled_tokens']} prefilled")
+        if "prefill_chunks" in stats:
+            horizon += f" | {stats['prefill_chunks']} prefill chunks"
+        if "slo" in stats:
+            horizon += (f" | preemptions {stats['preemptions']}, restores "
+                        f"{stats['prefix_cache']['restores']}")
         if stats["decode_horizon"] > 1:
-            horizon = (f" | horizon {stats['decode_horizon']}: "
-                       f"{stats['decode_rounds']} rounds, "
-                       f"{stats['host_syncs_per_token']:.3f} syncs/tok")
+            horizon += (f" | horizon {stats['decode_horizon']}: "
+                        f"{stats['decode_rounds']} rounds, "
+                        f"{stats['host_syncs_per_token']:.3f} syncs/tok")
         print(f"[{mode}] served {stats['n_requests']} requests on "
               f"{stats['device']}: {stats['tokens']} tokens in "
               f"{stats['wall_s']:.3f}s = {stats['tok_per_s']:.1f} tok/s | "
@@ -474,6 +749,14 @@ def main():
               f"util {stats['block_util_pct']}%) | decode compiles "
               f"{stats['decode_compiles']} | kernel launches "
               f"{stats['kernel_launches']}{horizon}")
+        if "slo" in stats:
+            for name, c in stats["slo"]["classes"].items():
+                print(f"  [{name}] n={c['n_requests']} ttft p99 "
+                      f"{c['p99_ttft_s'] * 1e3:.0f}ms (attain "
+                      f"{c['ttft_attainment']:.2f}) | itl p99 "
+                      f"{c['p99_itl_s'] * 1e3:.0f}ms (attain "
+                      f"{c['itl_attainment']:.2f}) | preemptions "
+                      f"{c['preemptions']}")
         for r in sorted(done, key=lambda r: r.rid)[:2]:
             print(f"  req {r.rid}: slot {r.slot}, {len(r.tokens)} tokens, "
                   f"{r.out[:10].tolist()}...")

@@ -77,10 +77,27 @@ def _project_qkv(p, x, cfg, positions):
             layers.apply_rope(k, positions, cfg), v)
 
 
-def attention_block(p, x, cfg, positions):
-    """Prefill self-attention.  Returns (y, (k, v, k_pos))."""
+def attention_block(p, x, cfg, positions, ctx=None):
+    """Prefill self-attention.  Returns (y, (k, v, k_pos)).
+
+    ``ctx`` (the suffix prefill of the prefix cache and of chunked
+    prefill): ``{"k", "v": (B, P, Hkv, D)}`` of already-rotated context KV
+    at absolute positions ``[0, P)``, gathered from the pool.
+    ``positions`` then start at ``P``; queries attend over the context
+    keys followed by the fresh ones (RoPE and the causal mask are driven
+    by absolute positions), and the returned state covers the fresh
+    suffix only."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = sdpa(q, k, v, positions, positions, causal=True)
+    k_all, v_all, kpos_all = k, v, positions
+    if ctx is not None:
+        ck, cv = ctx["k"], ctx["v"]
+        cpos = torch.arange(ck.shape[1], dtype=positions.dtype,
+                            device=positions.device)[None].expand(
+            x.shape[0], ck.shape[1])
+        k_all = torch.cat([ck.to(k.dtype), k], dim=1)
+        v_all = torch.cat([cv.to(v.dtype), v], dim=1)
+        kpos_all = torch.cat([cpos, positions], dim=1)
+    o = sdpa(q, k_all, v_all, positions, kpos_all, causal=True)
     B, S = x.shape[:2]
     y = linear(p["wo"], o.reshape(B, S, -1), cfg.quant_mode)
     return y, (k, v, positions)

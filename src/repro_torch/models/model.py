@@ -5,7 +5,11 @@
     leaf is quantized as soon as it is drawn, so peak memory stays near the
     codes plus one float leaf)
   * ``quantize(params, bits, pack, policy)`` -> PSI serving params
-  * ``prefill(params, tokens, ...)``         -> (last logits, dense cache)
+  * ``prefill(params, tokens, ...)``         -> (last logits, dense cache);
+                                                with ``pos0``/``ctx_kv``
+                                                a suffix prefill over
+                                                context KV from the pool
+  * ``gather_prefix_ctx(cache, ctx_ids)``     -> that context KV
   * ``decode_step(params, batch, cache)``     -> (logits, cache updated in
                                                 place)
   * ``decode_scan(params, batch, cache, M)``  -> ((M, B) tokens, carry,
@@ -113,40 +117,69 @@ class Model:
             return tied_logits(params["embed"], x, cfg.quant_mode)
         return linear(params["lm_head"], x, cfg.quant_mode)
 
-    def forward(self, params, tokens):
-        """tokens (B, S) -> (logits (B, S, V), per-layer prefill states)."""
+    def forward(self, params, tokens, pos0: int = 0, ctx_kv=None,
+                emit_logits: bool = True):
+        """tokens (B, S) -> (logits (B, S, V), per-layer prefill states).
+
+        ``pos0`` / ``ctx_kv`` (suffix prefill): positions start at
+        ``pos0`` and attention also reads the per-layer context KV of
+        ``[0, pos0)`` (:meth:`gather_prefix_ctx`).  ``emit_logits=False``
+        (a chunk that emits nothing) skips the lm-head and returns None
+        logits."""
         B, S = tokens.shape
         x = embed(params["embed"], tokens, self.dtype)
-        positions = _positions(B, S, tokens.device)
-        x, states = transformer.apply_decoder_stack(params["layers"], x,
-                                                    self.cfg, positions)
+        positions = _positions(B, S, tokens.device, offset=pos0)
+        x, states = transformer.apply_decoder_stack(
+            params["layers"], x, self.cfg, positions, ctx_kv=ctx_kv)
+        if not emit_logits:
+            return None, states
         x = layers.apply_norm(params["norm_f"], x, self.cfg)
         return self._logits(params, x), states
 
     def prefill(self, params, tokens, cache_len: Optional[int] = None,
-                true_lens=None):
+                true_lens=None, pos0: int = 0, ctx_kv=None,
+                emit_logits: bool = True):
         """Forward the prompt; return (last-token logits (B, V), dense
         cache of extent ``cache_len`` (default S)).  ``true_lens`` (B,)
         supports right-padded prompts: logits are taken at
         ``true_lens - 1`` and cache rows past the true length read as empty
-        (k_pos -1)."""
+        (k_pos -1).
+
+        ``pos0`` / ``ctx_kv``: ``tokens`` hold only the suffix after the
+        context; positions run ``[pos0, pos0 + S)``, the returned cache
+        covers the suffix rows only, and ``true_lens`` stays
+        suffix-relative (k_pos is absolute, so the pad mask is at
+        ``true_lens + pos0``).  ``emit_logits=False`` returns None
+        logits."""
         S = tokens.shape[1]
         C = cache_len or S
         if C < S:
             raise ValueError(f"cache_len={C} < prompt length {S}: the port "
                              f"has no ring (sliding-window) cache")
-        logits, states = self.forward(params, tokens)
+        logits, states = self.forward(params, tokens, pos0=pos0,
+                                      ctx_kv=ctx_kv, emit_logits=emit_logits)
         kv = [_state_to_cache(self.cfg, st, S, C) for st in states]
         if true_lens is None:
-            return logits[:, -1], KVCache(kv)
-        B = logits.shape[0]
+            return (logits[:, -1] if emit_logits else None), KVCache(kv)
+        B = tokens.shape[0]
         tl = true_lens.to(device=tokens.device, dtype=torch.int64)
-        last = logits[torch.arange(B, device=tokens.device), tl - 1]
+        last = None
+        if emit_logits:
+            last = logits[torch.arange(B, device=tokens.device), tl - 1]
+        end = tl[:, None] + pos0
         for st in kv:
             kp = st["k_pos"]
-            st["k_pos"] = torch.where((kp >= 0) & (kp < tl[:, None]), kp,
+            st["k_pos"] = torch.where((kp >= 0) & (kp < end), kp,
                                       torch.full_like(kp, -1))
         return last, KVCache(kv)
+
+    def gather_prefix_ctx(self, cache: KVCache, ctx_ids):
+        """Per-layer context KV of the pool blocks ``ctx_ids`` in the
+        activation dtype (the ``ctx_kv`` of :meth:`prefill`)."""
+        if not cache.paged:
+            raise ValueError("prefix context is gathered from a paged "
+                             "cache; this cache is dense")
+        return transformer.gather_paged_ctx(cache.kv, ctx_ids, self.dtype)
 
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, seq_len: int, device=None,

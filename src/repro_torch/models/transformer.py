@@ -8,10 +8,12 @@ import torch
 from repro_torch.models import attention, layers
 
 
-def apply_block(p, x, cfg, positions):
-    """Prefill block.  Returns (x, {"k", "v", "k_pos"})."""
+def apply_block(p, x, cfg, positions, ctx=None):
+    """Prefill block (``ctx``: the layer's context KV, see
+    :func:`attention.attention_block`).  Returns (x, {"k", "v", "k_pos"})."""
     h = layers.apply_norm(p["norm1"], x, cfg)
-    y, (k, v, k_pos) = attention.attention_block(p["attn"], h, cfg, positions)
+    y, (k, v, k_pos) = attention.attention_block(p["attn"], h, cfg,
+                                                 positions, ctx=ctx)
     x = x + y
     h2 = layers.apply_norm(p["norm2"], x, cfg)
     return x + layers.apply_mlp(p["mlp"], h2, cfg), {"k": k, "v": v,
@@ -29,11 +31,13 @@ def apply_block_decode(p, x, cfg, positions, cache, block_tables,
     return x + layers.apply_mlp(p["mlp"], h2, cfg), cache
 
 
-def apply_decoder_stack(layer_params, x, cfg, positions):
-    """Returns (x, per-layer states)."""
+def apply_decoder_stack(layer_params, x, cfg, positions, ctx_kv=None):
+    """Returns (x, per-layer states).  ``ctx_kv``: one context dict per
+    layer (:func:`gather_paged_ctx`), or None."""
     states = []
-    for p in layer_params:
-        x, st = apply_block(p, x, cfg, positions)
+    for i, p in enumerate(layer_params):
+        x, st = apply_block(p, x, cfg, positions,
+                            ctx=None if ctx_kv is None else ctx_kv[i])
         states.append(st)
     return x, states
 
@@ -47,13 +51,43 @@ def apply_decoder_stack_decode(layer_params, x, cfg, positions, pools,
     return x, pools
 
 
+def gather_paged_ctx(pools, ctx_ids, dtype):
+    """The context KV of a suffix prefill, gathered out of the pools.
+
+    ``ctx_ids`` (nctx,) are physical block ids covering absolute positions
+    ``[0, nctx * block_size)`` in logical order.  Returns one
+    ``{"k", "v": (1, nctx * bs, Hkv, D)}`` dict per layer; int8 pools are
+    dequantized into ``dtype``.  Advanced indexing copies, so the context
+    is a snapshot: the insert that follows may write the pools freely."""
+    ids = ctx_ids.long()
+
+    def gather(pool):
+        got = pool[ids]                               # (nctx, bs, Hkv, ·)
+        return got.reshape(1, got.shape[0] * got.shape[1], *got.shape[2:])
+
+    out = []
+    for pool in pools:
+        if "k_scale" in pool:
+            out.append({
+                "k": attention._kv_dequantize(gather(pool["k"]),
+                                              gather(pool["k_scale"]), dtype),
+                "v": attention._kv_dequantize(gather(pool["v"]),
+                                              gather(pool["v_scale"]),
+                                              dtype)})
+        else:
+            out.append({"k": gather(pool["k"]), "v": gather(pool["v"])})
+    return out
+
+
 def insert_paged_stack_cache(pools, seq_kv, block_row, scratch_block):
     """Scatter one prefilled sequence into its pool blocks, in place.
 
     ``seq_kv`` is the batch-1 dense prefill cache (rows [0, C) in position
-    order); ``block_row`` (n_bt,) names the physical block of each logical
-    block, and -1 entries (pad-only rows past the request's allocation)
-    route to ``scratch_block``, whose contents are never read."""
+    order); ``block_row`` names the physical block of each logical block
+    from the sequence's first row on (a suffix prefill passes the table
+    row past its context blocks), and -1 entries (pad-only rows past the
+    request's allocation) route to ``scratch_block``, whose contents are
+    never read."""
     for pool, seq in zip(pools, seq_kv):
         for name, buf in pool.items():
             rows = seq[name][0]                       # (C, Hkv, ·)

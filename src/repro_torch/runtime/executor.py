@@ -168,6 +168,7 @@ class Executor:
                          else max_batch * self.n_bt)
         self.params = params_to(params, self.device)
         self.prefill_calls = 0          # model forwards over a prompt batch
+        self.prefill_headless = 0       # ... of them without the lm-head
         B, dev = max_batch, self.device
         self._cache = None
         # the decode graphs' fixed inputs: rows token, pos, active (0/1)
@@ -313,22 +314,51 @@ class Executor:
 
     # --------------------------------------------------------- entry points
     @torch.inference_mode()
-    def prefill(self, tokens, true_lens):
+    def prefill(self, tokens, true_lens, pos0: int = 0, ctx_kv=None,
+                emit: bool = True):
         """(B, Sb) right-padded prompts -> (first greedy token (B,) int32
-        tensor, dense per-sequence cache at the bucketed extent).  Counts
-        one model forward."""
+        tensor, or None with ``emit=False``; dense per-sequence cache at
+        the bucketed extent).  ``pos0`` / ``ctx_kv``: a suffix prefill
+        (``Model.prefill``).  Counts one model forward, and one forward
+        without the lm-head when ``emit`` is False."""
         self.prefill_calls += 1
+        self.prefill_headless += int(not emit)
         logits, cache = self.model.prefill(
             self.params, self._t(tokens, torch.int32),
-            true_lens=self._t(true_lens, torch.int64))
+            true_lens=self._t(true_lens, torch.int64), pos0=pos0,
+            ctx_kv=ctx_kv, emit_logits=emit)
+        if not emit:
+            return None, cache
         return torch.argmax(logits, -1).to(torch.int32), cache
 
     @torch.inference_mode()
-    def prefill_insert(self, tokens, true_lens, cache, slot: int, block_row):
-        """Prefill one sequence and scatter its cache into ``block_row``."""
-        first, seq_cache = self.prefill(tokens, true_lens)
-        cache = self.model.insert_cache(cache, seq_cache, slot,
-                                        self._t(block_row, torch.int64))
+    def prefill_insert(self, tokens, true_lens, cache, slot: int, block_row,
+                       ctx_ids=None, emit: bool = True):
+        """Prefill one sequence and scatter its cache into ``block_row``.
+
+        ``ctx_ids`` (nctx,) names pool blocks holding the KV of absolute
+        positions ``[0, nctx * block_size)``: ``tokens`` then hold only the
+        suffix after them, which attends over that context and scatters
+        into ``block_row[nctx:]`` only — the context blocks may be shared
+        with other requests and are never written.  ``emit=False`` (a
+        chunk that is not the last) skips the lm-head and returns None."""
+        self._check_pool(cache)
+        if ctx_ids is None and not emit:
+            raise ValueError("emit=False is for a chunk of the context "
+                             "path: pass ctx_ids (possibly empty)")
+        row = self._t(block_row, torch.int64)
+        pos0, ctx_kv = 0, None
+        if ctx_ids is not None and len(ctx_ids):
+            ids = self._t(ctx_ids, torch.int64)
+            pos0 = ids.shape[0] * self.block_size
+            # the gather copies the context out of the pools (advanced
+            # indexing), and the insert below is queued after it on the
+            # same stream, so the insert cannot overwrite what it reads
+            ctx_kv = self.model.gather_prefix_ctx(cache, ids)
+            row = row[ids.shape[0]:]
+        first, seq_cache = self.prefill(tokens, true_lens, pos0=pos0,
+                                        ctx_kv=ctx_kv, emit=emit)
+        cache = self.model.insert_cache(cache, seq_cache, slot, row)
         return first, cache
 
     @torch.inference_mode()

@@ -530,3 +530,158 @@ def test_second_serve_reuses_the_graph(cuda, horizon):
     assert graphs[0].keys() == graphs[1].keys() and all(
         graphs[0][k][0] is graphs[1][k][0] for k in graphs[0])
     assert server.executor.init_cache() is pool
+
+
+# ---------------------------------------------------------------------------
+# Context serving on the card: the suffix prefill, a decode graph over a
+# table that preemption and restore rewrote, and the launches of a chunk.
+# ---------------------------------------------------------------------------
+# kernel 1's prefill rows in the context-serving phase of chip_smoke.py:
+# bucketed prompts and suffixes (multiples of 16 up to 480) and 128-token
+# chunks; 16 and 64 are covered above
+CTX_M = [32, 48, 128, 288, 304, 448, 480]
+
+
+@pytest.mark.parametrize("M", CTX_M)
+@pytest.mark.parametrize("K,N", QWEN_KN)
+def test_ctx_psi_matmul_codes_bf16_prefill_rows(cuda, K, N, M):
+    _check_tight(cuda, K, N, 8, M)
+
+
+def _suffix_vs_full(dtype, P=48, split=32):
+    """Reduced qwen3-8b psi8 on the card: the last logits and the suffix's
+    K/V rows of a P-token prompt prefilled whole, and prefilled as its
+    first ``split`` tokens (scattered into the pool) plus a suffix prefill
+    over that context gathered back from the pool."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode="psi8",
+                         dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda", bits=8)
+    g = torch.Generator().manual_seed(P + split)
+    prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=g).cuda()
+    with torch.inference_mode():
+        full, seq_full = model.prefill(params, prompt)
+        cache = model.init_cache(1, 64, device="cuda", n_blocks=4)
+        row = torch.tensor([3, 1, 0, 2], device="cuda")
+        _, seq = model.prefill(params, prompt[:, :split])
+        model.insert_cache(cache, seq, 0, row)
+        ctx = model.gather_prefix_ctx(cache, row[:split // 16])
+        part, seq_part = model.prefill(params, prompt[:, split:], pos0=split,
+                                       ctx_kv=ctx)
+    return full.float(), part.float(), seq_full, seq_part, split
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ctx_suffix_prefill_matches_full_prefill(cuda, dtype):
+    """f32: the two paths sum the same terms in other orders — 1e-4 on the
+    logits and 1e-5 on the K/V rows, as the CPU tests hold the port to the
+    JAX package.  bf16: every activation rounds to bf16 (2^-9 relative),
+    and a rounding that differs between the paths moves what follows by
+    up to an ulp of bf16 (2^-8): 2^-5 of the largest logit for the logits
+    and 2^-6 of the largest K/V value for the rows leave room for a few
+    such flips through the two layers."""
+    full, part, seq_full, seq_part, split = _suffix_vs_full(dtype)
+    f32 = dtype == "float32"
+    tol = 1e-4 if f32 else 2.0 ** -5 * float(full.abs().max())
+    assert float((full - part).abs().max()) <= tol
+    assert int(full.argmax()) == int(part.argmax())
+    for a, b in zip(seq_full.kv, seq_part.kv):
+        assert torch.equal(b["k_pos"][0], a["k_pos"][0, split:])
+        for k in ("k", "v"):
+            want, got = a[k][:, split:].float(), b[k].float()
+            kv_tol = 1e-5 if f32 else 2.0 ** -6 * float(want.abs().max())
+            assert float((want - got).abs().max()) <= kv_tol, k
+
+
+def test_ctx_decode_graph_after_preemption_and_restore(cuda):
+    """The horizon-1 graph is captured over one table; then a preemption
+    clears slot 1's row and a restore gives slot 2 a row that starts with
+    a block slot 0 shares (its prompt's first block) and ends with fresh
+    blocks filled by a suffix prefill.  Two replays equal two eager
+    decode_steps on a copy of the pool, tokens and pools bit for bit; the
+    shared block is never written; the table buffer keeps its address."""
+    from repro_torch.runtime import Executor
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode="psi8",
+                         dtype="bfloat16")
+    params = build_model(cfg).init(seed=0, device="cuda", bits=8)
+    ex = Executor(cfg, params, max_batch=3, max_seq=64, device="cuda")
+    cache = ex.init_cache()
+    bt = ex.make_block_table()
+    ptr = bt.device().data_ptr()
+    rng = np.random.default_rng(3)
+    p0 = rng.integers(0, cfg.vocab_size, size=(1, 40)).astype(np.int32)
+    p1 = rng.integers(0, cfg.vocab_size, size=(1, 16)).astype(np.int32)
+    rows = {0: [0, 1, 2, -1], 1: [3, 4, -1, -1]}
+    toks = {}
+    for slot, p in ((0, p0), (1, p1)):
+        row = np.array(rows[slot], np.int32)
+        first, _ = ex.prefill_insert(
+            np.pad(p, ((0, 0), (0, -p.shape[1] % 16))),
+            np.array([p.shape[1]], np.int32), cache, slot, row)
+        bt[slot] = row
+        toks[slot] = int(first[0])
+    inp = dict(token=np.array([[toks[0]], [toks[1]], [0]], np.int32),
+               pos=np.array([[40], [16], [0]], np.int32),
+               active=np.array([True, True, False]))
+    got, _ = ex.decode(inp["token"], inp["pos"], inp["active"], cache, bt)
+    assert ex.graph_counts() == {"decode": 1, "decode_multi": 0}
+    # preempt slot 1; restore slot 2 over slot 0's shared first block
+    bt[1, :] = -1
+    inp["active"][1] = False
+    tail = rng.integers(0, cfg.vocab_size, size=(1, 20)).astype(np.int32)
+    row2 = np.array([0, 5, 6, -1], np.int32)
+    bt[2] = row2
+    shared = [{k: t[0].clone() for k, t in layer.items()}
+              for layer in cache.kv]
+    suffix = np.zeros((1, 32), np.int32)
+    suffix[0, :20] = tail
+    first2, _ = ex.prefill_insert(suffix, np.array([20], np.int32), cache,
+                                  2, row2, ctx_ids=row2[:1])
+    inp["token"] = np.array([[int(got[0])], [0], [int(first2[0])]],
+                            np.int32)
+    inp["pos"] = np.array([[41], [0], [36]], np.int32)
+    inp["active"] = np.array([True, False, True])
+    ref_cache = _pool_copy(cache)
+    for step in range(2):
+        with torch.inference_mode():
+            logits, _ = ex.model.decode_step(
+                ex.params, _eager_batch(inp, bt), ref_cache)
+        want = torch.argmax(logits, -1).to(torch.int32)
+        got, _ = ex.decode(inp["token"], inp["pos"], inp["active"], cache,
+                           bt)
+        assert torch.equal(got, want), step
+        inp["token"] = got.cpu().numpy()[:, None]
+        inp["pos"] = inp["pos"] + 1
+    assert ex.graph_counts() == {"decode": 1, "decode_multi": 0}
+    _assert_pools_equal(cache, ref_cache)
+    for layer, old in zip(cache.kv, shared):
+        for k in layer:
+            assert torch.equal(layer[k][0], old[k]), k
+    assert bt.device().data_ptr() == ptr == ex._bt.data_ptr()
+    assert ex._bt.cpu().numpy().tolist() == bt.host.tolist()
+
+
+def test_ctx_chunk_without_lm_head_launches_252(cuda):
+    """qwen3-8b's depth (36 layers) at reduced width: a chunk that is not
+    the last skips the lm-head — 252 PSI launches — and the last piece
+    runs it — 253."""
+    from repro_torch.runtime import Executor
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode="psi8",
+                         n_layers=36)
+    params = build_model(cfg).init(seed=0, device="cuda", bits=8)
+    ex = Executor(cfg, params, max_batch=1, max_seq=64, device="cuda")
+    cache = ex.init_cache()
+    row = np.array([0, 1, 2, 3], np.int32)
+    toks = np.arange(32, dtype=np.int32)[None]
+    counts = []
+    for cur, emit in ((0, False), (16, True)):
+        before = ops.launch_counts()
+        first, _ = ex.prefill_insert(toks[:, cur:cur + 16],
+                                     np.array([16], np.int32), cache, 0, row,
+                                     ctx_ids=row[:cur // 16], emit=emit)
+        after = ops.launch_counts()
+        counts.append(after["psi_matmul_codes"] - before["psi_matmul_codes"])
+        assert (first is None) == (not emit)
+    assert counts == [252, 253]
+    assert ex.prefill_headless == 1 and ex.prefill_calls == 2
