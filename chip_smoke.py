@@ -43,10 +43,22 @@ before the result line:
   4. serve psi5        — the same as 3 at psi5, all 36 layers, fewer
                          requests: the packed path (kernel 2), 253 launches
                          per step;
+  4b. speculative (serve_psi5_spec) — psi5 with --qat-precondition 3, all
+                         36 layers, served plain and with --speculative 3:4
+                         (a psi3 draft of kernel 2 at M = 4, a verify of
+                         kernels 2 and 3 at B*k rows), continuous and
+                         static: spec tokens equal plain's or diverge only
+                         at a near tie; one draft and one verify graph, no
+                         plain decode graph; exact launch counts (k draft
+                         steps and one verify a round); no leaked block;
+                         acceptance above 0; a profiled window of one draft
+                         graph, one verify graph and one plain psi5 step;
   5. card vs CPU       — prefill + 8 greedy decode steps of a 2-layer
-                         float32 psi8 model on the card and on the CPU, and
-                         on the card a suffix prefill (the prompt split at
-                         a block boundary) against the full prefill;
+                         float32 psi8 model on the card and on the CPU, on
+                         the card a suffix prefill (the prompt split at a
+                         block boundary) against the full prefill, and a
+                         speculative serve (--speculative 3:4, QAT
+                         precondition 3) on the card and on the CPU;
   6. summary           — {"kernels": [...]}, the card line, then the result
                          {"ok": true, "device": {...}} as the last line.
 
@@ -87,6 +99,9 @@ CTX_SEED = 3
 CTX_CACHE_BLOCKS = 58
 CTX_CHUNK = 128
 CTX_HORIZON = 4
+# serve_psi5_spec: the draft width and the draft length k of a round
+SPEC_BITS = 3
+SPEC_K = 4
 # the token rule: a divergence between two context runs is accepted only
 # where the baseline's top-2 logit margin is below this many times the
 # largest logit difference of the two runs' replays before it
@@ -178,6 +193,7 @@ def main():
     phase_serve(torch, dev, launches, "psi8")
     phase_serve_ctx(torch, dev, launches)
     phase_serve(torch, dev, launches, "psi5")
+    phase_serve_spec(torch, dev, launches)
     phase_card_vs_cpu(torch, dev)
 
     # ---------------------------------------------------------- 6. summary
@@ -372,9 +388,10 @@ def phase_kernels(torch, dev, bw, peak):
         w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
         row = {"phase": "kernel_shape", "weight": label, "K": K, "N": N,
                "launches_per_decode_step": per_step,
-               "checked_M": f"psi8, psi5: 1, {DECODE_M}, 16-{CTX_LONG_SEQ} "
-                            f"step 16; psi2-4, 6, 7: 1, {DECODE_M}, 16, "
-                            f"{PREFILL_M}"}
+               "checked_M": f"psi8, psi5: 1, {DECODE_M}, "
+                            f"{DECODE_M * SPEC_K} (verify), 16-{CTX_LONG_SEQ} "
+                            f"step 16; psi2-4, 6, 7: 1, {DECODE_M}, "
+                            f"{DECODE_M * SPEC_K} (verify), 16, {PREFILL_M}"}
         for bits in (8, 2, 3, 4, 5, 6, 7):
             qt = psi.quantize_weights(w, bits, axis=(0,))
             key = "psi_matmul_codes" if bits == 8 else "psi_matmul_packed"
@@ -385,14 +402,31 @@ def phase_kernels(torch, dev, bw, peak):
             else:
                 plain = lambda x, q=qt: ref.psi_matmul_codes_ref(
                     x, q.data, q.scale)
-            Ms = ([1, DECODE_M, *PREFILL_MS] if bits in (8, 5)
-                  else [1, DECODE_M, 16, PREFILL_M])
+            # a draft step runs SPEC_BITS-wide planes at DECODE_M rows, a
+            # verify the serving width at DECODE_M * SPEC_K
+            Ms = sorted({1, DECODE_M, DECODE_M * SPEC_K,
+                         *(PREFILL_MS if bits in (8, 5) else (16, PREFILL_M))})
             err, ratio = _gemm_errors(torch, ops, ref, qt, plain, Ms, bf16,
                                       gen, dev)
             check(ratio <= 1.0, f"{key} bits={bits} {label} bf16 err {err} "
                                 f"over one bf16 ulp of the output")
             max_err[key] = max(max_err[key], err)
             row[f"psi{bits}_max_abs_err"] = err
+            if bits == SPEC_BITS:
+                # a draft step's shape (M = max_batch), weights cold
+                datas = _copies(qt.data, qt.data.numel())
+                scale = qt.scale.reshape(-1)
+                x = torch.randn(DECODE_M, K, generator=gen,
+                                device=dev).to(bf16)
+                draft = lambda i, x=x: ops.psi_matmul_2d(
+                    x, psi.QuantizedTensor(datas[i], scale, qt.fmt, True))
+                nbytes = qt.data.numel() + 4 * N + 2 * DECODE_M * (K + N)
+                t_dev = _graph_ms(torch, draft, len(datas),
+                                  iters=max(20, len(datas)))
+                row[f"psi{bits}_draft"] = {"M": DECODE_M, "bytes": nbytes,
+                                           "bound_ms": nbytes / bw * 1e3,
+                                           "device_ms": t_dev}
+                del datas
             if bits not in (8, 5):
                 continue
             # times at the decode shape (M = max_batch), weights cold.
@@ -439,6 +473,13 @@ def phase_kernels(torch, dev, bw, peak):
                          ("library_ms", t_l), ("library_device_ms", t_l_dev),
                          ("bytes", nbytes), ("flops", flops)):
                 a[f] += per_step * t
+            # a verify's rows (max_batch x k), weights cold
+            xv = torch.randn(DECODE_M * SPEC_K, K, generator=gen,
+                             device=dev).to(bf16)
+            row[f"psi{bits}_verify"] = {
+                "M": DECODE_M * SPEC_K,
+                "device_ms": _graph_ms(torch, lambda i: kern(i, xv),
+                                       len(datas), iters=n_graph)}
             # one prefill-shaped time (an admission's bucketed prompt)
             xp = torch.randn(PREFILL_M, K, generator=gen, device=dev).to(bf16)
             row[f"psi{bits}_prefill"] = {
@@ -610,6 +651,39 @@ def phase_kernels(torch, dev, bw, peak):
                    "the first split; all -1 slot; last split only), and "
                    "G in 1,2,4,6,8,16,48 x D in 16,64,128,256 at n_bt 64; "
                    "q/pool bf16/bf16, bf16/int8, f32/f32, f32/int8",
+          "tolerance": "as kernel_paged_attention"})
+
+    # -- the speculative verify's shape: DECODE_M slots x SPEC_K query rows,
+    # each slot's table repeated SPEC_K times (jnp.repeat's row order),
+    # consecutive positions across a block boundary, an inactive slot (its
+    # table all -1) and tables with holes
+    def verify_case(seed, hq, hkv, D, qdt, pool, bs=16, n_bt=8):
+        q, kp, vp, bt, _, ks, vs = case(seed, DECODE_M, n_bt, hq, hkv, D, bs,
+                                        qdt, pool)
+        q = torch.randn(DECODE_M * SPEC_K, hq, D, generator=gen,
+                        device=dev).to(qdt)
+        bt[:, 0] = bt[:, 0].abs()
+        bt[seed % DECODE_M] = -1
+        pos0 = torch.tensor([bs - 2, 2 * bs - 1, 3 * bs + 1, 0][:DECODE_M],
+                            dtype=torch.int32, device=dev)
+        pos = (pos0[:, None] + torch.arange(SPEC_K, dtype=torch.int32,
+                                            device=dev)).reshape(-1)
+        tables = bt.repeat_interleave(SPEC_K, 0).contiguous()
+        return q, kp, vp, tables, pos.contiguous(), ks, vs
+
+    worst = 0.0
+    for hq, hkv, D in ((32, 8, 128), (4, 2, 16)):
+        for qdt, pool in types:
+            for seed in range(2):
+                worst = max(worst, held(verify_case(seed, hq, hkv, D, qdt,
+                                                    pool)))
+    max_err["paged_attention"] = max(max_err["paged_attention"], worst)
+    emit({"phase": "kernel_paged_attention_verify", "ok": True,
+          "max_abs_err": worst,
+          "cases": f"{DECODE_M} slots x k={SPEC_K} rows, tables repeated k "
+                   f"times, positions from bs-2, 2bs-1, 3bs+1, 0 (one slot "
+                   f"inactive), 32/8/128 and 4/2/16, q/pool bf16/bf16, "
+                   f"bf16/int8, f32/f32, f32/int8",
           "tolerance": "as kernel_paged_attention"})
 
     import torch.nn.functional as F
@@ -859,8 +933,8 @@ def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
     check(got == want, f"horizon {HORIZON} launch counts {got} != expected "
                        f"{want} (253 per forward, 36 attention per step)")
     check(sc["decode_compiles"] == ss["decode_compiles"] == 1
-          and server.executor.graph_counts() == {"decode": 0,
-                                                 "decode_multi": 1},
+          and server.executor.graph_counts() == {
+              "decode": 0, "decode_multi": 1, "draft": 0, "verify": 0},
           f"horizon {HORIZON}: want exactly one captured round graph, got "
           f"{server.executor.graph_counts()}")
     for k in got:
@@ -872,6 +946,158 @@ def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
           "static": {k: ss[k] for k in keep + ("decode_rounds",
                                                "loop_iters")},
           "tokens_identical_to_horizon_1": True, "launches": got})
+
+
+def phase_serve_spec(torch, dev, launches):
+    """Self-speculative serving of full-width qwen3-8b (36 layers, bf16,
+    seed 0) at psi5 with --qat-precondition 3: the same trace (8 requests,
+    prompts 64 +- 8, 16-32 new tokens, 4 slots, 16-position blocks) served
+    plain and with --speculative SPEC_BITS:SPEC_K (built by build_server,
+    the CLI's path; the plain server shares its params and max_seq),
+    continuous then static.
+
+    Checks: every spec run's tokens equal the plain run's of its mode, or
+    differ only under the token rule (:func:`_token_rule`, each run
+    replayed: decode steps for the plain one, the logged verify windows
+    for the speculative one); plain continuous equals static; exactly one
+    draft and one verify graph and no plain decode graph; launch counts
+    exact (a round is k draft steps and one verify: 253 (k + 1)
+    psi_matmul_packed and 36 (k + 1) paged-attention calls, plus 253 a
+    prefill forward); no leaked block; mean accepted drafts above 0.
+    Then a profiled window: one draft graph, one verify graph and one plain
+    psi5 decode step (4 slots at 72 positions)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    args = _serve_args(quant="psi5", qat_precondition=3, max_new=32,
+                       min_new=16, speculative=f"{SPEC_BITS}:{SPEC_K}")
+    t0 = time.perf_counter()
+    spec_server, cfg = serve.build_server(args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(cfg.n_layers == 36 and cfg.d_model == 4096, "not full width")
+    ex = spec_server.executor
+    check(spec_server.spec == (SPEC_BITS, SPEC_K)
+          and ex.draft_params["layers"][0]["attn"]["wq"].fmt.bits == SPEC_BITS
+          and ex.draft_params["lm_head"].packed,
+          "the speculative server has no packed psi3 draft")
+    plain_server = serve.Server(cfg, ex.params, max_batch=args.max_batch,
+                                max_seq=spec_server.max_seq,
+                                eos_id=args.eos_id, device=dev)
+    trace = lambda: serve.trace_from_args(args, cfg)
+    keep = ("tok_per_s", "wall_s", "tokens", "p50_latency_s",
+            "p99_latency_s", "p50_ttft_s", "p50_itl_s", "p99_itl_s",
+            "decode_steps", "prefill_forwards", "host_syncs",
+            "host_syncs_per_token", "accepted_per_step", "draft_overhead_s",
+            "blocks_free_end", "n_blocks")
+    runs = {}
+    for label, server in (("plain", plain_server), ("spec", spec_server)):
+        server.warmup(trace())
+        out, rows = {}, []
+        ops.reset_launch_counts()                     # the main path starts
+        for mode in ("continuous", "static"):
+            log, undo = _fill_log(server, serve)
+            got_rows, undo_rows = _record_prefill_rows(server.executor)
+            try:
+                done, stats = server.serve(trace(),
+                                           continuous=(mode == "continuous"),
+                                           warmup=False)
+            finally:
+                undo_rows()
+                undo()
+            out[mode] = (done, stats, log)
+            rows += got_rows
+        torch.cuda.synchronize()
+        got = ops.launch_counts()                     # ... and ends here
+        _check_prefill_rows(rows, f"{label} psi5 spec phase")
+        steps = sum(out[m][1]["decode_steps"] for m in out)
+        fwd = sum(out[m][1]["prefill_forwards"] for m in out)
+        per = SPEC_K + 1 if label == "spec" else 1
+        want = {"psi_matmul_codes": 0,
+                "psi_matmul_packed": 253 * (per * steps + fwd),
+                "paged_attention": 36 * per * steps}
+        check(got == want, f"{label} psi5: launch counts {got} != expected "
+                           f"{want} (a {'round' if per > 1 else 'step'} is "
+                           f"{per} decode-shaped passes of 253 matmuls and "
+                           f"36 attention calls; 253 a prefill)")
+        for mode, (done, stats, _) in out.items():
+            leaked = stats["n_blocks"] - stats["blocks_free_end"]
+            check(not leaked, f"{label} {mode}: {leaked} blocks leaked")
+            check(all(len(r.tokens) == r.max_new for r in done)
+                  and all(0 <= t < cfg.vocab_size for r in done
+                          for t in r.tokens),
+                  f"{label} {mode}: a request's tokens are short or out of "
+                  f"the vocabulary")
+            if label == "spec":
+                sp = stats["speculative"]
+                check(sp["spec_compiles"] == {"draft": 1, "verify": 1,
+                                              "decode": 0},
+                      f"spec {mode}: graph counts {sp['spec_compiles']}, "
+                      f"want one draft and one verify graph, no decode graph")
+                check(sp["mean_accepted"] > 0,
+                      f"spec {mode}: no draft token was accepted")
+            else:
+                check(stats["decode_compiles"] == 1,
+                      f"plain {mode}: want one captured decode graph")
+        for k in got:
+            launches[k] = launches.get(k, 0) + got[k]
+        runs[label] = (out, got)
+    plain_out, spec_out = runs["plain"][0], runs["spec"][0]
+    check({r.rid: r.tokens for r in plain_out["continuous"][0]}
+          == {r.rid: r.tokens for r in plain_out["static"][0]},
+          "plain psi5: continuous and static modes emitted different tokens")
+    rules = {}
+    for mode in ("continuous", "static"):
+        rules[mode] = _token_rule(
+            torch, (plain_server, spec_server), plain_out[mode][0],
+            spec_out[mode][0], (plain_out[mode][2], spec_out[mode][2]),
+            f"spec {mode} vs plain")
+    window = _spec_window(torch, spec_server, plain_server)
+    report = {}
+    for label, (out, got) in runs.items():
+        report[label] = {m: {k: out[m][1][k] for k in keep} for m in out}
+        report[label]["launches"] = got
+    for m, (_, stats, _) in spec_out.items():
+        report["spec"][m].update(stats["speculative"])
+    emit({"phase": "serve_psi5_spec", "layers": cfg.n_layers,
+          "draft_bits": SPEC_BITS, "k": SPEC_K, "qat_precondition": 3,
+          "requests": args.requests, "max_batch": args.max_batch,
+          "prompt_len": f"{args.prompt_len}+-{args.prompt_jitter}",
+          "max_new": f"{args.min_new}-{args.max_new}",
+          "max_seq": spec_server.max_seq, "init_quantize_draft_s": init_s,
+          "param_bytes": _param_bytes(ex.params),
+          "draft_param_bytes": _param_bytes(ex.draft_params),
+          "runs": report,
+          "tokens_vs_plain": {m: "identical" if not r else r
+                              for m, r in rules.items()},
+          "margin_factor": MARGIN_FACTOR, "window": window,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "phase_wall_s": time.perf_counter() - t_phase})
+    del spec_server, plain_server, ex, runs, plain_out, spec_out
+    torch.cuda.empty_cache()
+
+
+def _spec_window(torch, spec_server, plain_server, calls=5):
+    """Wall and device time, by kernel, of one draft graph (SPEC_K draft
+    steps), one verify graph and one plain decode step (graph), all slots
+    active at 72 positions over a full table."""
+    import numpy as np
+    ex, pex = spec_server.executor, plain_server.executor
+    B = spec_server.max_batch
+    table = np.arange(B * ex.n_bt, dtype=np.int32).reshape(B, ex.n_bt)
+    tok = np.arange(B, dtype=np.int32)[:, None]
+    pos = np.full((B, 1), 72, np.int32)
+    act = np.ones((B,), bool)
+    cache, pcache = ex.init_cache(), pex.init_cache()
+    drafts, _ = ex.draft(tok, pos, act, cache, table)
+    return {
+        "draft_graph": _window(torch, lambda: ex.draft(
+            tok, pos, act, cache, table), 1, calls),
+        "verify_graph": _window(torch, lambda: ex.verify(
+            tok, drafts, pos, act, cache, table), 1, calls),
+        "plain_step_graph": _window(torch, lambda: pex.decode(
+            tok, pos, act, pcache, table), 1, calls)}
 
 
 def _record_prefill_rows(ex):
@@ -902,12 +1128,21 @@ def _check_prefill_rows(rows, label):
 
 
 def _fill_log(server, serve_mod):
-    """Record each fill of ``server`` (rid, pos0, len(full_seq)) and each
-    preemption (rid, covered) for the chunk and forward counts that
-    :func:`_fills_expect` works out; returns (log, undo)."""
+    """Record each fill of ``server`` (rid, pos0, len(full_seq)), each
+    preemption (rid, covered) and, on a speculative server, each round of
+    each active request (rid, its feed position) for the chunk and forward
+    counts that :func:`_fills_expect` works out and for the replays of
+    :func:`_token_rule`; returns (log, undo)."""
     log = []
     bs = server.block_size
     begin = server._begin_fill
+    spec_round = server._spec_round
+
+    def logged_round(sched, cache, tok, pos, act, bt, now_fn):
+        for slot, req in sched.running.items():
+            if act[slot]:
+                log.append(("round", req.rid, int(pos[slot, 0])))
+        return spec_round(sched, cache, tok, pos, act, bt, now_fn)
 
     def logged_begin(cache, slot, req, sched, bt, chunking):
         log.append(("fill", req.rid, len(req.prefix_blocks) * bs,
@@ -920,12 +1155,13 @@ def _fill_log(server, serve_mod):
             return super().preempt(slot, now, covered=covered)
 
     server._begin_fill = logged_begin
+    server._spec_round = logged_round
     plain = serve_mod.Scheduler
     serve_mod.Scheduler = LoggedScheduler
 
     def undo():
         serve_mod.Scheduler = plain
-        del server._begin_fill
+        del server._begin_fill, server._spec_round
     return log, undo
 
 
@@ -947,7 +1183,7 @@ def _fills_expect(log, chunk):
                 continue
             n = -(-(L - pos0) // chunk)
             fwd, headless, chunks = fwd + n, headless + n - 1, chunks + n
-        else:
+        elif ev[0] == "cut":
             _, rid, covered = ev
             pos0, L = open_fill[rid]
             if chunk and L - pos0 > chunk and covered < L:
@@ -966,9 +1202,12 @@ def _replay(torch, server, seq, P, events, last):
     each fill as the server ran it (pieces of ``prefill_chunk``, the last
     bucketed, over the context KV already in the pool; a fill cut by a
     preemption stops at the KV it covered) and a decode step for every
-    other row.  Returns {absolute row: logits} up to row ``last``; row r
-    predicts the token at r + 1.  ``events``: ("fill", pos0, L) and
-    ("cut", covered) in run order."""
+    other row, or, for a speculative run, a verify of the k-token window
+    from each round's feed position (its rows hold the teacher-forced
+    tokens up to ``last``; later ones cannot reach those rows).  Returns
+    {absolute row: logits} up to row ``last``; row r predicts the token at
+    r + 1.  ``events``: ("fill", pos0, L), ("cut", covered) and ("round",
+    pos) in run order."""
     from repro_torch.models.kvcache import KVCache
     ex = server.executor
     model, params, dev = ex.model, ex.params, ex.device
@@ -1007,6 +1246,22 @@ def _replay(torch, server, seq, P, events, last):
             ev = events[ei] if ei < len(events) else None
             if ev and ev[0] == "cut":
                 ei += 1                 # a decode victim: its restore follows
+            elif ev and ev[0] == "round":
+                p0, k = ev[1], server.spec_k
+                window = torch.zeros((1, k), dtype=torch.int32, device=dev)
+                take = min(k, len(seq) - p0)
+                window[0, :take] = x[p0:p0 + take]
+                logits, _ = model.verify_step(params, {
+                    "tokens": window,
+                    "pos0": torch.tensor([[p0]], dtype=torch.int32,
+                                         device=dev),
+                    "active": torch.ones((1,), dtype=torch.bool, device=dev),
+                    "block_table": table[None].to(torch.int32)}, cache)
+                for i in range(k):
+                    rows[p0 + i] = logits[0, i]
+                ei += 1
+                nxt = events[ei] if ei < len(events) else None
+                row = nxt[1] if nxt and nxt[0] == "round" else p0 + k
             elif ev and ev[2] == row + 1:
                 end = ev[2]
                 nxt = events[ei + 1] if ei + 1 < len(events) else None
@@ -1384,11 +1639,57 @@ def phase_card_vs_cpu(torch, dev):
     check(suffix["tokens_full"] == suffix["tokens_suffix"],
           f"suffix prefill tokens {suffix['tokens_suffix']} != full "
           f"prefill tokens {suffix['tokens_full']}")
+    spec = _spec_card_vs_cpu(torch, dev, cfg, model)
     emit({"phase": "card_vs_cpu", "layers": cfg.n_layers, "dtype": "float32",
           "steps": "prefill(16) + 8 decode", "max_abs_err": err,
           "max_abs_logit": amax, "tolerance": tol,
           "argmax_agree": f"{agree}/{len(card)}",
-          "suffix_vs_full": suffix, "ok": True})
+          "suffix_vs_full": suffix, "speculative": spec, "ok": True})
+
+
+def _spec_card_vs_cpu(torch, dev, cfg, model):
+    """A speculative serve (--speculative SPEC_BITS:SPEC_K over psi8 codes
+    with the QAT precondition at SPEC_BITS, so drafts are accepted) of the
+    2-layer float32 model on the CPU and on the card: the same tokens, or a
+    divergence only under the token rule; one draft and one verify graph
+    on the card; no leaked block on either."""
+    from repro_torch.launch import scheduler, serve
+    from repro_torch.runtime.executor import params_to
+    params = model.init(seed=1, device=dev, bits=8,
+                        qat_precondition=SPEC_BITS)
+    trace = lambda: scheduler.poisson_trace(
+        2, rate_rps=1e9, prompt_len=16, max_new=8, min_new=8,
+        vocab_size=cfg.vocab_size, seed=2)
+    t0 = time.perf_counter()
+    servers, done, logs, out = [], [], [], {}
+    for device, p in (("cpu", params_to(params, "cpu")), ("cuda", params)):
+        server = serve.Server(cfg, p, max_batch=2, max_seq=48, device=device,
+                              speculative=(SPEC_BITS, SPEC_K))
+        log, undo = _fill_log(server, serve)
+        try:
+            # the CPU has no graph to capture: its warmup would only repeat
+            # full-width eager work
+            reqs, stats = server.serve(trace(), warmup=device == "cuda")
+        finally:
+            undo()
+        check(stats["blocks_free_end"] == stats["n_blocks"],
+              f"spec card vs CPU ({device}): a block leaked")
+        sp = stats["speculative"]
+        out[device] = {"rounds": sp["rounds"],
+                       "accepted_draft_tokens": sp["accepted_draft_tokens"],
+                       "spec_compiles": sp["spec_compiles"]}
+        servers.append(server)
+        done.append(reqs)
+        logs.append(log)
+    check(out["cuda"]["spec_compiles"] == {"draft": 1, "verify": 1,
+                                           "decode": 0},
+          f"spec card vs CPU: card graph counts "
+          f"{out['cuda']['spec_compiles']}")
+    rule = _token_rule(torch, servers, done[0], done[1], logs,
+                       "spec card vs CPU")
+    out["tokens"] = "identical" if not rule else rule
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def _suffix_vs_full(torch, dev, model, params, P=40, split=32, steps=8):

@@ -215,6 +215,36 @@ class QuantizedTensor:
         return QuantizedTensor(pack_codes(self.data, self.fmt), self.scale,
                                self.fmt, packed=True)
 
+    def unpack(self) -> "QuantizedTensor":
+        if not self.packed:
+            return self
+        return QuantizedTensor(self.codes, self.scale, self.fmt, packed=False)
+
+    def draft_view(self, bits: FormatLike) -> "QuantizedTensor":
+        """A narrower view of the same weights, derived from the stored
+        codes alone: the self-speculative draft model.  Codes rescale from
+        the source grid to the draft grid (``round(c * qmax_d / qmax_s)``
+        in f32, round half to even, clipped, PSI-projected) and the scale
+        absorbs ``qmax_s / qmax_d``; a packed source yields a packed draft
+        (``bits/8`` bytes per weight).  The same width returns ``self``; a
+        wider one raises."""
+        dfmt = get_format(bits)
+        if dfmt.bits > self.fmt.bits:
+            raise ValueError(
+                f"draft_view narrows only: psi{self.fmt.bits} -> "
+                f"psi{dfmt.bits}")
+        if dfmt.bits == self.fmt.bits:
+            return self
+        # Python scalars enter as f32, as the JAX package's weak floats do
+        ratio = torch.tensor(dfmt.qmax / self.fmt.qmax, dtype=torch.float32)
+        c = torch.clamp(torch.round(self.codes.to(torch.float32) * ratio),
+                        dfmt.w_min, dfmt.w_max).to(torch.int32)
+        c = psi_project_int(c, dfmt)
+        grow = torch.tensor(self.fmt.qmax / dfmt.qmax, dtype=torch.float32)
+        scale = self.scale.to(torch.float32) * grow
+        out = QuantizedTensor(c.to(torch.int8), scale, dfmt)
+        return out.pack() if self.packed else out
+
 
 def compute_scale(w: torch.Tensor, bits: FormatLike, axis) -> torch.Tensor:
     """Symmetric per-channel scale: max|w| along ``axis`` maps to qmax."""

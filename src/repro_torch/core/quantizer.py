@@ -186,6 +186,44 @@ def quantize_param_tree(params: Dict, bits: Optional[int] = None,
     return out
 
 
+def draft_param_tree(params: Dict, draft_bits: int) -> Dict:
+    """The self-speculative draft tree: every QuantizedTensor wider than
+    ``draft_bits`` becomes its :meth:`~psi.QuantizedTensor.draft_view`
+    (from the stored codes, no float round trip); float leaves and leaves
+    at or below the draft width pass through, so the tree keeps its
+    structure."""
+    fmt = psi.get_format(draft_bits)
+
+    def convert(_path, leaf):
+        if isinstance(leaf, psi.QuantizedTensor) and leaf.fmt.bits > fmt.bits:
+            return leaf.draft_view(fmt)
+        return leaf
+
+    return _walk(params, convert)
+
+
+def fake_quant_leaf(path: str, leaf: torch.Tensor, bits: int
+                    ) -> torch.Tensor:
+    """Quantize then dequantize one quantizable leaf in its own dtype, with
+    the scale axis :func:`quantize_leaf` uses (the forward half of QAT)."""
+    q = psi.quantize_weights(leaf, bits, axis=_scale_axis(path, leaf))
+    return q.dequantize(leaf.dtype)
+
+
+def fake_quant_param_tree(params: Dict, bits: int,
+                          exclude: Optional[tuple] = None) -> Dict:
+    """Snap every quantizable leaf to the psi``bits`` grid (forward only;
+    the straight-through gradient arrives with the training port)."""
+    exclude = DEFAULT_EXCLUDE if exclude is None else exclude
+
+    def convert(path, leaf):
+        if not is_quantizable(path, leaf, exclude):
+            return leaf
+        return fake_quant_leaf(path, leaf, bits)
+
+    return _walk(params, convert)
+
+
 def quantized_bytes(params: Dict) -> int:
     """Total serving-format bytes: codes or planes plus scales, and float
     leaves at their own width."""

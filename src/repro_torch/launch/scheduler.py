@@ -42,6 +42,11 @@ class Request:
     # tokens ever served from the cache (cumulative over re-admissions)
     prefix_blocks: List[int] = dataclasses.field(default_factory=list)
     prefix_hit_tokens: int = 0
+    # self-speculative rounds run, draft tokens accepted over them, and
+    # wall seconds of this request's share of the draft passes
+    spec_rounds: int = 0
+    spec_accepted: int = 0
+    draft_s: float = 0.0
 
     @property
     def latency_s(self) -> float:
@@ -61,6 +66,14 @@ class Request:
         if self.admit_s is None:
             return float("nan")
         return self.admit_s - self.arrival_s
+
+    @property
+    def accepted_per_step(self) -> float:
+        """Mean draft tokens accepted per speculative round; NaN for a
+        request that ran none (``summarize`` skips NaNs)."""
+        if self.spec_rounds == 0:
+            return float("nan")
+        return self.spec_accepted / self.spec_rounds
 
     @property
     def out(self) -> np.ndarray:
@@ -509,15 +522,22 @@ def _pctile(vals: np.ndarray, q: float) -> float:
     return float(np.percentile(vals, q)) if vals.size else 0.0
 
 
+def _nanmean(vals: np.ndarray) -> float:
+    """Mean over the finite entries; 0.0 when there are none."""
+    vals = vals[~np.isnan(vals)]
+    return float(np.mean(vals)) if vals.size else 0.0
+
+
 def summarize(requests: Sequence[Request], wall_s: float,
               mode: str = "") -> Dict:
-    """Throughput, latency percentiles and preemptions over a request
-    set."""
+    """Throughput, latency percentiles, preemptions and the speculative
+    accounting (0.0 when no request ran a round) over a request set."""
     if not requests:
         return {"mode": mode, "n_requests": 0, "tokens": 0, "wall_s": wall_s,
                 "tok_per_s": 0.0, "p50_latency_s": 0.0, "p99_latency_s": 0.0,
                 "p50_ttft_s": 0.0, "p99_ttft_s": 0.0,
-                "p50_itl_s": 0.0, "p99_itl_s": 0.0, "preemptions": 0}
+                "p50_itl_s": 0.0, "p99_itl_s": 0.0, "preemptions": 0,
+                "accepted_per_step": 0.0, "draft_overhead_s": 0.0}
     lats = np.asarray([r.latency_s for r in requests])
     ttfts = np.asarray([r.ttft_s for r in requests])
     gaps = np.concatenate([r.itl_gaps for r in requests])
@@ -535,4 +555,7 @@ def summarize(requests: Sequence[Request], wall_s: float,
         "p50_itl_s": _pctile(gaps, 50),
         "p99_itl_s": _pctile(gaps, 99),
         "preemptions": int(sum(r.preemptions for r in requests)),
+        "accepted_per_step": _nanmean(np.asarray(
+            [r.accepted_per_step for r in requests])),
+        "draft_overhead_s": float(sum(r.draft_s for r in requests)),
     }

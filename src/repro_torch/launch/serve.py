@@ -33,6 +33,13 @@ and reads the KV of ``[0, pos0)`` out of the pool:
 
 Greedy tokens do not depend on any of them.
 
+With ``--speculative BITS:K`` each iteration is one self-speculative
+round: K greedy draft steps with a psiBITS view of the serving codes (no
+second checkpoint), then one K-token verify at the serving width; each
+slot emits its longest agreed draft prefix plus the target's own next
+token, so tokens equal plain decode's.  It composes with the prefix
+cache, chunked prefill and SLO scheduling, not with a horizon M > 1.
+
 The Server is the host half; device work goes through
 ``repro_torch.runtime.Executor``, which runs every projection through the
 PSI matmul kernel and every decode attention read through the paged
@@ -44,6 +51,9 @@ CUDA-graph replay; plain PyTorch, eagerly, with ``--device cpu``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
       --reduced --quant psi8 --mode both --device cpu --prefix-cache on \\
       --shared-prefix-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
+      --reduced --quant psi8 --mode both --device cpu --speculative 3:4 \\
+      --qat-precondition 3
 """
 from __future__ import annotations
 
@@ -74,15 +84,35 @@ from repro_torch.runtime.executor import Executor
 PREFILL_BUCKET = 16
 
 
+def parse_spec_spec(spec: Optional[str]) -> Optional[Tuple[int, int]]:
+    """"BITS:K" (e.g. "3:4") -> (draft_bits, k) for --speculative; None or
+    "off" -> None.  BITS is checked against the serving width where that
+    is known (build_server); K is the draft length of a round."""
+    if not spec or spec == "off":
+        return None
+    try:
+        bits, k = (int(p) for p in spec.split(":"))
+    except ValueError as e:
+        raise ValueError(
+            f"malformed --speculative spec {spec!r}: want \"BITS:K\" with "
+            f"two integers, e.g. \"3:4\" (psi3 draft, 4 tokens a round)"
+        ) from e
+    if k < 1:
+        raise ValueError(f"--speculative draft length k={k} must be >= 1")
+    return bits, k
+
+
 class Server:
     """Slot-based serving engine: continuous or batch-synchronous
     scheduling (FIFO, or an SLO policy with preemption) over one masked
-    decode step, or a round of M steps, on the paged layout."""
+    decode step, a round of M steps, or a self-speculative round, on the
+    paged layout."""
 
     def __init__(self, cfg, params, max_batch: int = 4, max_seq: int = 256,
                  eos_id: int = -1, device=None,
                  n_blocks: Optional[int] = None, decode_horizon: int = 1,
-                 prefill_chunk: int = 0, slo=None):
+                 prefill_chunk: int = 0, slo=None,
+                 speculative: Optional[Tuple[int, int]] = None):
         self.cfg = cfg
         # decode in rounds of M steps with retirement on the device and one
         # host sync per round; 1 = one step at a time
@@ -90,6 +120,14 @@ class Server:
         if self.decode_horizon < 1:
             raise ValueError(
                 f"decode_horizon={decode_horizon} must be >= 1")
+        # self-speculative rounds: (draft_bits, k) or None.  A round writes
+        # k positions whatever the budget left, so the last one can write
+        # k-1 past the final emitted token: that overhang joins every
+        # cache and block extent below.  The executor checks the rest (k,
+        # quantized params, no horizon M > 1).
+        self.spec = tuple(speculative) if speculative else None
+        self.spec_k = self.spec[1] if self.spec else 0
+        self._spec_overhang = self.spec_k - 1 if self.spec else 0
         self.prefix_enabled = cfg.prefix_cache_enabled
         self.block_size = cfg.cache_block_size
         # the paged read attends over n_bt * block_size keys: align the
@@ -124,7 +162,8 @@ class Server:
         self.executor = Executor(cfg, params, max_batch=max_batch,
                                  max_seq=max_seq, device=device,
                                  n_blocks=n_blocks,
-                                 decode_horizon=self.decode_horizon)
+                                 decode_horizon=self.decode_horizon,
+                                 speculative=self.spec)
 
     # -------------------------------------------------------------- plumbing
     def _bucket_len(self, n: int) -> int:
@@ -134,15 +173,17 @@ class Server:
         """Blocks to reserve at admission, over ``full_seq`` (a restore
         reserves what it needs, not the prompt's worst case).  FIFO: the
         worst case, the bucketed prefill extent or sequence + remaining
-        budget, whichever is longer.  Under an SLO policy: optimistic, the
-        bucketed extent plus ``reserve_frac`` of the remaining budget; the
+        budget (plus the speculative overhang), whichever is longer.  Under
+        an SLO policy: optimistic, the bucketed extent plus
+        ``reserve_frac`` of the remaining budget (and the overhang); the
         shortfall is secured on demand, with preemption as the valve."""
         L = len(req.full_seq)
         remaining = max(req.max_new - len(req.tokens), 0)
-        need = max(self._bucket_len(L), L + remaining)
+        need = max(self._bucket_len(L), L + remaining + self._spec_overhang)
         if self.slo is not None:
             expected = max(self._bucket_len(L),
-                           L + math.ceil(self.slo.reserve_frac * remaining))
+                           L + math.ceil(self.slo.reserve_frac * remaining)
+                           + self._spec_overhang)
             need = min(need, expected)
         return kvc.blocks_for(need, self.block_size)
 
@@ -150,11 +191,13 @@ class Server:
         """The most cache a request can need.  Under an SLO policy a
         restore re-prefills prompt + generated in one bucketed piece, so
         the worst case is the bucketed full sequence; every request being
-        feasible alone is what makes the preemption valve terminate."""
+        feasible alone is what makes the preemption valve terminate.  A
+        speculative round's overhang adds k-1."""
         if self.slo is not None:
-            return self._bucket_len(len(req.prompt) + req.max_new)
+            return self._bucket_len(len(req.prompt) + req.max_new
+                                    + self._spec_overhang)
         return max(self._bucket_len(len(req.prompt)),
-                   len(req.prompt) + req.max_new)
+                   len(req.prompt) + req.max_new + self._spec_overhang)
 
     def _prefill_admits(self, cache, admits: Sequence[Tuple[int, Request]],
                         sched: Scheduler, bt, chunking: Dict[int, int]):
@@ -236,7 +279,8 @@ class Server:
         the decode graph, so serving measures the steady state.  Prefill is
         eager, so a context depth or a chunk needs no shape of its own.  At
         horizon M > 1 the decode shape is the M-step round: exactly one
-        round graph and no single-step graph.  Returns the number of
+        round graph and no single-step graph.  Speculative: one draft and
+        one verify graph, and no plain decode graph.  Returns the number of
         shapes run."""
         ex = self.executor
         cache = ex.init_cache()
@@ -249,21 +293,79 @@ class Server:
         zeros = np.zeros((B, 1), np.int32)
         idle = np.zeros((B,), bool)
         table = np.full((B, ex.n_bt), -1, np.int32)
-        if self.decode_horizon > 1:
+        if self.spec:
+            drafts, _ = ex.draft(zeros, zeros, idle, cache, table)
+            ex.verify(zeros, drafts, zeros, idle, cache, table)
+        elif self.decode_horizon > 1:
             ex.decode_multi(zeros, zeros, idle, np.zeros((B,), np.int32),
                             cache, table, eos_id=self.eos_id)
         else:
             ex.decode(zeros, zeros, idle, cache, table)
         if ex.device.type == "cuda":
-            want = {"decode": int(self.decode_horizon == 1),
-                    "decode_multi": int(self.decode_horizon > 1)}
+            spec = bool(self.spec)
+            want = {"decode": int(self.decode_horizon == 1 and not spec),
+                    "decode_multi": int(self.decode_horizon > 1),
+                    "draft": int(spec), "verify": int(spec)}
             if ex.graph_counts() != want:
                 raise RuntimeError(
                     f"decode graph contract violated at warmup: want "
-                    f"{want} at horizon {self.decode_horizon}, got "
+                    f"{want} at horizon {self.decode_horizon}"
+                    f"{', speculative' if spec else ''}, got "
                     f"{ex.graph_counts()}")
             torch.cuda.synchronize(ex.device)
-        return len(buckets) + 1
+        return len(buckets) + (2 if self.spec else 1)
+
+    def _spec_round(self, sched, cache, tok, pos, act, bt, now_fn):
+        """One self-speculative round: the k-step draft pass at the draft
+        width, then one k-token verify at the serving width, enqueued back
+        to back (the verify builds its window from the drafts on the
+        device).  Per slot, accept the longest draft prefix the target
+        agrees with (a) and emit min(a+1, k) tokens — the accepted drafts
+        and the target's verdict after them, which is the plain-decode
+        token there — cut at the budget and at the first EOS.  ``pos``
+        advances by the emitted count only: the rejected tail's KV lies at
+        or past the next feed position and is overwritten by the next round
+        before any query reads it."""
+        ex = self.executor
+        K = self.spec_k
+        t_draft = time.perf_counter()
+        drafts_dev, cache = ex.draft(tok, pos, act, cache, bt)
+        verdicts_dev, cache = ex.verify(tok, drafts_dev, pos, act, cache, bt)
+        drafts = np.asarray(drafts_dev)      # waits for the draft pass only
+        draft_dt = time.perf_counter() - t_draft
+        verdicts = np.asarray(verdicts_dev)
+        now = now_fn()
+        share = draft_dt / max(int(act.sum()), 1)
+        for slot in list(sched.running):
+            if not act[slot]:
+                continue        # chunking slot: masked out of the round
+            req = sched.running[slot]
+            req.draft_s += share
+            d, v = drafts[slot], verdicts[slot]
+            a = 0
+            while a < K and d[a] == v[a]:
+                a += 1
+            emit = [int(x) for x in d[:a]]
+            if a < K:
+                emit.append(int(v[a]))
+            req.spec_rounds += 1
+            req.spec_accepted += a
+            finished = False
+            n_emit = 0
+            for t in emit:
+                req.emit(t, now)
+                n_emit += 1
+                if t == self.eos_id or len(req.tokens) >= req.max_new:
+                    finished = True
+                    break
+            pos[slot, 0] += n_emit
+            if finished:
+                act[slot] = False
+                sched.retire(slot, now)
+                bt[slot, :] = -1
+            else:
+                tok[slot, 0] = emit[n_emit - 1]
+        return cache
 
     # ------------------------------------------------------------- the loop
     def serve(self, requests: Sequence[Request], continuous: bool = True,
@@ -275,9 +377,12 @@ class Server:
         bad = [r.rid for r in requests
                if self._worst_extent(r) > self.max_seq]
         if bad:
-            raise ValueError(f"requests {bad} need more cache than max_seq="
-                             f"{self.max_seq}; size the Server for the "
-                             f"longest request")
+            raise ValueError(
+                f"requests {bad} need more cache than max_seq="
+                f"{self.max_seq} (bucketed prompt + max_new"
+                + (" + the k-1 speculative overhang"
+                   if self._spec_overhang else "")
+                + "); size the Server for the longest request")
         bad = [r.rid for r in requests
                if kvc.blocks_for(self._worst_extent(r), self.block_size)
                > ex.n_blocks]
@@ -460,11 +565,14 @@ class Server:
             # alloc-on-demand: every block this step's or round's writes can
             # touch must exist before it runs.  FIFO reserved the worst
             # case at admission; an SLO policy secures the shortfall here.
-            # A round writes up to M positions, and with a round in flight
-            # the device carry may already be M ahead of the host mirror,
-            # so the span doubles.  Positions past a request's last feed
-            # (prompt + max_new - 2) are never written.
-            span = 2 * M if pipeline and pending is not None else M
+            # A round writes up to M positions, a speculative round k, and
+            # with a round in flight the device carry may already be M
+            # ahead of the host mirror, so the span grows by M.  Positions
+            # past a request's last feed (prompt + max_new - 2) hold no
+            # emitted token's KV: a block there is never needed.
+            span = max(self.spec_k, M)
+            if pipeline and pending is not None:
+                span += M
             for slot, req in list(sched.running.items()):
                 if not act[slot]:
                     continue        # chunking, or preempted just now
@@ -478,6 +586,12 @@ class Server:
                         bt[slot, li] = sched.blocks.alloc(req.rid)
             if not act.any():
                 continue           # the pressure path preempted every decoder
+            if self.spec:
+                cache = self._spec_round(sched, cache, tok, pos, act, bt,
+                                         lambda: clock() - t0)
+                host_syncs += 2          # the drafts, then the verdicts
+                steps += 1
+                continue
             if multi:
                 # one horizon-M round, chained from the device carry when
                 # the host has not touched its mirrors since the last round
@@ -561,6 +675,15 @@ class Server:
             stats["slo"] = {"aging_s": self.slo.aging_s,
                             "reserve_frac": self.slo.reserve_frac,
                             "classes": slo_report(sched.finished, self.slo)}
+        if self.spec:
+            n_rounds = int(sum(r.spec_rounds for r in sched.finished))
+            accepted = int(sum(r.spec_accepted for r in sched.finished))
+            stats["speculative"] = {
+                "draft_bits": self.spec[0], "k": self.spec[1],
+                "rounds": n_rounds, "accepted_draft_tokens": accepted,
+                "mean_accepted": (round(accepted / n_rounds, 3)
+                                  if n_rounds else 0.0),
+                "spec_compiles": ex.spec_cache_sizes()}
         if prefix is not None:
             stats["prefix_cache"] = prefix.stats()
             # the allocator is back to its initial state only once the LRU
@@ -586,23 +709,36 @@ def build_server(args) -> Tuple[Server, object]:
     cfg.prefix_cache_enabled         # validate before the weights are drawn
     device = resolve_device(getattr(args, "device", None))
     policy = parse_policy(getattr(args, "quant_policy", None))
+    spec = parse_spec_spec(getattr(args, "speculative", None))
+    if spec:
+        kind, sbits = parse_quant_mode(args.quant)
+        if kind != "psi" or sbits <= spec[0]:
+            raise ValueError(
+                f"--speculative {spec[0]}:{spec[1]} derives the draft from "
+                f"the PSI serving codes, so it needs a wider serving format "
+                f"(--quant psiN with N > {spec[0]}); got --quant "
+                f"{args.quant}")
+    # --qat-precondition: each leaf is snapped to that grid as it is drawn
+    pre = int(getattr(args, "qat_precondition", 0) or 0)
     model = build_model(cfg)
     if args.quant != "none" or policy:
         _, bits = parse_quant_mode(args.quant)
         params = model.init(seed=args.seed, device=device, bits=bits,
-                            pack=True, policy=policy)
+                            pack=True, policy=policy, qat_precondition=pre)
         mode = args.quant
         if mode == "none" and policy and policy.get("default"):
             mode = f"psi{policy['default']}"
         cfg = dataclasses.replace(cfg, quant_mode=mode)
     else:
-        params = model.init(seed=args.seed, device=device)
+        params = model.init(seed=args.seed, device=device,
+                            qat_precondition=pre)
     # the cache extent covers the bucketed prompt (a shared prefix
-    # included) plus the decode budget
+    # included) plus the decode budget, plus k-1 for a speculative round's
+    # overhang
     longest = (args.prompt_len + args.prompt_jitter
                + getattr(args, "shared_prefix_len", 0))
     prompt_pad = -(-longest // PREFILL_BUCKET) * PREFILL_BUCKET
-    max_seq = prompt_pad + args.max_new + 8
+    max_seq = prompt_pad + args.max_new + 8 + (spec[1] - 1 if spec else 0)
     chunk = int(getattr(args, "prefill_chunk", 0) or 0)
     slo = parse_slo_spec(getattr(args, "slo", "off") or "off")
     if slo is not None or chunk:
@@ -615,7 +751,7 @@ def build_server(args) -> Tuple[Server, object]:
                     eos_id=args.eos_id, device=device,
                     n_blocks=getattr(args, "cache_blocks", None),
                     decode_horizon=int(getattr(args, "decode_horizon", 1)),
-                    prefill_chunk=chunk, slo=slo)
+                    prefill_chunk=chunk, slo=slo, speculative=spec)
     return server, cfg
 
 
@@ -699,6 +835,20 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--priority-mix", default=None, metavar="W1,W2,...",
                     help="per-class arrival weights, one per --slo class in "
                          "order; each request draws its class from them")
+    ap.add_argument("--speculative", default=None, metavar="BITS:K",
+                    help="self-speculative decoding: draft K tokens a round "
+                         "with a psiBITS view of the serving codes (no "
+                         "second model), then verify all K in one pass at "
+                         "the serving width; tokens equal plain decode's.  "
+                         "e.g. \"3:4\"; needs --quant psiN with N > BITS "
+                         "and K <= the block size")
+    ap.add_argument("--qat-precondition", type=int, default=0,
+                    metavar="BITS",
+                    help="snap the random weights to the psiBITS grid "
+                         "before the serving quantization, as a checkpoint "
+                         "trained with the quantizer would be (0 = off); "
+                         "random weights' margins drown in low-bit noise, "
+                         "so a draft accepts almost nothing without it")
     ap.add_argument("--decode-horizon", type=int, default=1,
                     help="decode steps per round, with retirement on the "
                          "device and one host sync per round (1 = one "
@@ -733,6 +883,12 @@ def main():
         if "slo" in stats:
             horizon += (f" | preemptions {stats['preemptions']}, restores "
                         f"{stats['prefix_cache']['restores']}")
+        if "speculative" in stats:
+            sp = stats["speculative"]
+            horizon += (f" | spec psi{sp['draft_bits']} k={sp['k']}: "
+                        f"{sp['rounds']} rounds, "
+                        f"{stats['accepted_per_step']:.2f} accepted/round, "
+                        f"draft {stats['draft_overhead_s']:.3f}s")
         if stats["decode_horizon"] > 1:
             horizon += (f" | horizon {stats['decode_horizon']}: "
                         f"{stats['decode_rounds']} rounds, "

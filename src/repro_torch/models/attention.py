@@ -162,6 +162,59 @@ def paged_decode_attention_block(p, x, cfg, positions, cache, block_tables,
     return y, cache
 
 
+def paged_verify_attention_block(p, x, cfg, positions, cache, block_tables,
+                                 active=None):
+    """The k-token speculative verify against the paged pool.
+
+    ``x`` (B, k, d) holds the round's feed token and the first k-1 drafts;
+    ``positions`` (B, k) their consecutive absolute positions.  All k new
+    KV entries scatter first, over what the draft pass wrote there (the
+    target owns those entries from now on; a rejected tail is overwritten
+    before any later query reads it), with the decode block's routing:
+    inactive, table-less or table-overflowing entries go to the row's
+    scratch block.  The read then flattens the queries to (B*k) rows
+    through the same kernel as decode, each row with its own position and
+    its slot's table (repeated in ``jnp.repeat``'s row order).  k <= the
+    block size keeps the k writes of a row at distinct offsets.  The pools
+    are updated in place."""
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    B, S = x.shape[:2]
+    N, bs = cache["k"].shape[0], cache["k"].shape[1]
+    n_bt = block_tables.shape[1]
+    assert S <= bs, (f"verify width k={S} > block_size={bs}: consecutive "
+                     f"positions would collide in one block's offsets")
+    li = positions // bs                                           # (B, k)
+    off = (positions % bs).long().reshape(-1)
+    in_range = li < n_bt
+    pb = torch.gather(block_tables, 1, torch.clamp(li, max=n_bt - 1).long())
+    ok = (pb >= 0) & in_range
+    if active is not None:
+        ok = ok & active[:, None]
+    scratch = N - B + torch.arange(B, dtype=pb.dtype,
+                                   device=pb.device)[:, None]
+    dest = torch.where(ok, pb, scratch).long().reshape(-1)         # (B*k,)
+
+    def scatter(pool, vals):                                       # (B,k,H,·)
+        pool[dest, off] = vals.reshape(B * S, *vals.shape[2:]).to(pool.dtype)
+
+    if "k_scale" in cache:
+        kq, ks = _kv_quantize(k_new)
+        vq, vs = _kv_quantize(v_new)
+        for name, vals in (("k", kq), ("v", vq), ("k_scale", ks),
+                           ("v_scale", vs)):
+            scatter(cache[name], vals)
+    else:
+        scatter(cache["k"], k_new)
+        scatter(cache["v"], v_new)
+    tables = block_tables[:, None, :].expand(B, S, n_bt).reshape(B * S, n_bt)
+    o = ops.paged_decode_attention(
+        q.reshape(B * S, *q.shape[2:]).contiguous(), cache["k"], cache["v"],
+        tables, positions.reshape(-1).to(torch.int32).contiguous(),
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    y = linear(p["wo"], o.reshape(B, S, -1), cfg.quant_mode)
+    return y, cache
+
+
 def init_paged_kv_cache(cfg, n_total, block_size, dtype=torch.bfloat16,
                         device=None):
     """Block-pool KV storage for one layer: ``n_total`` blocks of

@@ -1,9 +1,10 @@
 """Model facade for the dense family on the paged serving layout:
 
-  * ``init(seed, device, bits=..., pack=..., policy=...)`` -> params
-    (random weights from a ``torch.Generator``; with a width given, each
-    leaf is quantized as soon as it is drawn, so peak memory stays near the
-    codes plus one float leaf)
+  * ``init(seed, device, bits=..., pack=..., policy=...,
+    qat_precondition=...)`` -> params (random weights from a
+    ``torch.Generator``; with a width given, each leaf is quantized as soon
+    as it is drawn, so peak memory stays near the codes plus one float
+    leaf)
   * ``quantize(params, bits, pack, policy)`` -> PSI serving params
   * ``prefill(params, tokens, ...)``         -> (last logits, dense cache);
                                                 with ``pos0``/``ctx_kv``
@@ -15,6 +16,9 @@
   * ``decode_scan(params, batch, cache, M)``  -> ((M, B) tokens, carry,
                                                 cache): M steps with EOS
                                                 and budget retirement
+  * ``verify_step(params, batch, cache)``     -> ((B, k, V) logits, cache):
+                                                the speculative verify of
+                                                k tokens per slot
   * ``init_cache`` / ``insert_cache``         -> the paged pool
 """
 from __future__ import annotations
@@ -79,10 +83,17 @@ class Model:
         return specs
 
     def init(self, seed: int = 0, device=None, bits: Optional[int] = None,
-             pack: bool = False, policy=None) -> dict:
+             pack: bool = False, policy=None,
+             qat_precondition: int = 0) -> dict:
         """Random params from a seeded ``torch.Generator`` on ``device``
         (CUDA unless the caller names another); with ``bits``/``policy``,
-        each quantizable leaf is quantized right after it is drawn."""
+        each quantizable leaf is quantized right after it is drawn.
+
+        ``qat_precondition`` N > 0 first snaps each quantizable leaf to the
+        psiN grid (quantize, dequantize), as a checkpoint trained with the
+        quantizer in the loop would be: random weights' logit margins
+        drown in low-bit noise, so a speculative draft accepts almost
+        nothing without it."""
         device = resolve_device(device)
         policy = quantizer.parse_policy(policy)
         quant = bits is not None or bool(policy)
@@ -95,8 +106,13 @@ class Model:
             else:
                 leaf = torch.randn(shape, generator=gen, dtype=torch.float32,
                                    device=device) * std
-            if quant and quantizer.is_quantizable(path, leaf):
-                leaf = quantizer.quantize_leaf(path, leaf, bits, pack, policy)
+            if quantizer.is_quantizable(path, leaf):
+                if qat_precondition:
+                    leaf = quantizer.fake_quant_leaf(path, leaf,
+                                                     qat_precondition)
+                if quant:
+                    leaf = quantizer.quantize_leaf(path, leaf, bits, pack,
+                                                   policy)
             node = params
             keys = path.split("/")
             for k in keys[:-1]:
@@ -247,6 +263,30 @@ class Model:
             toks.append(nxt)
         carry = {"token": tok, "pos": p, "active": act, "remaining": rem}
         return torch.stack(toks), carry, cache
+
+    def verify_step(self, params, batch, cache: KVCache):
+        """The speculative verify: k consecutive tokens per slot scored in
+        one decode-shaped pass.
+
+        batch: {"tokens": (B, k) — the round's feed token, then the first
+        k-1 drafts; "pos0": (B, 1) int32 — the feed token's position;
+        "active": (B,) bool; "block_table": (B, n_bt) int32}.  Returns
+        (logits (B, k, V), cache updated in place): ``argmax(logits[:,
+        j])`` is the target's next token after ``tokens[:, :j+1]``.  Target
+        KV is written over all k positions, replacing the draft's."""
+        if not cache.paged:
+            raise ValueError("the speculative verify runs against the "
+                             "paged cache")
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = batch["pos0"] + torch.arange(
+            S, dtype=torch.int32, device=tokens.device)[None]
+        x = embed(params["embed"], tokens, self.dtype)
+        x, _ = transformer.apply_decoder_stack_verify(
+            params["layers"], x, self.cfg, positions, cache.kv,
+            batch["block_table"], active=batch.get("active"))
+        x = layers.apply_norm(params["norm_f"], x, self.cfg)
+        return self._logits(params, x), cache
 
     def insert_cache(self, cache: KVCache, seq_cache: KVCache, slot: int,
                      block_row) -> KVCache:

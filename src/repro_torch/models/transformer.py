@@ -31,6 +31,19 @@ def apply_block_decode(p, x, cfg, positions, cache, block_tables,
     return x + layers.apply_mlp(p["mlp"], h2, cfg), cache
 
 
+def apply_block_verify(p, x, cfg, positions, cache, block_tables,
+                       active=None):
+    """k-token verify block: the attention half through
+    :func:`attention.paged_verify_attention_block`; norms and the MLP are
+    shape-generic over (B, k, d)."""
+    h = layers.apply_norm(p["norm1"], x, cfg)
+    y, cache = attention.paged_verify_attention_block(
+        p["attn"], h, cfg, positions, cache, block_tables, active=active)
+    x = x + y
+    h2 = layers.apply_norm(p["norm2"], x, cfg)
+    return x + layers.apply_mlp(p["mlp"], h2, cfg), cache
+
+
 def apply_decoder_stack(layer_params, x, cfg, positions, ctx_kv=None):
     """Returns (x, per-layer states).  ``ctx_kv``: one context dict per
     layer (:func:`gather_paged_ctx`), or None."""
@@ -47,6 +60,16 @@ def apply_decoder_stack_decode(layer_params, x, cfg, positions, pools,
     """Every layer indexes its own pool through the same block table."""
     for p, pool in zip(layer_params, pools):
         x, _ = apply_block_decode(p, x, cfg, positions, pool, block_tables,
+                                  active=active)
+    return x, pools
+
+
+def apply_decoder_stack_verify(layer_params, x, cfg, positions, pools,
+                               block_tables, active=None):
+    """The speculative verify over every layer: x (B, k, d), each layer
+    writing and reading its own pool through the same block table."""
+    for p, pool in zip(layer_params, pools):
+        x, _ = apply_block_verify(p, x, cfg, positions, pool, block_tables,
                                   active=active)
     return x, pools
 

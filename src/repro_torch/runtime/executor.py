@@ -1,15 +1,17 @@
 """Single-device execution for the serving engine: params and the paged
 cache on one device, and the serving entry points — prefill, fused
-prefill + insert, the decode step and the horizon-M decode round.
+prefill + insert, the decode step, the horizon-M decode round and the
+self-speculative draft and verify passes.
 
-On a CUDA device the decode step and the decode round each run as one
-captured CUDA graph, the counterpart of the JAX package's jitted decode
-executables: the host uploads a round's inputs into fixed device buffers
-and replays the graph, instead of issuing a few thousand small launches.
-A graph reads and writes fixed addresses, so the executor owns them all
-for its life: one paged pool (``init_cache`` zeroes it in place), one
-block-table buffer, and the static token / pos / active / remaining / EOS
-inputs and token outputs.  On the CPU the same bodies run eagerly; that is
+On a CUDA device the decode step, the decode round, the draft and the
+verify each run as one captured CUDA graph, the counterpart of the JAX
+package's jitted decode executables: the host uploads a round's inputs
+into fixed device buffers and replays the graph, instead of issuing a few
+thousand small launches.  A graph reads and writes fixed addresses, so the
+executor owns them all for its life: one paged pool (``init_cache`` zeroes
+it in place), one block-table buffer, and the static token / pos / active
+/ remaining / EOS inputs and token outputs (the drafts and verdicts
+included).  On the CPU the same bodies run eagerly; that is
 the plain version the parity tests compare.  The cache is updated in place
 where the JAX package donated it.
 """
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import psi
+from repro_torch.core import psi, quantizer
 from repro_torch.kernels import ops
 from repro_torch.models import build_model, kvcache as kvc
 
@@ -116,13 +118,15 @@ class DeviceBlockTable:
 
 
 class RoundTokens:
-    """A decode round's (M, B) int32 tokens on their way to the host.  On a
-    CUDA device they are copied into a fresh pinned buffer behind the round
-    on the stream, and an event marks the copy's end: the next round can
-    run (and overwrite the graph's output) while the host has yet to read
-    these.  ``np.asarray`` waits for the copy."""
+    """A graph's int32 token output (a round's (M, B) tokens, the (B, k)
+    drafts or verdicts) on its way to the host.  On a CUDA device it is
+    copied into a fresh pinned buffer behind the graph on the stream, and
+    an event marks the copy's end: later work can run (and overwrite the
+    graph's output) while the host has yet to read it.  ``np.asarray``
+    waits for the copy only.  ``source`` is the device buffer copied."""
 
     def __init__(self, toks: torch.Tensor):
+        self.source = toks
         if toks.is_cuda:
             self._host = torch.empty(toks.shape, dtype=toks.dtype,
                                      pin_memory=True)
@@ -150,10 +154,15 @@ def _host_array(a) -> np.ndarray:
 
 class Executor:
     """Owns the device, the params on it, the paged pool, the decode graphs
-    and the serving entry points."""
+    and the serving entry points.
+
+    ``speculative=(bits, k)`` adds the self-speculative pair: a draft tree
+    (:func:`quantizer.draft_param_tree` of the serving params at ``bits``)
+    placed on the device once, and the fixed (B, k) drafts and verdicts."""
 
     def __init__(self, cfg, params, *, max_batch: int, max_seq: int,
-                 device=None, n_blocks: int = None, decode_horizon: int = 1):
+                 device=None, n_blocks: int = None, decode_horizon: int = 1,
+                 speculative=None):
         self.model = build_model(cfg)
         self.device = resolve_device(device)
         self.max_batch = max_batch
@@ -166,7 +175,32 @@ class Executor:
         self.n_bt = kvc.table_width(max_seq, self.block_size)
         self.n_blocks = (n_blocks if n_blocks is not None
                          else max_batch * self.n_bt)
+        self.speculative = tuple(speculative) if speculative else None
+        self.spec_bits = self.spec_k = 0
+        if self.speculative is not None:
+            bits, k = self.speculative
+            if not 1 <= k <= self.block_size:
+                raise ValueError(
+                    f"speculative k={k} must be in [1, block_size="
+                    f"{self.block_size}]: the k-token verify scatter needs "
+                    f"distinct in-block offsets")
+            if not any(isinstance(leaf, psi.QuantizedTensor)
+                       for leaf in quantizer.tree_leaves(params)):
+                raise ValueError("speculative decoding derives its draft "
+                                 "from PSI-quantized serving params; "
+                                 "quantize first (--quant psiN)")
+            if self.decode_horizon > 1:
+                raise ValueError(
+                    "--decode-horizon > 1 does not compose with "
+                    "--speculative: a speculative round is already a "
+                    "multi-token unit with its own acceptance; pick one "
+                    "(drop --speculative or set the horizon to 1)")
+            self.spec_bits, self.spec_k = int(bits), int(k)
         self.params = params_to(params, self.device)
+        # derived on the device from the placed codes: one copy, no host trip
+        self.draft_params = (
+            quantizer.draft_param_tree(self.params, self.spec_bits)
+            if self.speculative is not None else None)
         self.prefill_calls = 0          # model forwards over a prompt batch
         self.prefill_headless = 0       # ... of them without the lm-head
         B, dev = max_batch, self.device
@@ -175,6 +209,7 @@ class Executor:
         # and remaining budget per slot; the EOS id; the block table
         self._inp = torch.zeros((4, B), dtype=torch.int32, device=dev)
         self._inp_upload = _Upload((4, B), dev)
+        self._rows = None               # host copy of the rows' last upload
         self._eos = torch.full((), -1, dtype=torch.int32, device=dev)
         self._eos_id = -1
         self._bt = torch.full((B, self.n_bt), -1, dtype=torch.int32,
@@ -185,6 +220,12 @@ class Executor:
         self._next = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._toks = torch.zeros((self.decode_horizon, B), dtype=torch.int32,
                                  device=dev)
+        # the speculative pair's: the draft writes drafts, the verify reads
+        # them and writes verdicts
+        self._drafts = torch.zeros((B, self.spec_k), dtype=torch.int32,
+                                   device=dev)
+        self._verdicts = torch.zeros((B, self.spec_k), dtype=torch.int32,
+                                     device=dev)
         # a round's carry is the input rows themselves: the round writes its
         # exit state there, so the next round starts from it with no upload
         self.carry = {"token": self._inp[0].view(B, 1),
@@ -216,7 +257,14 @@ class Executor:
         """Captured decode graphs by entry point (none on the CPU): the
         counterpart of the JAX package's compiled decode executables."""
         return {name: int(name in self._graphs)
-                for name in ("decode", "decode_multi")}
+                for name in ("decode", "decode_multi", "draft", "verify")}
+
+    def spec_cache_sizes(self) -> dict:
+        """The speculative graph contract: on the card exactly one draft
+        and one verify graph, and no plain decode graph (all 0 on the
+        CPU)."""
+        counts = self.graph_counts()
+        return {k: counts[k] for k in ("draft", "verify", "decode")}
 
     # ------------------------------------------------------------ uploads
     def _check_pool(self, cache) -> None:
@@ -226,15 +274,21 @@ class Executor:
 
     def _put(self, token, pos, active, remaining) -> None:
         """Upload the step inputs, unless they are the carry the last round
-        left in the input rows (then they are already there)."""
+        left in the input rows, or the values the rows were last given
+        (then they are already there: a verify after its draft uploads
+        nothing)."""
         vals = (token, pos, active, remaining)
         keys = ("token", "pos", "active", "remaining")
         if all(v is self.carry[k] for v, k in zip(vals, keys)):
             return
-        stage = self._inp_upload.host()
+        rows = np.zeros((4, self.max_batch), np.int32)
         for i, v in enumerate(vals):
-            stage[i] = _host_array(v).reshape(-1)
+            rows[i] = _host_array(v).reshape(-1)
+        if self._rows is not None and np.array_equal(rows, self._rows):
+            return
+        self._inp_upload.host()[...] = rows
         self._inp_upload.copy(self._inp)
+        self._rows = rows
 
     def _table(self, block_table) -> None:
         if isinstance(block_table, DeviceBlockTable):
@@ -273,6 +327,34 @@ class Executor:
         self._inp.copy_(torch.stack([
             carry["token"][:, 0], carry["pos"][:, 0],
             carry["active"].to(torch.int32), carry["remaining"]]))
+
+    def _draft_body(self) -> None:
+        """k greedy decode steps over the draft params from the input rows,
+        each row's active flag held for all k (an inactive row writes only
+        its scratch block); draft KV lands at [pos, pos + k)."""
+        batch = self._batch()
+        tok, pos = batch["token"], batch["pos"]
+        drafts = []
+        for _ in range(self.spec_k):
+            logits, _ = self.model.decode_step(
+                self.draft_params, dict(batch, token=tok, pos=pos),
+                self._cache)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            pos = pos + 1
+            drafts.append(tok[:, 0])
+        self._drafts.copy_(torch.stack(drafts, 1))
+
+    def _verify_body(self) -> None:
+        """One k-token verify at the target width over [token, drafts[:,
+        :k-1]], built on the device from the drafts buffer."""
+        batch = self._batch()
+        tokens = torch.cat([batch["token"],
+                            self._drafts[:, :self.spec_k - 1]], 1)
+        logits, _ = self.model.verify_step(
+            self.params, {"tokens": tokens, "pos0": batch["pos"],
+                          "active": batch["active"],
+                          "block_table": self._bt}, self._cache)
+        self._verdicts.copy_(torch.argmax(logits, -1))
 
     def _run(self, name: str, body) -> None:
         """Run ``body`` eagerly on the CPU; on a CUDA device replay its
@@ -395,4 +477,43 @@ class Executor:
             self._eos_id = int(eos_id)
         self._table(block_table)
         self._run("decode_multi", self._multi_body)
+        self._rows = None                 # the round moved the rows on
         return RoundTokens(self._toks), self.carry, cache
+
+    def _need_spec(self) -> None:
+        if self.speculative is None:
+            raise ValueError("draft / verify need speculative=(bits, k) at "
+                             "construction")
+
+    @torch.inference_mode()
+    def draft(self, token, pos, active, cache, block_table):
+        """One k-step draft pass with the draft params; the inputs as for
+        :meth:`decode`.  Returns (:class:`RoundTokens` of the (B, k)
+        drafts, cache).  Pass the drafts on to :meth:`verify` as they are:
+        the verify reads them from the device buffer."""
+        self._need_spec()
+        self._check_pool(cache)
+        self._put(token, pos, active, 0)
+        self._table(block_table)
+        self._run("draft", self._draft_body)
+        return RoundTokens(self._drafts), cache
+
+    @torch.inference_mode()
+    def verify(self, token, drafts, pos0, active, cache, block_table):
+        """One k-token verify at the target width.  ``token`` (B, 1) is the
+        round's feed token, ``pos0`` (B, 1) its position, ``drafts`` what
+        the last :meth:`draft` returned (its buffer: nothing to upload) or
+        (B, k) tokens of the caller's (uploaded into that buffer).  Returns
+        (:class:`RoundTokens` of the (B, k) verdicts, cache): verdict j is
+        the target's greedy token after ``[token, drafts[:, :j]]``."""
+        self._need_spec()
+        self._check_pool(cache)
+        if not (isinstance(drafts, RoundTokens)
+                and drafts.source is self._drafts):
+            if not isinstance(drafts, torch.Tensor):
+                drafts = torch.from_numpy(np.asarray(drafts, np.int32))
+            self._drafts.copy_(drafts.reshape(self._drafts.shape))
+        self._put(token, pos0, active, 0)
+        self._table(block_table)
+        self._run("verify", self._verify_body)
+        return RoundTokens(self._verdicts), cache

@@ -446,7 +446,8 @@ def test_decode_graph_replay_equals_eager_step(cuda, dtype):
             assert after["paged_attention"] - before["paged_attention"] == L
         inp["token"] = got.cpu().numpy()[:, None]
         inp["pos"] = inp["pos"] + 1
-    assert ex.graph_counts() == {"decode": 1, "decode_multi": 0}
+    assert ex.graph_counts() == {"decode": 1, "decode_multi": 0,
+                                 "draft": 0, "verify": 0}
     _assert_pools_equal(cache, ref_cache)
 
 
@@ -487,7 +488,8 @@ def test_round_graph_equals_eager_steps(cuda, dtype):
                 block_table=torch.from_numpy(bt.host.copy()).cuda()),
             ref_cache, 4)
     np.testing.assert_array_equal(np.asarray(toks2), want2.cpu().numpy())
-    assert ex.graph_counts() == {"decode": 0, "decode_multi": 1}
+    assert ex.graph_counts() == {"decode": 0, "decode_multi": 1,
+                                 "draft": 0, "verify": 0}
 
 
 def test_block_table_upload_keeps_its_buffer(cuda):
@@ -625,7 +627,8 @@ def test_ctx_decode_graph_after_preemption_and_restore(cuda):
                pos=np.array([[40], [16], [0]], np.int32),
                active=np.array([True, True, False]))
     got, _ = ex.decode(inp["token"], inp["pos"], inp["active"], cache, bt)
-    assert ex.graph_counts() == {"decode": 1, "decode_multi": 0}
+    assert ex.graph_counts() == {"decode": 1, "decode_multi": 0,
+                                 "draft": 0, "verify": 0}
     # preempt slot 1; restore slot 2 over slot 0's shared first block
     bt[1, :] = -1
     inp["active"][1] = False
@@ -653,7 +656,8 @@ def test_ctx_decode_graph_after_preemption_and_restore(cuda):
         assert torch.equal(got, want), step
         inp["token"] = got.cpu().numpy()[:, None]
         inp["pos"] = inp["pos"] + 1
-    assert ex.graph_counts() == {"decode": 1, "decode_multi": 0}
+    assert ex.graph_counts() == {"decode": 1, "decode_multi": 0,
+                                 "draft": 0, "verify": 0}
     _assert_pools_equal(cache, ref_cache)
     for layer, old in zip(cache.kv, shared):
         for k in layer:
@@ -685,3 +689,192 @@ def test_ctx_chunk_without_lm_head_launches_252(cuda):
         assert (first is None) == (not emit)
     assert counts == [252, 253]
     assert ex.prefill_headless == 1 and ex.prefill_calls == 2
+
+
+# ---------------------------------------------------------------------------
+# Self-speculative decoding on the card: the draft and verify graphs, kernel
+# 3 at the verify's shape, and no CUDA tensor on a plain version.
+# ---------------------------------------------------------------------------
+def _spec_executor(dtype, bits):
+    """A reduced qwen3-8b executor with a (3, 4) speculative pair over
+    psi``bits`` codes (packed below 8 bits: the psi3 draft then runs
+    kernel 2), two prefilled slots, a live table and an inactive slot."""
+    from repro_torch.runtime import Executor
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode=f"psi{bits}",
+                         dtype=dtype)
+    params = build_model(cfg).init(seed=0, device="cuda", bits=bits,
+                                   pack=True, qat_precondition=3)
+    ex = Executor(cfg, params, max_batch=3, max_seq=64, device="cuda",
+                  speculative=(3, 4))
+    cache = ex.init_cache()
+    bt = ex.make_block_table()
+    rng = np.random.default_rng(0)
+    for slot in range(2):
+        row = np.full((ex.n_bt,), -1, np.int32)
+        row[:2] = [2 * slot, 2 * slot + 1]
+        prompt = rng.integers(0, cfg.vocab_size, size=(1, 16)).astype(
+            np.int32)
+        ex.prefill_insert(prompt, np.array([13], np.int32), cache, slot, row)
+        bt[slot] = row
+    inputs = dict(token=np.array([[5], [7], [0]], np.int32),
+                  pos=np.array([[13], [13], [0]], np.int32),
+                  active=np.array([True, True, False]))
+    return ex, cache, bt, inputs
+
+
+def _eager_round(ex, inp, bt, ref_cache):
+    """The draft's k decode steps and the verify, eagerly, on ``ref_cache``:
+    ((B, k) drafts, (B, k) verdicts)."""
+    batch = _eager_batch(inp, bt)
+    tok, pos, drafts = batch["token"], batch["pos"], []
+    with torch.inference_mode():
+        for _ in range(ex.spec_k):
+            logits, _ = ex.model.decode_step(
+                ex.draft_params, dict(batch, token=tok, pos=pos), ref_cache)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            pos = pos + 1
+            drafts.append(tok[:, 0])
+        drafts = torch.stack(drafts, 1)
+        tokens = torch.cat([batch["token"], drafts[:, :-1]], 1)
+        logits, _ = ex.model.verify_step(
+            ex.params, {"tokens": tokens, "pos0": batch["pos"],
+                        "active": batch["active"],
+                        "block_table": batch["block_table"]}, ref_cache)
+    return drafts, torch.argmax(logits, -1).to(torch.int32)
+
+
+@pytest.mark.parametrize("bits", [8, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spec_graphs_equal_eager_bodies(cuda, dtype, bits):
+    """Two speculative rounds as draft and verify graph replays against the
+    same bodies run eagerly on a copy of the pool: drafts, verdicts and
+    pools bit for bit.  Between the rounds the table changes under the
+    graphs (slot 0 gets a fresh block for positions 32-47, slot 1 is
+    cleared and made inactive, slot 2 takes two blocks); each replay adds
+    k decode steps' and one verify's launches: (k + 1) (7 n_layers + 1)
+    matmuls and (k + 1) n_layers attention calls."""
+    ex, cache, bt, inp = _spec_executor(dtype, bits)
+    ref_cache = _pool_copy(cache)
+    L, k = ex.model.cfg.n_layers, ex.spec_k
+    key = "psi_matmul_codes" if bits == 8 else "psi_matmul_packed"
+    for rnd in range(2):
+        want_d, want_v = _eager_round(ex, inp, bt, ref_cache)
+        before = ops.launch_counts()
+        drafts, _ = ex.draft(inp["token"], inp["pos"], inp["active"], cache,
+                             bt)
+        verdicts, _ = ex.verify(inp["token"], drafts, inp["pos"],
+                                inp["active"], cache, bt)
+        after = ops.launch_counts()
+        np.testing.assert_array_equal(np.asarray(drafts),
+                                      want_d.cpu().numpy())
+        np.testing.assert_array_equal(np.asarray(verdicts),
+                                      want_v.cpu().numpy())
+        _assert_pools_equal(cache, ref_cache)
+        if rnd:                      # the first calls also ran warm steps
+            assert after[key] - before[key] == (k + 1) * (7 * L + 1)
+            assert after["paged_attention"] - before["paged_attention"] == \
+                (k + 1) * L
+        bt[0, 2] = 6
+        bt[1, :] = -1
+        bt[2, :2] = [4, 5]
+        inp["token"] = np.asarray(verdicts)[:, -1:].astype(np.int32)
+        inp["pos"] = np.array([[29], [0], [3]], np.int32)
+        inp["active"] = np.array([True, False, True])
+    assert ex.graph_counts() == {"decode": 0, "decode_multi": 0,
+                                 "draft": 1, "verify": 1}
+    assert ex.spec_cache_sizes() == {"draft": 1, "verify": 1, "decode": 0}
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("shape", [(4, 2, 16, 16), (32, 8, 128, 16)])
+def test_paged_attention_verify_shape_matches_plain(cuda, mode, shape):
+    """Kernel 3 at the verify's shape: B * k query rows whose tables repeat
+    each slot's k times (jnp.repeat's order), consecutive positions that
+    cross a block boundary, and an inactive slot (table all -1)."""
+    hq, hkv, hd, bs = shape
+    B, k, n_bt = 4, 4, 5
+    g = torch.Generator().manual_seed(hq + k)
+    N = B * n_bt + B
+    qdt = torch.bfloat16 if mode == "bf16" else torch.float32
+    q = torch.randn(B * k, hq, hd, generator=g).to(qdt)
+    if mode == "int8":
+        kp, vp = (torch.randint(-127, 128, (N, bs, hkv, hd), generator=g,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(N, bs, hkv, 1, generator=g) * 0.05
+                  for _ in range(2))
+    else:
+        kp, vp = (torch.randn(N, bs, hkv, hd, generator=g).to(qdt)
+                  for _ in range(2))
+        ks = vs = None
+    bt = torch.randperm(B * n_bt, generator=g).to(torch.int32).reshape(
+        B, n_bt)
+    bt[2] = -1                                       # an inactive slot
+    pos0 = torch.tensor([bs - 2, 2 * bs - 1, 0, 3 * bs + 5],
+                        dtype=torch.int32)
+    pos = (pos0[:, None] + torch.arange(k, dtype=torch.int32)).reshape(-1)
+    tables = bt.repeat_interleave(k, 0).contiguous()
+    case = (q, kp, vp, tables, pos, ks, vs)
+    want = pa.paged_attention_ref(*case)
+    before = ops.launch_counts()["paged_attention"]
+    got = ops.paged_decode_attention(
+        *(None if t is None else t.to(cuda) for t in case)).cpu()
+    assert ops.launch_counts()["paged_attention"] == before + 1
+    rows = torch.ones(B * k, dtype=torch.bool)
+    rows[2 * k:3 * k] = False
+    assert bool((got[~rows] == 0).all())
+    # chip_smoke.py's per-element bound: A, the plain version on |V|, is
+    # the size of the terms each output sums
+    a = pa.paged_attention_ref(q, kp, vp.abs(), tables, pos, ks,
+                               vs)[rows].float()
+    want = want[rows].float()
+    tol = (2.0 ** -7 * want.abs() + 2.0 ** -5 * a if mode == "bf16"
+           else 1e-5 * (want.abs() + a))
+    d = (got[rows].float() - want).abs()
+    assert bool((d <= tol).all()), float((d - tol).max())
+
+
+def test_spec_serve_never_hands_a_cuda_tensor_to_a_plain_version(
+        cuda, monkeypatch):
+    """A speculative serve on the card (psi5 packed target, psi3 draft)
+    reaches only the kernels: no plain version is called with a CUDA
+    tensor, and the launch counts are exactly (k + 1) (7 n_layers + 1)
+    matmuls and (k + 1) n_layers attention calls per round plus 7 n_layers
+    + 1 per prefill; the tokens equal the CPU's."""
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode="psi5")
+    params = build_model(cfg).init(seed=0, device="cpu", bits=5, pack=True,
+                                   qat_precondition=3)
+    trace = lambda: scheduler.poisson_trace(
+        4, rate_rps=1e9, prompt_len=12, max_new=9, vocab_size=256, seed=3,
+        prompt_jitter=4)
+    cpu = serve.Server(cfg, params, max_batch=2, max_seq=64, device="cpu",
+                       speculative=(3, 4))
+    want = {r.rid: r.tokens for r in cpu.serve(trace())[0]}
+    bad = []
+    for mod, name in ((ref, "psi_matmul_codes_ref"),
+                      (ref, "psi_matmul_packed_ref"),
+                      (pa, "paged_attention_ref")):
+        real = getattr(mod, name)
+
+        def guarded(*a, _real=real, _name=name, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                bad.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, guarded)
+    server = serve.Server(cfg, params, max_batch=2, max_seq=64,
+                          device="cuda", speculative=(3, 4))
+    server.warmup(trace())
+    ops.reset_launch_counts()
+    done, stats = server.serve(trace(), warmup=False)
+    counts = ops.launch_counts()
+    assert not bad, bad
+    assert {r.rid: r.tokens for r in done} == want
+    per, L, k = 7 * cfg.n_layers + 1, cfg.n_layers, 4
+    rounds = stats["decode_steps"]
+    assert counts == {"psi_matmul_codes": 0,
+                      "psi_matmul_packed": per * ((k + 1) * rounds
+                                                  + stats["prefill_forwards"]),
+                      "paged_attention": (k + 1) * L * rounds}
+    assert stats["speculative"]["spec_compiles"] == {"draft": 1,
+                                                     "verify": 1,
+                                                     "decode": 0}
+    assert stats["blocks_free_end"] == stats["n_blocks"]
