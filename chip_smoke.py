@@ -5,9 +5,9 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
 (sm_90a), holds each against its plain PyTorch version on the card, serves
-full-width qwen3-8b from PSI codes through them, and compares the card with
-the CPU.  Phases, each printing one JSON line; any failure exits non-zero
-before the result line:
+full-width qwen3-8b, phi3-medium-14b, granite-34b and chatglm3-6b from PSI
+codes through them, and compares the card with the CPU.  Phases, each
+printing one JSON line; any failure exits non-zero before the result line:
 
   1. card and build    — nvidia-smi name and power limit, kernel build time;
   2. kernels           — each kernel against its plain version at the
@@ -18,7 +18,10 @@ before the result line:
                          (ms), its device time from CUDA-graph replays
                          (device_ms), its host time per call (host_ms), the
                          plain version's, one library call's (yardstick
-                         only) and the memory bound;
+                         only) and the memory bound; kernels 1 and 2 also
+                         at the five weight shapes of each other dense
+                         config (kernel_shape_arch, kernel_step_arch) and
+                         kernel 3 at their head layouts;
   3. serve psi8        — Server.serve of qwen3-8b, all 36 layers, in
                          continuous and static modes: identical tokens, and
                          253 PSI-matmul (kernel 1) + 36 attention launches
@@ -53,12 +56,22 @@ before the result line:
                          steps and one verify a round); no leaked block;
                          acceptance above 0; a profiled window of one draft
                          graph, one verify graph and one plain psi5 step;
+  4c. other configs (serve_phi3_psi8, serve_granite_psi5,
+                         serve_chatglm3_psi8) — each at full width and
+                         depth, the psi8 trace of 3 (granite at psi5):
+                         identical tokens across modes, exact launch counts
+                         (281 / 529 / 197 matmuls per forward, 40 / 88 / 28
+                         attention calls per step), one decode graph, no
+                         leaked block, a decode window (eager, graph) and
+                         one 288-row prefill forward;
   5. card vs CPU       — prefill + 8 greedy decode steps of a 2-layer
                          float32 psi8 model on the card and on the CPU, on
                          the card a suffix prefill (the prompt split at a
                          block boundary) against the full prefill, and a
                          speculative serve (--speculative 3:4, QAT
-                         precondition 3) on the card and on the CPU;
+                         precondition 3) on the card and on the CPU, and a
+                         2-layer float32 serve of each other config, tokens
+                         identical on the card and the CPU;
   6. summary           — {"kernels": [...]}, the card line, then the result
                          {"ok": true, "device": {...}} as the last line.
 
@@ -79,16 +92,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# the main path's weight shapes (K, N) and launches per decode step
-# (36 layers x wq, wk, wv, wo, w_gate, w_up, w_down, plus lm_head = 253)
-N_LAYERS = 36
-SHAPES = {
-    "wq/wo": ((4096, 4096), 2 * N_LAYERS),
-    "wk/wv": ((4096, 1024), 2 * N_LAYERS),
-    "w_gate/w_up": ((4096, 12288), 2 * N_LAYERS),
-    "w_down": ((12288, 4096), N_LAYERS),
-    "lm_head": ((4096, 151936), 1),
-}
+# the first main path's model; the other dense configs each serve in a
+# phase of their own (serve_<ARCHS label>), at the width their quant names
+MAIN_ARCH = "qwen3-8b"
+ARCHS = {"phi3-medium-14b": ("phi3", "psi8"),
+         "granite-34b": ("granite", "psi5"),
+         "chatglm3-6b": ("chatglm3", "psi8")}
+# the rows kernels 1 and 2 are held at for those configs' weights: decode,
+# the 16-row prefill of the card-vs-CPU serve, the serve's bucketed
+# prompts (64 +- 8 -> 64, 80) and the prefill window's 288
+ARCH_MS = (1, 4, 16, 64, 80, 288)
+ARCH_PREFILL_ROWS = 288
 DECODE_M = 4                     # decode rows = max_batch of the serve phase
 HORIZON = 8                      # decode steps per round, serve_psi8_horizon
 # serve_psi8_ctx: the bursty trace's seed (its first burst holds two long
@@ -130,6 +144,37 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def counts_per_step(cfg):
+    """(PSI-matmul launches per forward, attention calls per decode step):
+    wq, wk, wv, wo and the MLP's matrices (3 gated, 2 for the GELU MLP)
+    per layer plus the lm-head; one attention read per layer."""
+    return (4 + (2 if cfg.act == "gelu" else 3)) * cfg.n_layers + 1, \
+        cfg.n_layers
+
+
+def weight_shapes(cfg):
+    """{label: ((K, N), launches per forward)} of a config's PSI matmuls."""
+    d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
+    check(cfg.n_heads * hd == d, f"{cfg.name}: wq and wo differ in shape")
+    mlp = ({"w_up": ((d, cfg.d_ff), L)} if cfg.act == "gelu"
+           else {"w_gate/w_up": ((d, cfg.d_ff), 2 * L)})
+    return {"wq/wo": ((d, d), 2 * L),
+            "wk/wv": ((d, cfg.n_kv_heads * hd), 2 * L), **mlp,
+            "w_down": ((cfg.d_ff, d), L),
+            "lm_head": ((d, cfg.vocab_size), 1)}
+
+
+def check_full(cfg, arch):
+    """The served config is ``arch``'s published one: every width and the
+    whole depth."""
+    from repro_torch.configs import get_config
+    want = get_config(arch)
+    keys = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+            "vocab_size", "head_dim", "act", "rope")
+    check(all(getattr(cfg, k) == getattr(want, k) for k in keys),
+          f"{arch}: not full width and depth")
 
 
 def card_rates(name):
@@ -194,6 +239,8 @@ def main():
     phase_serve_ctx(torch, dev, launches)
     phase_serve(torch, dev, launches, "psi5")
     phase_serve_spec(torch, dev, launches)
+    for arch, (_, quant) in ARCHS.items():
+        phase_serve(torch, dev, launches, quant, arch)
     phase_card_vs_cpu(torch, dev)
 
     # ---------------------------------------------------------- 6. summary
@@ -384,7 +431,10 @@ def phase_kernels(torch, dev, bw, peak):
           "tolerance": "2^-7 x max|plain| (one bf16 ulp of the output)"})
 
     # -- full-width shapes, bf16 activations
-    for label, ((K, N), per_step) in SHAPES.items():
+    from repro_torch.configs import get_config
+    main_cfg = get_config(MAIN_ARCH)
+    per_fwd = counts_per_step(main_cfg)[0]
+    for label, ((K, N), per_step) in weight_shapes(main_cfg).items():
         w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
         row = {"phase": "kernel_shape", "weight": label, "K": K, "N": N,
                "launches_per_decode_step": per_step,
@@ -429,50 +479,13 @@ def phase_kernels(torch, dev, bw, peak):
                 del datas
             if bits not in (8, 5):
                 continue
-            # times at the decode shape (M = max_batch), weights cold.
-            # ms, plain_ms, library_ms: eager loops timed by CUDA events (an
-            # eager call costs its host time, host_ms, where that exceeds its
-            # device time); device_ms, library_device_ms: the same calls
-            # replayed from a CUDA graph, i.e. device time without the host
-            wbytes = qt.data.numel() * qt.data.element_size()
-            datas = _copies(qt.data, wbytes)
-            scale = qt.scale.reshape(-1)
-            x = torch.randn(DECODE_M, K, generator=gen, device=dev).to(bf16)
-            sub = psi.QuantizedTensor
-            kern = lambda i, x=x: ops.psi_matmul_2d(
-                x, sub(datas[i], scale, qt.fmt, qt.packed))
-            t_k = _median_ms(torch, kern, len(datas))
-            n_graph = max(20, len(datas))   # every copy once: cold
-            t_dev = _graph_ms(torch, kern, len(datas), iters=n_graph)
-            t_host = _host_ms(torch, kern, len(datas))
-            if bits == 8:
-                pl = lambda i: ref.psi_matmul_codes_ref(x, datas[i], scale)
-            else:
-                pl = lambda i: ref.psi_matmul_packed_ref(x, datas[i], scale,
-                                                         bits)
-            t_p = _median_ms(torch, pl, len(datas), iters=3, reps=3)
-            wdq = qt.dequantize(bf16)
-            libs = _copies(wdq, wdq.numel() * 2)
-            lib = lambda i: torch.matmul(x, libs[i])
-            t_l = _median_ms(torch, lib, len(libs))
-            t_l_dev = _graph_ms(torch, lib, len(libs),
-                                iters=max(20, len(libs)))
-            del libs, wdq
-            nbytes = (wbytes + 4 * N + 2 * DECODE_M * K + 2 * DECODE_M * N)
-            flops = 2.0 * DECODE_M * K * N
-            bound = max(nbytes / bw, flops / peak) * 1e3
-            row[f"psi{bits}_decode"] = {
-                "M": DECODE_M, "ms": t_k, "device_ms": t_dev,
-                "host_ms": t_host, "plain_ms": t_p, "library_ms": t_l,
-                "library_device_ms": t_l_dev, "bound_ms": bound,
-                "bytes": nbytes, "roofline_share": bound / t_k,
-                "device_roofline_share": bound / t_dev}
+            t, kern, datas = _decode_times(torch, qt, gen, dev, bw, peak)
+            row[f"psi{bits}_decode"] = t
             a = agg[key]
-            for f, t in (("ms", t_k), ("device_ms", t_dev),
-                         ("host_ms", t_host), ("plain_ms", t_p),
-                         ("library_ms", t_l), ("library_device_ms", t_l_dev),
-                         ("bytes", nbytes), ("flops", flops)):
-                a[f] += per_step * t
+            for f in ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+                      "library_device_ms", "bytes", "flops"):
+                a[f] += per_step * t[f]
+            n_graph = max(20, len(datas))   # every copy once: cold
             # a verify's rows (max_batch x k), weights cold
             xv = torch.randn(DECODE_M * SPEC_K, K, generator=gen,
                              device=dev).to(bf16)
@@ -493,6 +506,8 @@ def phase_kernels(torch, dev, bw, peak):
         del w
         torch.cuda.empty_cache()
 
+    _arch_gemm_rows(torch, dev, bw, peak, gen, max_err)
+
     replaces = {"psi_matmul_codes": "src/repro/kernels/psi_matmul.py:153",
                 "psi_matmul_packed": "src/repro/kernels/psi_matmul.py:197"}
     for key, bits in (("psi_matmul_codes", 8), ("psi_matmul_packed", 5)):
@@ -510,9 +525,10 @@ def phase_kernels(torch, dev, bw, peak):
             "device_ms": a["device_ms"], "host_ms": a["host_ms"],
             "library_device_ms": a["library_device_ms"],
             "device_roofline_share": bound / a["device_ms"],
-            "scope": f"one full-width decode step at psi{bits}: 253 "
-                     f"launches at M={DECODE_M}, weights cold; ms, plain_ms "
-                     f"and library_ms are eager loops (host cost included), "
+            "scope": f"one full-width {MAIN_ARCH} decode step at "
+                     f"psi{bits}: {per_fwd} launches at M={DECODE_M}, "
+                     f"weights cold; ms, plain_ms and library_ms are eager "
+                     f"loops (host cost included), "
                      f"device_ms and library_device_ms CUDA-graph replays",
             "bytes": a["bytes"]}
 
@@ -644,13 +660,22 @@ def phase_kernels(torch, dev, bw, peak):
             for qdt, pool in types:
                 worst = max(worst, held(split_case(
                     G * 1000 + D, 64, G, 1 if G == 48 else 2, D, qdt, pool)))
+    # the other dense configs' head layouts (phi3 40/10, granite 48/1,
+    # chatglm3 32/2; D 128) over split tables
+    arch_heads = _arch_heads()
+    for hq, hkv in arch_heads:
+        for n_bt in (64, 160):
+            for qdt, pool in types:
+                worst = max(worst, held(split_case(
+                    hq * 100 + n_bt, n_bt, hq // hkv, hkv, 128, qdt, pool)))
     max_err["paged_attention"] = max(max_err["paged_attention"], worst)
     emit({"phase": "kernel_paged_attention_split", "ok": True,
           "max_abs_err": worst,
           "cases": "n_bt 64/160 at 32/8/128 (pos on, one short of, inside "
                    "the first split; all -1 slot; last split only), and "
                    "G in 1,2,4,6,8,16,48 x D in 16,64,128,256 at n_bt 64; "
-                   "q/pool bf16/bf16, bf16/int8, f32/f32, f32/int8",
+                   f"Hq/Hkv {arch_heads} at D 128, n_bt 64/160; q/pool "
+                   "bf16/bf16, bf16/int8, f32/f32, f32/int8",
           "tolerance": "as kernel_paged_attention"})
 
     # -- the speculative verify's shape: DECODE_M slots x SPEC_K query rows,
@@ -688,9 +713,11 @@ def phase_kernels(torch, dev, bw, peak):
 
     import torch.nn.functional as F
 
-    def attn_times(B, n_pos, pool):
-        """Decode read of B slots at ``n_pos`` positions each, full width."""
-        hq, hkv, D, bs = 32, 8, 128, 16
+    def attn_times(B, n_pos, pool, hq=32, hkv=8):
+        """Decode read of B slots at ``n_pos`` positions each, full width
+        (qwen3-8b's heads unless ``hq``/``hkv`` say otherwise), held
+        against the plain version, then timed."""
+        D, bs = 128, 16
         n_bt = -(-n_pos // bs)
         N = B * n_bt + B
         g = torch.Generator(device=dev)
@@ -709,6 +736,7 @@ def phase_kernels(torch, dev, bw, peak):
         bt = torch.randperm(B * n_bt, generator=g, device=dev).to(
             torch.int32).reshape(B, n_bt).contiguous()
         pos = torch.full((B,), n_pos - 1, dtype=torch.int32, device=dev)
+        err = held((q, kp, vp, bt, pos, ks, vs))
         # cold: cycle through enough copies of the pools (and of the
         # gathered K/V below) that each call streams from HBM, not L2
         pools = [kp, vp] + ([ks, vs] if ks is not None else [])
@@ -767,7 +795,8 @@ def phase_kernels(torch, dev, bw, peak):
                   + 2 * 2 * q.numel() + 4 * (bt.numel() + B))
         flops = 4.0 * B * hq * D * n_pos
         bound = max(nbytes / bw, flops / peak) * 1e3
-        return {"B": B, "positions": n_pos, "pool": pool, "ms": t_k,
+        return {"Hq": hq, "Hkv": hkv, "B": B, "positions": n_pos,
+                "pool": pool, "max_abs_err": err, "ms": t_k,
                 "warm_ms": t_warm, "host_ms": t_host, "device_ms": t_dev,
                 "chunk": chunk, "n_split": n_split, "plain_ms": t_p,
                 "plain_device_ms": t_p_dev, "library_ms": t_l,
@@ -782,6 +811,13 @@ def phase_kernels(torch, dev, bw, peak):
     for extra in (attn_times(4, 512, "bf16"), attn_times(4, 512, "int8"),
                   attn_times(16, 2048, "bf16"), attn_times(16, 2048, "int8")):
         emit({"phase": "kernel_paged_attention_time", **extra})
+    for arch, (hq, hkv) in zip(ARCHS, arch_heads):
+        for B, n_pos in ((4, 80), (16, 2048)):
+            row = attn_times(B, n_pos, "bf16", hq, hkv)
+            max_err["paged_attention"] = max(max_err["paged_attention"],
+                                             row["max_abs_err"])
+            emit({"phase": "kernel_paged_attention_time", "arch": arch,
+                  **row})
     out["paged_attention"] = {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -802,6 +838,139 @@ def phase_kernels(torch, dev, bw, peak):
     return out
 
 
+def _decode_times(torch, qt, gen, dev, bw, peak, host=True):
+    """Kernel 1 or 2 on the (K, N) weight ``qt`` at the decode shape (M =
+    DECODE_M), weights cold: ms, plain_ms, library_ms (bf16
+    torch.matmul) are eager loops timed by CUDA events (an eager call costs
+    its host time, host_ms, where that exceeds its device time);
+    device_ms, library_device_ms the same calls replayed from a CUDA graph,
+    i.e. device time without the host.  Returns (times, kern, datas):
+    ``kern(i, x)`` runs the kernel on weight copy i."""
+    from repro_torch.core import psi
+    from repro_torch.kernels import ops, ref
+    bf16 = torch.bfloat16
+    K, N = qt.shape
+    bits = qt.fmt.bits
+    wbytes = qt.data.numel() * qt.data.element_size()
+    datas = _copies(qt.data, wbytes)
+    scale = qt.scale.reshape(-1)
+    x = torch.randn(DECODE_M, K, generator=gen, device=dev).to(bf16)
+    kern = lambda i, x=x: ops.psi_matmul_2d(
+        x, psi.QuantizedTensor(datas[i], scale, qt.fmt, qt.packed))
+    t = {"M": DECODE_M, "ms": _median_ms(torch, kern, len(datas))}
+    t["device_ms"] = _graph_ms(torch, kern, len(datas),
+                               iters=max(20, len(datas)))
+    if host:
+        t["host_ms"] = _host_ms(torch, kern, len(datas))
+    if bits == 8:
+        pl = lambda i: ref.psi_matmul_codes_ref(x, datas[i], scale)
+    else:
+        pl = lambda i: ref.psi_matmul_packed_ref(x, datas[i], scale, bits)
+    t["plain_ms"] = _median_ms(torch, pl, len(datas), iters=3, reps=3)
+    wdq = qt.dequantize(bf16)
+    libs = _copies(wdq, wdq.numel() * 2)
+    lib = lambda i: torch.matmul(x, libs[i])
+    t["library_ms"] = _median_ms(torch, lib, len(libs))
+    t["library_device_ms"] = _graph_ms(torch, lib, len(libs),
+                                       iters=max(20, len(libs)))
+    del libs, wdq
+    t["bytes"] = wbytes + 4 * N + 2 * DECODE_M * K + 2 * DECODE_M * N
+    t["flops"] = 2.0 * DECODE_M * K * N
+    t["bound_ms"] = max(t["bytes"] / bw, t["flops"] / peak) * 1e3
+    t["roofline_share"] = t["bound_ms"] / t["ms"]
+    t["device_roofline_share"] = t["bound_ms"] / t["device_ms"]
+    return t, kern, datas
+
+
+def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
+    """Kernels 1 (psi8) and 2 (psi5) at the five weight shapes of each other
+    dense config: held against their plain versions at ARCH_MS rows in bf16
+    (and 4, 16 in f32, the card-vs-CPU serve's rows), then timed alone at
+    M = DECODE_M with the weights cold (eager, graph replay, plain version,
+    bf16 torch.matmul) and at M = 64 (graph replay).  One row per shape,
+    then one per config and width with the sums over a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import psi
+    from repro_torch.kernels import ops, ref
+    bf16 = torch.bfloat16
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        step = {8: dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms",
+                                  "library_device_ms", "bytes", "flops"),
+                                 0.0)}
+        step[5] = dict(step[8])
+        for wl, ((K, N), per_step) in weight_shapes(cfg).items():
+            w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
+            row = {"phase": "kernel_shape_arch", "arch": arch, "weight": wl,
+                   "K": K, "N": N, "launches_per_decode_step": per_step,
+                   "checked_M": f"bf16 {ARCH_MS}, f32 (4, 16)"}
+            for bits in (8, 5):
+                qt = psi.quantize_weights(w, bits, axis=(0,))
+                key = "psi_matmul_codes" if bits == 8 else "psi_matmul_packed"
+                if bits < 8:
+                    qt = qt.pack()
+                    plain = lambda x, q=qt: ref.psi_matmul_packed_ref(
+                        x, q.data, q.scale, 5)
+                else:
+                    plain = lambda x, q=qt: ref.psi_matmul_codes_ref(
+                        x, q.data, q.scale)
+                err, ratio = _gemm_errors(torch, ops, ref, qt, plain,
+                                          ARCH_MS, bf16, gen, dev)
+                check(ratio <= 1.0, f"{key} {arch} {wl} bf16 err {err} over "
+                                    f"one bf16 ulp of the output")
+                err32, ratio = _gemm_errors(torch, ops, ref, qt, plain,
+                                            (4, 16), torch.float32, gen, dev)
+                check(ratio <= 1.0, f"{key} {arch} {wl} f32 err {err32} "
+                                    f"over tolerance")
+                max_err[key] = max(max_err[key], err)
+                t, kern, datas = _decode_times(torch, qt, gen, dev, bw, peak,
+                                               host=False)
+                xp = torch.randn(64, K, generator=gen, device=dev).to(bf16)
+                t["prefill_64_device_ms"] = _graph_ms(
+                    torch, lambda i: kern(i, xp), len(datas), iters=5)
+                del datas, kern
+                if bits == 8:
+                    plan = _codes_plan(K, N)
+                else:
+                    plan = dict(zip(("chunk", "n_split"), _packed_plan(K, N)))
+                row[f"psi{bits}"] = {"max_abs_err": err,
+                                     "f32_max_abs_err": err32, **t,
+                                     "plan": plan}
+                for f in step[bits]:
+                    step[bits][f] += per_step * t[f]
+            emit(row)
+            del w
+            torch.cuda.empty_cache()
+        for bits, a in step.items():
+            bound = max(a["bytes"] / bw, a["flops"] / peak) * 1e3
+            emit({"phase": "kernel_step_arch", "arch": arch,
+                  "kernel": ("psi_matmul_codes" if bits == 8
+                             else "psi_matmul_packed"),
+                  "bits": bits, "launches_per_decode_step":
+                  counts_per_step(cfg)[0], **a, "bound_ms": bound,
+                  "device_roofline_share": bound / a["device_ms"]})
+
+
+def _arch_heads():
+    """(Hq, Hkv) of each config in ARCHS, in order."""
+    from repro_torch.configs import get_config
+    return [(get_config(a).n_heads, get_config(a).n_kv_heads) for a in ARCHS]
+
+
+def _codes_plan(K, N):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import psi_matmul as pm
+    tile, chunk, n_split = pm.codes_split_plan(K, N, _build.sm_count(0))
+    return {"tile": tile, "chunk": chunk, "n_split": n_split,
+            "blocks": -(-N // tile) * n_split}
+
+
+def _packed_plan(K, N):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import psi_matmul as pm
+    return pm.split_plan(K, N, _build.sm_count(0))
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-4: the serving path.
 # ---------------------------------------------------------------------------
@@ -815,24 +984,45 @@ def _serve_args(**kw):
     return argparse.Namespace(**base)
 
 
-def phase_serve(torch, dev, launches, quant):
-    """Server.serve of full-width qwen3-8b (all 36 layers) from ``quant``
-    codes, continuous then static: identical tokens, 253 PSI-matmul
-    launches per forward (kernel 1 at psi8, kernel 2 at psi5) and 36
-    attention launches per decode step, each decode step a replay of the
-    captured horizon-1 graph; then a profiled decode window three ways
-    (eager step, horizon-1 graph, horizon-8 round) and, at psi8, the same
-    trace served at horizon 8 (phase serve_psi8_horizon)."""
+def _free(torch):
+    """Drop the last phase's model: collect the reference cycles that keep
+    its params (and graphs) alive, then return the cached blocks."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
+    """Server.serve of full-width ``arch`` (all its layers) from ``quant``
+    codes, continuous then static: identical tokens, the config's
+    PSI-matmul launches per forward (kernel 1 at psi8, kernel 2 at psi5:
+    253 for qwen3-8b, 281 phi3-medium-14b, 529 granite-34b, 197
+    chatglm3-6b) and one attention launch per layer and decode step, each
+    decode step a replay of the captured horizon-1 graph, no leaked block;
+    then a profiled decode window: for qwen3-8b three ways (eager step,
+    horizon-1 graph, horizon-8 round) and, at psi8, the same trace served
+    at horizon 8 (phase serve_psi8_horizon); for the other configs the
+    eager step and the graph, and one prefill forward of
+    ARCH_PREFILL_ROWS rows.  The other configs serve the psi8 trace (8
+    requests, prompts 64 +- 8, 8-16 new tokens)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    args = (_serve_args() if quant == "psi8" else
-            _serve_args(quant=quant, requests=4, max_new=8, min_new=4))
+    main = arch == MAIN_ARCH
+    if main and quant != "psi8":
+        args = _serve_args(quant=quant, requests=4, max_new=8, min_new=4)
+    else:
+        args = _serve_args(arch=arch, quant=quant)
+    name = f"serve_{quant}" if main else f"serve_{ARCHS[arch][0]}_{quant}"
     key = "psi_matmul_codes" if quant == "psi8" else "psi_matmul_packed"
+    t_phase = time.perf_counter()
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     server, cfg = serve.build_server(args)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    check(cfg.n_layers == 36 and cfg.d_model == 4096, "not full width")
+    check_full(cfg, arch)
+    per_fwd, per_step = counts_per_step(cfg)
     server.warmup(serve.trace_from_args(args, cfg))
     rows, undo = _record_prefill_rows(server.executor)
     ops.reset_launch_counts()                         # the main path starts
@@ -847,24 +1037,29 @@ def phase_serve(torch, dev, launches, quant):
         undo()
     torch.cuda.synchronize()
     got = ops.launch_counts()                         # ... and ends here
-    _check_prefill_rows(rows, quant)
+    _check_prefill_rows(rows, name, PREFILL_MS if main else ARCH_MS)
     (tc, sc, done_c), (ts, ss, _) = runs["continuous"], runs["static"]
-    check(tc == ts, f"{quant}: continuous and static modes emitted "
+    check(tc == ts, f"{name}: continuous and static modes emitted "
                     f"different tokens")
     check(all(len(r.tokens) == r.max_new for r in done_c),
-          f"{quant}: a request did not get its max_new tokens")
+          f"{name}: a request did not get its max_new tokens")
     check(all(0 <= t < cfg.vocab_size for toks in tc.values() for t in toks),
           "token id out of the vocabulary")
     check(sc["decode_compiles"] == ss["decode_compiles"] == 1,
-          f"{quant}: want one captured decode graph, got "
+          f"{name}: want one captured decode graph, got "
           f"{sc['decode_compiles']} / {ss['decode_compiles']}")
+    for st in (sc, ss):
+        check(st["blocks_free_end"] == st["n_blocks"],
+              f"{name}: {st['n_blocks'] - st['blocks_free_end']} blocks "
+              f"leaked")
     steps = sc["decode_steps"] + ss["decode_steps"]
     fwd = sc["prefill_forwards"] + ss["prefill_forwards"]
     want = {"psi_matmul_codes": 0, "psi_matmul_packed": 0,
-            "paged_attention": 36 * steps}
-    want[key] = 253 * (steps + fwd)
-    check(got == want, f"{quant} launch counts {got} != expected {want} "
-                       f"(253 per forward, 36 attention per decode step)")
+            "paged_attention": per_step * steps}
+    want[key] = per_fwd * (steps + fwd)
+    check(got == want, f"{name} launch counts {got} != expected {want} "
+                       f"({per_fwd} per forward, {per_step} attention per "
+                       f"decode step)")
     ex = server.executor
     r0 = done_c[0]
     with torch.inference_mode():
@@ -872,35 +1067,55 @@ def phase_serve(torch, dev, launches, quant):
             ex.params, torch.as_tensor(r0.prompt[None], device=dev))
     check(bool(torch.isfinite(logits).all()) and logits.shape ==
           (1, len(r0.prompt), cfg.vocab_size), "prefill logits not finite")
+    del logits
     launches[key] = launches.get(key, 0) + got[key]
     launches["paged_attention"] = (launches.get("paged_attention", 0)
                                    + got["paged_attention"])
-    # the same params behind a horizon-8 server: its warmup captures the
-    # one 8-step round graph
-    server8 = serve.Server(cfg, ex.params, max_batch=args.max_batch,
-                           max_seq=server.max_seq, eos_id=args.eos_id,
-                           device=dev, decode_horizon=HORIZON)
-    server8.warmup(serve.trace_from_args(args, cfg))
+    server8 = prefill = None
+    if main:
+        # the same params behind a horizon-8 server: its warmup captures
+        # the one 8-step round graph
+        server8 = serve.Server(cfg, ex.params, max_batch=args.max_batch,
+                               max_seq=server.max_seq, eos_id=args.eos_id,
+                               device=dev, decode_horizon=HORIZON)
+        server8.warmup(serve.trace_from_args(args, cfg))
     window = _decode_window(torch, server, server8)
+    if not main:
+        # one prefill forward of ARCH_PREFILL_ROWS rows: a table that
+        # covers them, one slot, no decode graph
+        bs = cfg.cache_block_size
+        nb = -(-(ARCH_PREFILL_ROWS + bs) // bs)
+        pserver = serve.Server(cfg, ex.params, max_batch=1,
+                               max_seq=nb * bs, device=dev, n_blocks=nb)
+        prefill = _prefill_window(torch, pserver, rows=(ARCH_PREFILL_ROWS,))
+        del pserver
     keep = ("tok_per_s", "wall_s", "tokens", "p50_latency_s",
             "p99_latency_s", "p50_ttft_s", "p99_ttft_s", "p50_itl_s",
             "p99_itl_s", "decode_steps", "prefill_forwards",
             "peak_concurrency", "cache_bytes", "block_util_pct",
             "host_syncs", "host_syncs_per_token", "decode_compiles")
-    emit({"phase": f"serve_{quant}_full_width", "layers": cfg.n_layers,
-          "requests": args.requests, "max_batch": args.max_batch,
+    step_bytes = _step_weight_bytes(ex.params)
+    emit({"phase": f"{name}_full_width", "arch": arch,
+          "layers": cfg.n_layers, "requests": args.requests,
+          "max_batch": args.max_batch,
           "prompt_len": f"{args.prompt_len}+-{args.prompt_jitter}",
           "max_new": args.max_new, "init_quantize_s": round(init_s, 3),
           "param_bytes": _param_bytes(ex.params),
+          "step_weight_bytes": step_bytes,
+          "step_bound_ms": step_bytes / card_rates(
+              torch.cuda.get_device_name(0))[0] * 1e3,
           "continuous": {k: sc[k] for k in keep},
           "static": {k: ss[k] for k in keep},
           "tokens_identical": True, "launches": got,
-          "decode_window": window,
-          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
-    if quant == "psi8":
+          "launches_per_forward": per_fwd,
+          "attention_per_decode_step": per_step,
+          "decode_window": window, "prefill_window": prefill,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "phase_wall_s": time.perf_counter() - t_phase})
+    if main and quant == "psi8":
         phase_serve_horizon(torch, server8, args, cfg, tc, launches, keep)
-    del server, server8, ex, logits
-    torch.cuda.empty_cache()
+    del server, server8, ex, runs, done_c
+    _free(torch)
 
 
 def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
@@ -928,10 +1143,12 @@ def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
     rounds = sc["decode_rounds"] + ss["decode_rounds"]
     fwd = sc["prefill_forwards"] + ss["prefill_forwards"]
     check(steps == HORIZON * rounds, "decode steps != horizon x rounds")
-    want = {"psi_matmul_codes": 253 * (steps + fwd), "psi_matmul_packed": 0,
-            "paged_attention": 36 * steps}
+    per_fwd, per_step = counts_per_step(cfg)
+    want = {"psi_matmul_codes": per_fwd * (steps + fwd),
+            "psi_matmul_packed": 0, "paged_attention": per_step * steps}
     check(got == want, f"horizon {HORIZON} launch counts {got} != expected "
-                       f"{want} (253 per forward, 36 attention per step)")
+                       f"{want} ({per_fwd} per forward, {per_step} "
+                       f"attention per step)")
     check(sc["decode_compiles"] == ss["decode_compiles"] == 1
           and server.executor.graph_counts() == {
               "decode": 0, "decode_multi": 1, "draft": 0, "verify": 0},
@@ -976,7 +1193,8 @@ def phase_serve_spec(torch, dev, launches):
     spec_server, cfg = serve.build_server(args)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    check(cfg.n_layers == 36 and cfg.d_model == 4096, "not full width")
+    check_full(cfg, MAIN_ARCH)
+    per_fwd, per_step = counts_per_step(cfg)
     ex = spec_server.executor
     check(spec_server.spec == (SPEC_BITS, SPEC_K)
           and ex.draft_params["layers"][0]["attn"]["wq"].fmt.bits == SPEC_BITS
@@ -1015,12 +1233,13 @@ def phase_serve_spec(torch, dev, launches):
         fwd = sum(out[m][1]["prefill_forwards"] for m in out)
         per = SPEC_K + 1 if label == "spec" else 1
         want = {"psi_matmul_codes": 0,
-                "psi_matmul_packed": 253 * (per * steps + fwd),
-                "paged_attention": 36 * per * steps}
+                "psi_matmul_packed": per_fwd * (per * steps + fwd),
+                "paged_attention": per_step * per * steps}
         check(got == want, f"{label} psi5: launch counts {got} != expected "
                            f"{want} (a {'round' if per > 1 else 'step'} is "
-                           f"{per} decode-shaped passes of 253 matmuls and "
-                           f"36 attention calls; 253 a prefill)")
+                           f"{per} decode-shaped passes of {per_fwd} "
+                           f"matmuls and {per_step} attention calls; "
+                           f"{per_fwd} a prefill)")
         for mode, (done, stats, _) in out.items():
             leaked = stats["n_blocks"] - stats["blocks_free_end"]
             check(not leaked, f"{label} {mode}: {leaked} blocks leaked")
@@ -1118,13 +1337,14 @@ def _record_prefill_rows(ex):
     return rows, undo
 
 
-def _check_prefill_rows(rows, label):
+def _check_prefill_rows(rows, label, checked=PREFILL_MS):
     """The prefill rows a serve ran must be rows phase_kernels checked
-    kernels 1 and 2 at."""
-    off = sorted(set(rows) - set(PREFILL_MS))
+    kernels 1 and 2 at (PREFILL_MS at qwen3-8b's shapes, ARCH_MS at the
+    other configs')."""
+    off = sorted(set(rows) - set(checked))
     check(not off, f"{label}: prefill forwards ran at rows {off}, where "
                    f"the PSI kernels were not checked against their plain "
-                   f"versions (PREFILL_MS)")
+                   f"versions ({sorted(checked)})")
 
 
 def _fill_log(server, serve_mod):
@@ -1368,7 +1588,8 @@ def phase_serve_ctx(torch, dev, launches):
     args = _serve_args(prompt_len=32, prompt_jitter=8, shared_prefix_len=256,
                        max_new=16, min_new=8, prefix_cache="off")
     server_a, cfg = serve.build_server(args)
-    check(cfg.n_layers == 36 and cfg.d_model == 4096, "not full width")
+    check_full(cfg, MAIN_ARCH)
+    per_fwd, per_step = counts_per_step(cfg)
     params = server_a.executor.params
     cfg_on = dataclasses.replace(cfg, prefix_cache=True)
     server_b = serve.Server(cfg_on, params, max_batch=args.max_batch,
@@ -1421,12 +1642,14 @@ def phase_serve_ctx(torch, dev, launches):
               f"{stats.get('prefill_chunks', 0)} != {fwd} / {headless} "
               f"/ {chunks} worked out from the fills")
         steps = stats["decode_steps"]
-        want = {"psi_matmul_codes": 253 * (steps + stats["prefill_forwards"])
+        want = {"psi_matmul_codes": per_fwd * (steps
+                                               + stats["prefill_forwards"])
                 - stats["prefill_forwards_headless"],
-                "psi_matmul_packed": 0, "paged_attention": 36 * steps}
+                "psi_matmul_packed": 0, "paged_attention": per_step * steps}
         check(got == want, f"ctx ({label}): launch counts {got} != expected "
-                           f"{want} (253 per forward, 252 for a chunk "
-                           f"without the lm-head, 36 attention per step)")
+                           f"{want} ({per_fwd} per forward, one fewer for a "
+                           f"chunk without the lm-head, {per_step} "
+                           f"attention per step)")
         check(stats["decode_compiles"] == 1,
               f"ctx ({label}): want one captured decode graph, got "
               f"{stats['decode_compiles']}")
@@ -1581,6 +1804,28 @@ def _window(torch, fn, per_call, calls):
             "device_idle_share": max(0.0, 1.0 - dev_ms / wall_ms)}
 
 
+def _step_weight_bytes(params):
+    """Bytes of the weights one decode step streams: every PSI matmul
+    weight's codes or planes and scales (the embedding is a row gather)."""
+    from repro_torch.core.psi import QuantizedTensor
+    total = 0
+
+    def walk(node, name=""):
+        nonlocal total
+        if isinstance(node, QuantizedTensor):
+            if name != "embed":
+                total += (node.data.numel() * node.data.element_size()
+                          + node.scale.numel() * 4)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v, name)
+    walk(params)
+    return total
+
+
 def _param_bytes(params):
     from repro_torch.core.quantizer import quantized_bytes
     return quantized_bytes(params)
@@ -1640,11 +1885,65 @@ def phase_card_vs_cpu(torch, dev):
           f"suffix prefill tokens {suffix['tokens_suffix']} != full "
           f"prefill tokens {suffix['tokens_full']}")
     spec = _spec_card_vs_cpu(torch, dev, cfg, model)
+    del params, model
+    archs = {arch: _arch_card_vs_cpu(torch, dev, arch) for arch in ARCHS}
     emit({"phase": "card_vs_cpu", "layers": cfg.n_layers, "dtype": "float32",
           "steps": "prefill(16) + 8 decode", "max_abs_err": err,
           "max_abs_logit": amax, "tolerance": tol,
           "argmax_agree": f"{agree}/{len(card)}",
-          "suffix_vs_full": suffix, "speculative": spec, "ok": True})
+          "suffix_vs_full": suffix, "speculative": spec,
+          "archs": archs, "ok": True})
+
+
+def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
+    """A serve of ``arch`` at full width, cut to ``n_layers`` layers,
+    float32 psi8 (random weights, seed 1), on the CPU and on the card: 2
+    requests, 16-token prompts, 6 new tokens each, 2 slots.  Tokens must
+    be identical; on the card exact launch counts and one decode graph;
+    no leaked block on either."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import scheduler, serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime.executor import params_to
+    t0 = time.perf_counter()
+    cfg = get_config(arch, n_layers=n_layers, dtype="float32",
+                     quant_mode="psi8")
+    params = build_model(cfg).init(seed=1, device=dev, bits=8)
+    trace = lambda: scheduler.poisson_trace(
+        2, rate_rps=1e9, prompt_len=16, max_new=6, min_new=6,
+        vocab_size=cfg.vocab_size, seed=2)
+    toks, out = {}, {}
+    for device, p in (("cpu", params_to(params, "cpu")), ("cuda", params)):
+        server = serve.Server(cfg, p, max_batch=2, max_seq=32, device=device)
+        if device == "cuda":
+            server.warmup(trace())
+        ops.reset_launch_counts()
+        done, stats = server.serve(trace(), warmup=False)
+        got = ops.launch_counts()
+        check(stats["blocks_free_end"] == stats["n_blocks"],
+              f"{arch} card vs CPU ({device}): a block leaked")
+        toks[device] = {r.rid: r.tokens for r in done}
+        out[device] = {"decode_steps": stats["decode_steps"],
+                       "prefill_forwards": stats["prefill_forwards"],
+                       "decode_compiles": stats["decode_compiles"]}
+        del server, p
+    per_fwd, per_step = counts_per_step(cfg)
+    want = {"psi_matmul_codes": per_fwd * (stats["decode_steps"]
+                                           + stats["prefill_forwards"]),
+            "psi_matmul_packed": 0,
+            "paged_attention": per_step * stats["decode_steps"]}
+    check(got == want, f"{arch} card vs CPU: card launch counts {got} != "
+                       f"{want}")
+    check(stats["decode_compiles"] == 1,
+          f"{arch} card vs CPU: want one decode graph on the card")
+    check(toks["cuda"] == toks["cpu"],
+          f"{arch} card vs CPU: tokens differ: card {toks['cuda']}, CPU "
+          f"{toks['cpu']}")
+    del params
+    _free(torch)
+    return {"layers": n_layers, "tokens": "identical", "runs": out,
+            "launches": got, "wall_s": time.perf_counter() - t0}
 
 
 def _spec_card_vs_cpu(torch, dev, cfg, model):

@@ -13,7 +13,9 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense (the only family ported so far)
+    family: str                     # dense (the only family ported so far:
+                                    # qwen3-8b, phi3-medium-14b, granite-34b,
+                                    # chatglm3-6b)
     n_layers: int
     d_model: int
     n_heads: int
@@ -24,11 +26,14 @@ class ModelConfig:
 
     # --- attention ---
     attn_type: str = "full"         # full (a block table cannot hold a ring)
-    rope: str = "rope"              # rope (plain NeoX rotate-half)
+    rope: str = "rope"              # rope (plain NeoX rotate-half) | rope2d
+                                    # (rotate-half on the first half of the
+                                    # head dims, the rest passed through)
     rope_theta: float = 10_000.0
     qk_norm: bool = False
     norm: str = "rmsnorm"
-    act: str = "swiglu"
+    act: str = "swiglu"             # swiglu | geglu (gated, 3 matrices) |
+                                    # gelu (w_down(gelu(w_up x)), 2 matrices)
 
     # --- numerics / technique ---
     norm_eps: float = 1e-6

@@ -1,4 +1,5 @@
-"""Shared building blocks: RMSNorm, qk-norm, RoPE and the SwiGLU MLP.
+"""Shared building blocks: RMSNorm, qk-norm, RoPE (plain and 2-D) and the
+MLPs (gated SwiGLU / GeGLU, 2-matrix GELU).
 
 Plain functions over explicit parameter dicts; every matmul routes through
 :func:`repro_torch.quant.linear` so PSI weights take the kernel path.
@@ -32,23 +33,48 @@ def _rope_freqs(dim, theta, device):
                                          device=device) / dim))
 
 
-def apply_rope(x, positions, cfg):
-    """x (B, S, H, D); positions (B, S) int -> full-dim NeoX rotate-half."""
-    if cfg.rope != "rope":
-        raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet")
-    D = x.shape[-1]
-    freqs = _rope_freqs(D, cfg.rope_theta, x.device)
-    ang = positions[..., None].to(torch.float32) * freqs       # (B, S, D/2)
-    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
-    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
-    x1, x2 = x[..., :D // 2], x[..., D // 2:]
+def _rotate(x, cos, sin):
+    """NeoX rotate-half over x's last dim (cos, sin cover half of it)."""
+    h = x.shape[-1] // 2
+    x1, x2 = x[..., :h], x[..., h:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def apply_rope(x, positions, cfg):
+    """x (B, S, H, D); positions (B, S) int.
+
+    * "rope":   full-dim NeoX rotate-half.
+    * "rope2d": the ChatGLM scheme as the JAX package writes it — rotate-half
+      over the first D/2 head dims with the frequencies of a D/2-dim RoPE,
+      the second half passed through unchanged.
+    """
+    if cfg.rope not in ("rope", "rope2d"):
+        raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet")
+    D = x.shape[-1]
+    rot = D if cfg.rope == "rope" else D // 2
+    freqs = _rope_freqs(rot, cfg.rope_theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs     # (B, S, rot/2)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    if rot == D:
+        return _rotate(x, cos, sin)
+    return torch.cat([_rotate(x[..., :rot], cos, sin), x[..., rot:]], dim=-1)
+
+
+def _gelu(x):
+    # jax.nn.gelu's default is the tanh form; torch's default is exact erf
+    return F.gelu(x, approximate="tanh")
+
+
 def apply_mlp(p, x, cfg):
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act {cfg.act!r} is not ported yet")
+    """swiglu / geglu: w_down(act(w_gate x) * w_up x); gelu: the 2-matrix
+    w_down(gelu(w_up x)), no gate."""
     qm = cfg.quant_mode
-    g = linear(p["w_gate"], x, qm)
-    u = linear(p["w_up"], x, qm)
-    return linear(p["w_down"], F.silu(g) * u, qm)
+    if cfg.act in ("swiglu", "geglu"):
+        g = linear(p["w_gate"], x, qm)
+        u = linear(p["w_up"], x, qm)
+        act = F.silu(g) if cfg.act == "swiglu" else _gelu(g)
+        return linear(p["w_down"], act * u, qm)
+    if cfg.act != "gelu":
+        raise NotImplementedError(f"act {cfg.act!r} is not ported yet")
+    return linear(p["w_down"], _gelu(linear(p["w_up"], x, qm)), qm)

@@ -71,9 +71,10 @@ class Model:
             if cfg.qk_norm:
                 specs += [(f"{pre}/attn/q_norm_scale", (hd,), None),
                           (f"{pre}/attn/k_norm_scale", (hd,), None)]
+            specs.append((f"{pre}/norm2/scale", (d,), None))
+            if cfg.act != "gelu":                     # gated: 3 matrices
+                specs.append((f"{pre}/mlp/w_gate", (d, ff), d ** -0.5))
             specs += [
-                (f"{pre}/norm2/scale", (d,), None),
-                (f"{pre}/mlp/w_gate", (d, ff), d ** -0.5),
                 (f"{pre}/mlp/w_up", (d, ff), d ** -0.5),
                 (f"{pre}/mlp/w_down", (ff, d), ff ** -0.5),
             ]

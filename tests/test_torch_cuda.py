@@ -26,6 +26,12 @@ SHAPES = [(1, 64, 32), (3, 40, 36), (5, 40, 37), (2, 64, 33),
           (7, 72, 100), (16, 64, 256), (4, 4096, 1024)]
 
 
+def _matmuls_per_forward(cfg):
+    """PSI-matmul launches of one forward: wq, wk, wv, wo and the MLP's
+    matrices (3 gated, 2 for the GELU MLP) per layer, plus the lm-head."""
+    return (4 + (2 if cfg.act == "gelu" else 3)) * cfg.n_layers + 1
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -367,12 +373,16 @@ def test_psi_matmul_codes_batch_invariant(cuda, K, N):
 # ---------------------------------------------------------------------------
 # The decode step and the horizon-M round as CUDA graphs.
 # ---------------------------------------------------------------------------
-def _graph_executor(dtype, horizon):
-    """A reduced qwen3-8b psi8 executor on the card with two prefilled
-    slots and a live block table: (executor, cache, table, inputs)."""
+def _graph_executor(dtype, horizon, arch=None):
+    """A psi8 executor on the card with two prefilled slots and a live
+    block table: (executor, cache, table, inputs).  The reduced qwen3-8b,
+    or ``arch`` at full width cut to 2 layers."""
     from repro_torch.runtime import Executor
-    cfg = reduced_config(get_config("qwen3-8b"), quant_mode="psi8",
-                         dtype=dtype)
+    if arch is None:
+        cfg = reduced_config(get_config("qwen3-8b"), quant_mode="psi8",
+                             dtype=dtype)
+    else:
+        cfg = get_config(arch, n_layers=2, quant_mode="psi8", dtype=dtype)
     params = build_model(cfg).init(seed=0, device="cuda", bits=8)
     ex = Executor(cfg, params, max_batch=3, max_seq=64, device="cuda",
                   decode_horizon=horizon)
@@ -427,9 +437,15 @@ def test_decode_graph_replay_equals_eager_step(cuda, dtype):
     a copy of the pool: tokens and pools bit for bit, and the launches
     each replay adds are one step's (7 * n_layers + 1 matmuls, n_layers
     attention reads; 253 / 36 at 36 layers)."""
-    ex, cache, bt, inp = _graph_executor(dtype, 1)
+    _graph_vs_eager_steps(*_graph_executor(dtype, 1))
+
+
+def _graph_vs_eager_steps(ex, cache, bt, inp):
+    """Two horizon-1 graph replays against two eager decode_steps on a copy
+    of the pool (see test_decode_graph_replay_equals_eager_step)."""
     ref_cache = _pool_copy(cache)
     L = ex.model.cfg.n_layers
+    per = _matmuls_per_forward(ex.model.cfg)
     for step in range(2):
         with torch.inference_mode():
             logits, _ = ex.model.decode_step(ex.params, _eager_batch(inp, bt),
@@ -442,7 +458,7 @@ def test_decode_graph_replay_equals_eager_step(cuda, dtype):
         assert torch.equal(got, want), step
         if step:                     # the first call also ran the warm step
             assert after["psi_matmul_codes"] - before["psi_matmul_codes"] \
-                == 7 * L + 1
+                == per
             assert after["paged_attention"] - before["paged_attention"] == L
         inp["token"] = got.cpu().numpy()[:, None]
         inp["pos"] = inp["pos"] + 1
@@ -878,3 +894,117 @@ def test_spec_serve_never_hands_a_cuda_tensor_to_a_plain_version(
                                                      "verify": 1,
                                                      "decode": 0}
     assert stats["blocks_free_end"] == stats["n_blocks"]
+
+
+# ---------------------------------------------------------------------------
+# The other dense configs (phi3-medium-14b, granite-34b, chatglm3-6b): the
+# kernels at their full-width weight shapes and head layouts, the decode
+# graph over their full-width layers, and a reduced serve against the CPU.
+# ---------------------------------------------------------------------------
+ARCHS = ["phi3-medium-14b", "granite-34b", "chatglm3-6b"]
+# (K, N) of wq/wo, wk/wv, w_gate/w_up (granite: w_up), w_down, lm_head;
+# chatglm3's wq/wo (4096, 4096) is qwen3-8b's, in QWEN_KN above
+ARCH_KN = [(5120, 5120), (5120, 1280), (5120, 17920), (17920, 5120),
+           (5120, 100352),
+           (6144, 6144), (6144, 128), (6144, 24576), (24576, 6144),
+           (6144, 49152),
+           (4096, 256), (4096, 13696), (13696, 4096), (4096, 65024)]
+# (Hq, Hkv) at D 128: phi3 (G 4), granite (MQA, G 48), chatglm3 (G 16)
+ARCH_HEADS = [(40, 10), (48, 1), (32, 2)]
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 64])
+@pytest.mark.parametrize("K,N", ARCH_KN)
+def test_psi_matmul_codes_arch_shapes_tight(cuda, K, N, M):
+    _check_tight(cuda, K, N, 8, M)
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 64])
+@pytest.mark.parametrize("bits", [3, 5])
+@pytest.mark.parametrize("K,N", ARCH_KN)
+def test_psi_matmul_packed_arch_shapes_tight(cuda, K, N, bits, M):
+    _check_tight(cuda, K, N, bits, M)
+
+
+@pytest.mark.parametrize("bits", [8, 5])
+@pytest.mark.parametrize("K,N", ARCH_KN)
+def test_psi_matmul_arch_shapes_batch_invariant(cuda, K, N, bits):
+    _check_batch_invariant(K, N, bits)
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+@pytest.mark.parametrize("hq,hkv", ARCH_HEADS)
+def test_paged_attention_arch_heads_serve_table(cuda, hq, hkv, mode):
+    """Each head layout at the serve's table (4 slots, 7 entries: one
+    split), against the plain version as test_paged_attention_matches_plain
+    holds it."""
+    for seed in range(2):
+        case = _case(seed, 4, 7, mode, hq, hkv, 128, 16)
+        want = pa.paged_attention_ref(*case)
+        got = ops.paged_decode_attention(
+            *(None if t is None else t.to(cuda) for t in case)).cpu()
+        bt, pos = case[3], case[4]
+        j = torch.arange(bt.shape[1]) * 16
+        rows = ((bt >= 0) & (j[None] <= pos[:, None])).any(dim=1)
+        torch.testing.assert_close(got[rows], want[rows], rtol=1e-4,
+                                   atol=1e-4)
+        assert bool((got[~rows] == 0).all())
+
+
+@pytest.mark.parametrize("q_mul", [1.0, 4.0])
+@pytest.mark.parametrize("n_bt", [64, 160])
+@pytest.mark.parametrize("hq,hkv", ARCH_HEADS)
+def test_paged_attention_arch_heads_bf16_split(cuda, hq, hkv, n_bt, q_mul):
+    """bf16 q and pool at each head layout over tables the kernel splits:
+    the per-element check of the split path, then the tight bound of
+    test_paged_attention_bf16_tight against the plain version in f32."""
+    G = hq // hkv
+    case = _split_case(hq * 100 + n_bt, n_bt, G, hkv, 128, "bf16", cuda,
+                       q_mul=q_mul)
+    _check_split(case)
+    q, kp, vp, bt, pos, _, _ = case
+    got = ops.paged_decode_attention(*case).float()
+    q32, k32, v32 = (t.float() for t in (q, kp, vp))
+    want = pa.paged_attention_ref(q32, k32, v32, bt, pos)
+    a = pa.paged_attention_ref(q32, k32, v32.abs(), bt, pos)
+    j = torch.arange(bt.shape[1], device=bt.device) * 16
+    rows = ((bt >= 0) & (j[None] <= pos[:, None])).any(dim=1)
+    d = (got - want)[rows].abs()
+    tol = 2.0 ** -7 * (want[rows].abs() + a[rows])
+    assert bool((d <= tol).all()), float((d - tol).max())
+
+
+@pytest.mark.parametrize("arch", ["granite-34b", "chatglm3-6b"])
+def test_arch_decode_graph_replay_equals_eager_step(cuda, arch):
+    """The horizon-1 graph of a full-width 2-layer model (granite: one kv
+    head and 48 query heads on it, the GELU MLP; chatglm3: 2-D RoPE)
+    against eager decode_steps, bit for bit at f32, with one step's
+    launches per replay."""
+    _graph_vs_eager_steps(*_graph_executor("float32", 1, arch))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_arch_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced arch at psi8 (float32): the same params and trace give
+    the same greedy tokens on the card and the CPU, with exact launch
+    counts on the card."""
+    cfg = reduced_config(get_config(arch), quant_mode="psi8")
+    params = build_model(cfg).init(seed=0, device="cpu", bits=8)
+    trace = lambda: scheduler.poisson_trace(
+        4, rate_rps=1e9, prompt_len=12, max_new=8, vocab_size=256, seed=3,
+        prompt_jitter=4)
+    done = {}
+    for dev in ("cpu", "cuda"):
+        server = serve.Server(cfg, params, max_batch=2, max_seq=64,
+                              device=dev)
+        server.warmup(trace())
+        ops.reset_launch_counts()
+        reqs, stats = server.serve(trace(), warmup=False)
+        done[dev] = {r.rid: r.tokens for r in reqs}
+        counts = ops.launch_counts()
+    assert done["cuda"] == done["cpu"]
+    assert counts == {
+        "psi_matmul_codes": _matmuls_per_forward(cfg) * (
+            stats["decode_steps"] + stats["prefill_forwards"]),
+        "psi_matmul_packed": 0,
+        "paged_attention": cfg.n_layers * stats["decode_steps"]}
