@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
 (sm_90a), holds each against its plain PyTorch version on the card, serves
-full-width qwen3-8b, phi3-medium-14b, granite-34b and chatglm3-6b from PSI
-codes through them, and compares the card with the CPU.  Phases, each
+full-width qwen3-8b (on the paged pool and on the dense slab),
+phi3-medium-14b, granite-34b and chatglm3-6b from PSI codes through them,
+and compares the card with the CPU.  Phases, each
 printing one JSON line; any failure exits non-zero before the result line:
 
   1. card and build    — nvidia-smi name and power limit, kernel build time;
@@ -25,14 +26,27 @@ printing one JSON line; any failure exits non-zero before the result line:
   3. serve psi8        — Server.serve of qwen3-8b, all 36 layers, in
                          continuous and static modes: identical tokens, and
                          253 PSI-matmul (kernel 1) + 36 attention launches
-                         per decode step, each step a replay of the captured
-                         decode graph; a profiled decode window three ways:
-                         the eager step, the horizon-1 graph and a horizon-8
-                         round graph over 8;
+                         per decode step and 253 per prefill forward (one
+                         forward per admission event: a burst of admissions
+                         is one forward), each step a replay of the
+                         captured decode graph; a profiled decode window
+                         three ways: the eager step, the horizon-1 graph
+                         and a horizon-8 round graph over 8; a burst
+                         prefill of four 64-80-token prompts against the
+                         same four alone (rows bit-identical, both timed);
   3b. serve psi8 at horizon 8 (serve_psi8_horizon) — the same trace in
                          rounds of 8 steps: tokens identical to horizon 1,
                          the same launch counts per step under replay, one
                          captured round graph;
+  3d. dense layout (serve_psi8_dense) — the same trace and params on
+                         --cache-layout dense (a 112-position slab a slot,
+                         plain reads), continuous and static at horizon 1
+                         and continuous at horizon 8: tokens identical
+                         across the three and to 3's or diverging only
+                         under the token rule of 3c; 253 PSI launches a
+                         forward and step, no paged-attention launch; one
+                         decode graph and one round graph; a decode window
+                         and the plain read alone at the step's shape;
   3c. context serving (serve_psi8_ctx) — the psi8 model, all 36 layers,
                          serving (a) a shared-prefix trace with the prefix
                          cache off and (b) on, (c) a bursty heavy-tail
@@ -69,9 +83,12 @@ printing one JSON line; any failure exits non-zero before the result line:
                          the card a suffix prefill (the prompt split at a
                          block boundary) against the full prefill, and a
                          speculative serve (--speculative 3:4, QAT
-                         precondition 3) on the card and on the CPU, and a
-                         2-layer float32 serve of each other config, tokens
-                         identical on the card and the CPU;
+                         precondition 3) on the card and on the CPU, a
+                         2-layer float32 serve of each other config, and a
+                         2-layer float32 qwen3-8b serve on a 16-position
+                         SWA ring (dense; wrapping rings, a burst that
+                         prefills one by one), tokens identical on the
+                         card and the CPU;
   6. summary           — {"kernels": [...]}, the card line, then the result
                          {"ok": true, "device": {...}} as the last line.
 
@@ -100,7 +117,8 @@ ARCHS = {"phi3-medium-14b": ("phi3", "psi8"),
          "chatglm3-6b": ("chatglm3", "psi8")}
 # the rows kernels 1 and 2 are held at for those configs' weights: decode,
 # the 16-row prefill of the card-vs-CPU serve, the serve's bucketed
-# prompts (64 +- 8 -> 64, 80) and the prefill window's 288
+# prompts (64 +- 8 -> 64, 80) and the prefill window's 288 (a burst's
+# B x 64-80 rows are held where a serve runs them: _check_prefill_rows)
 ARCH_MS = (1, 4, 16, 64, 80, 288)
 ARCH_PREFILL_ROWS = 288
 DECODE_M = 4                     # decode rows = max_batch of the serve phase
@@ -1026,18 +1044,24 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     server.warmup(serve.trace_from_args(args, cfg))
     rows, undo = _record_prefill_rows(server.executor)
     ops.reset_launch_counts()                         # the main path starts
-    runs = {}
+    runs, admitted = {}, {}
     try:
         for mode in ("continuous", "static"):
-            done, stats = server.serve(serve.trace_from_args(args, cfg),
-                                       continuous=(mode == "continuous"),
-                                       warmup=False)
+            admitted[mode], undo_admits = _admissions(server)
+            try:
+                done, stats = server.serve(serve.trace_from_args(args, cfg),
+                                           continuous=(mode == "continuous"),
+                                           warmup=False)
+            finally:
+                undo_admits()
             runs[mode] = ({r.rid: r.tokens for r in done}, stats, done)
     finally:
         undo()
     torch.cuda.synchronize()
     got = ops.launch_counts()                         # ... and ends here
-    _check_prefill_rows(rows, name, PREFILL_MS if main else ARCH_MS)
+    held = _check_prefill_rows(torch, rows, name, server.executor.params,
+                               PREFILL_MS if main else ARCH_MS)
+    _check_bursts(name, {m: runs[m][1] for m in runs}, admitted)
     (tc, sc, done_c), (ts, ss, _) = runs["continuous"], runs["static"]
     check(tc == ts, f"{name}: continuous and static modes emitted "
                     f"different tokens")
@@ -1080,6 +1104,8 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
                                device=dev, decode_horizon=HORIZON)
         server8.warmup(serve.trace_from_args(args, cfg))
     window = _decode_window(torch, server, server8)
+    burst = _burst_window(torch, server) if main and quant == "psi8" \
+        else None
     if not main:
         # one prefill forward of ARCH_PREFILL_ROWS rows: a table that
         # covers them, one slot, no decode graph
@@ -1109,13 +1135,211 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
           "tokens_identical": True, "launches": got,
           "launches_per_forward": per_fwd,
           "attention_per_decode_step": per_step,
+          "admissions": admitted, "prefill_rows_held_here": held,
           "decode_window": window, "prefill_window": prefill,
+          "burst_prefill_window": burst,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
           "phase_wall_s": time.perf_counter() - t_phase})
     if main and quant == "psi8":
         phase_serve_horizon(torch, server8, args, cfg, tc, launches, keep)
+        del server8
+        _free(torch)
+        server8 = None
+        phase_serve_dense(torch, dev, server, args, cfg, done_c, launches,
+                          keep, window)
     del server, server8, ex, runs, done_c
     _free(torch)
+
+
+def _check_bursts(name, stats, admitted):
+    """Each admission event of a full-attention serve outside context
+    serving is one prefill forward, whatever its size: the burst rule."""
+    for mode, st in stats.items():
+        check(st["prefill_forwards"] == len(admitted[mode]),
+              f"{name} {mode}: {st['prefill_forwards']} prefill forwards "
+              f"for {len(admitted[mode])} admission events "
+              f"{admitted[mode]}")
+
+
+def _burst_window(torch, server, lens=(64, 72, 66, 80), calls=3):
+    """One burst prefill forward of four prompts (buckets 64, 80, 80, 80)
+    against the same four prefilled alone, one forward each: each row's
+    first token and cache rows bit-identical to its prefill alone, and the
+    wall and device time of both ways (ms per call: the burst's one
+    forward, or all four alone)."""
+    import numpy as np
+    ex = server.executor
+    rng = np.random.default_rng(4)
+    buckets = [server._bucket_len(n) for n in lens]
+    toks = np.zeros((len(lens), max(buckets)), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, server.cfg.vocab_size, size=n)
+    tl = np.asarray(lens, np.int32)
+    first, burst = ex.prefill(toks, tl, row_lens=buckets)
+    for i, sb in enumerate(buckets):
+        alone_first, alone = ex.prefill(toks[i:i + 1, :sb], tl[i:i + 1])
+        check(int(alone_first[0]) == int(first[i]),
+              f"burst row {i}: first token {int(first[i])} != "
+              f"{int(alone_first[0])} alone")
+        for lb, la in zip(burst.kv, alone.kv):
+            for k in la:
+                check(torch.equal(lb[k][i, :sb], la[k][0, :sb]),
+                      f"burst row {i}: cache {k} differs from its prefill "
+                      f"alone")
+    del burst, alone
+
+    def alone_all():
+        for i, sb in enumerate(buckets):
+            ex.prefill(toks[i:i + 1, :sb], tl[i:i + 1])
+    return {"prompts": list(lens), "buckets": buckets,
+            "rows_bit_identical": True,
+            "burst": _window(torch, lambda: ex.prefill(
+                toks, tl, row_lens=buckets), 1, calls),
+            "alone_x4": _window(torch, alone_all, 1, calls)}
+
+
+def phase_serve_dense(torch, dev, paged_server, args, cfg, paged_done,
+                      launches, keep, paged_window):
+    """The psi8 trace of phase_serve (qwen3-8b, all 36 layers, bf16) on
+    the dense layout (--cache-layout dense: one slab of max_seq = 112
+    positions a slot and layer, plain reads, no block table), on the same
+    params: continuous and static at horizon 1, then continuous at
+    horizon 8.  Tokens identical across the three, and identical to phase
+    3's paged tokens or diverging only under the token rule (kernel 3 and
+    the plain read round differently); 253 PSI launches per forward and
+    decode step, none of kernel 3; one decode graph, one round graph; one
+    prefill forward per admission event.  Then the decode window (eager,
+    graph, horizon-8 round) and the plain read alone at the step's shape
+    (CUDA-graph replays over slab copies that stream from HBM)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    dcfg = dataclasses.replace(cfg, cache_layout="dense")
+    params = paged_server.executor.params
+    servers = {h: serve.Server(dcfg, params, max_batch=args.max_batch,
+                               max_seq=paged_server.max_seq,
+                               eos_id=args.eos_id, device=dev,
+                               decode_horizon=h) for h in (1, HORIZON)}
+    ex = servers[1].executor
+    check(not servers[1].paged and ex.max_seq == 112,
+          f"serve_psi8_dense: want a dense server at max_seq 112, got "
+          f"paged={servers[1].paged} max_seq={ex.max_seq}")
+    trace = lambda: serve.trace_from_args(args, cfg)
+    per_fwd, per_step = counts_per_step(cfg)
+    runs, report = {}, {}
+    for horizon, modes in ((1, ("continuous", "static")),
+                           (HORIZON, ("continuous",))):
+        server = servers[horizon]
+        server.warmup(trace())
+        rows, undo_rows = _record_prefill_rows(server.executor)
+        ops.reset_launch_counts()                     # the main path starts
+        out, admitted = {}, {}
+        try:
+            for mode in modes:
+                admitted[mode], undo_admits = _admissions(server)
+                try:
+                    done, stats = server.serve(
+                        trace(), continuous=(mode == "continuous"),
+                        warmup=False)
+                finally:
+                    undo_admits()
+                out[mode] = (done, stats)
+        finally:
+            undo_rows()
+        torch.cuda.synchronize()
+        got = ops.launch_counts()                     # ... and ends here
+        label = f"horizon_{horizon}"
+        report[f"{label}_prefill_rows_held_here"] = _check_prefill_rows(
+            torch, rows, f"serve_psi8_dense {label}", params)
+        _check_bursts(f"serve_psi8_dense {label}",
+                      {m: out[m][1] for m in out}, admitted)
+        steps = sum(st["decode_steps"] for _, st in out.values())
+        fwd = sum(st["prefill_forwards"] for _, st in out.values())
+        want = {"psi_matmul_codes": per_fwd * (steps + fwd),
+                "psi_matmul_packed": 0, "paged_attention": 0}
+        check(got == want, f"serve_psi8_dense {label} launch counts {got} "
+                           f"!= expected {want} ({per_fwd} per forward and "
+                           f"step, no paged attention)")
+        check(server.executor.graph_counts() == {
+            "decode": int(horizon == 1), "decode_multi": int(horizon > 1),
+            "draft": 0, "verify": 0},
+            f"serve_psi8_dense {label}: graphs "
+            f"{server.executor.graph_counts()}")
+        for mode, (done, st) in out.items():
+            check(st["cache_layout"] == "dense" and st["decode_compiles"] == 1
+                  and all(len(r.tokens) == r.max_new for r in done),
+                  f"serve_psi8_dense {label} {mode}: layout "
+                  f"{st['cache_layout']}, {st['decode_compiles']} graphs, "
+                  f"or a request short of its max_new")
+            runs[(horizon, mode)] = done
+            report[f"{label}_{mode}"] = dict(
+                {k: st[k] for k in keep if k in st}, admissions=admitted[mode],
+                **({"decode_rounds": st["decode_rounds"]} if horizon > 1
+                   else {}))
+        for k in got:
+            launches[k] = launches.get(k, 0) + got[k]
+        report[f"{label}_launches"] = got
+    toks = {key: {r.rid: r.tokens for r in done}
+            for key, done in runs.items()}
+    base = toks[(1, "continuous")]
+    check(all(t == base for t in toks.values()),
+          f"serve_psi8_dense: tokens differ across modes and horizons "
+          f"{sorted(k for k, t in toks.items() if t != base)}")
+    rule = _token_rule(torch, (paged_server, servers[1]), paged_done,
+                       runs[(1, "continuous")], ([], []),
+                       "serve_psi8_dense vs paged")
+    window = _decode_window(torch, servers[1], servers[HORIZON])
+    read = _dense_read(torch, dcfg, ex)
+    dense_dev = window["graph"].get("device_ms_per_step")
+    paged_dev = paged_window["graph"].get("device_ms_per_step")
+    emit({"phase": "serve_psi8_dense", "layers": cfg.n_layers,
+          "cache_layout": "dense", "max_seq": ex.max_seq,
+          "slab_bytes": sum(t.numel() * t.element_size()
+                            for layer in ex.init_cache().kv
+                            for t in layer.values()),
+          "runs": report, "tokens_identical_across_runs": True,
+          "tokens_vs_paged": "identical" if not rule else rule,
+          "margin_factor": MARGIN_FACTOR,
+          "decode_window": window, "dense_read": read,
+          "paged_attention_ms_per_step_paged_graph": paged_window[
+              "graph"].get("paged_attn_ms_per_step", "not measured"),
+          "graph_step_device_ms_dense_minus_paged": (
+              dense_dev - paged_dev
+              if isinstance(dense_dev, float) and isinstance(paged_dev, float)
+              else "not measured"),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "phase_wall_s": time.perf_counter() - t_phase})
+    del servers, ex, runs
+
+
+def _dense_read(torch, cfg, ex, n_pos=72):
+    """The dense decode read alone (``attention.sdpa`` over one layer's
+    slab: all slots at position ``n_pos``, the slab's max_seq keys masked
+    by k_pos) at the serve's shape, bf16: device ms a layer from CUDA-graph
+    replays over slab copies that stream from HBM, times the depth for a
+    step, against the bytes bound of reading K and V (each slab entry
+    once) over the card's memory rate."""
+    from repro_torch.models import attention
+    B, C = ex.max_batch, ex.max_seq
+    hq, hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((B, 1, hq, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    kv = torch.randn((2, B, C, hkv, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    k_pos = torch.full((B, C), -1, dtype=torch.int32, device="cuda")
+    k_pos[:, :n_pos + 1] = torch.arange(n_pos + 1, device="cuda")
+    pos = torch.full((B, 1), n_pos, dtype=torch.int32, device="cuda")
+    copies = _copies(kv, kv.numel() * kv.element_size())
+    layer_ms = _graph_ms(torch, lambda i: attention.sdpa(
+        q, copies[i][0], copies[i][1], pos, k_pos, causal=True),
+        len(copies), iters=len(copies))
+    slab = kv.numel() * kv.element_size()
+    bw = card_rates(torch.cuda.get_device_name(0))[0]
+    return {"slots": B, "slab_len": C, "position": n_pos,
+            "device_ms_per_layer": layer_ms,
+            "device_ms_per_step": layer_ms * cfg.n_layers,
+            "bound_ms_per_step": slab * cfg.n_layers / bw * 1e3}
 
 
 def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
@@ -1228,7 +1452,8 @@ def phase_serve_spec(torch, dev, launches):
             rows += got_rows
         torch.cuda.synchronize()
         got = ops.launch_counts()                     # ... and ends here
-        _check_prefill_rows(rows, f"{label} psi5 spec phase")
+        held = _check_prefill_rows(torch, rows, f"{label} psi5 spec phase",
+                                   server.executor.params)
         steps = sum(out[m][1]["decode_steps"] for m in out)
         fwd = sum(out[m][1]["prefill_forwards"] for m in out)
         per = SPEC_K + 1 if label == "spec" else 1
@@ -1261,7 +1486,7 @@ def phase_serve_spec(torch, dev, launches):
                       f"plain {mode}: want one captured decode graph")
         for k in got:
             launches[k] = launches.get(k, 0) + got[k]
-        runs[label] = (out, got)
+        runs[label] = (out, got, held)
     plain_out, spec_out = runs["plain"][0], runs["spec"][0]
     check({r.rid: r.tokens for r in plain_out["continuous"][0]}
           == {r.rid: r.tokens for r in plain_out["static"][0]},
@@ -1274,9 +1499,10 @@ def phase_serve_spec(torch, dev, launches):
             f"spec {mode} vs plain")
     window = _spec_window(torch, spec_server, plain_server)
     report = {}
-    for label, (out, got) in runs.items():
+    for label, (out, got, _) in runs.items():
         report[label] = {m: {k: out[m][1][k] for k in keep} for m in out}
         report[label]["launches"] = got
+        report[label]["prefill_rows_held_here"] = runs[label][2]
     for m, (_, stats, _) in spec_out.items():
         report["spec"][m].update(stats["speculative"])
     emit({"phase": "serve_psi5_spec", "layers": cfg.n_layers,
@@ -1320,39 +1546,92 @@ def _spec_window(torch, spec_server, plain_server, calls=5):
 
 
 def _record_prefill_rows(ex):
-    """Wrap ``ex.prefill_insert`` to record the rows of each prefill
-    forward (the M of all its matmuls, the lm-head's included); returns
-    (rows, undo)."""
+    """Wrap ``ex.prefill`` (which ``prefill_insert`` calls too) to record
+    the rows of each prefill forward, a burst's B x Sb included (the M of
+    all its matmuls, the lm-head's included); returns (rows, undo)."""
     rows = []
-    insert = ex.prefill_insert
+    prefill = ex.prefill
 
     def recorded(tokens, *a, **kw):
-        rows.append(int(tokens.shape[1]))
-        return insert(tokens, *a, **kw)
+        rows.append(int(tokens.shape[0]) * int(tokens.shape[1]))
+        return prefill(tokens, *a, **kw)
 
-    ex.prefill_insert = recorded
+    ex.prefill = recorded
 
     def undo():
-        del ex.prefill_insert
+        del ex.prefill
     return rows, undo
 
 
-def _check_prefill_rows(rows, label, checked=PREFILL_MS):
-    """The prefill rows a serve ran must be rows phase_kernels checked
-    kernels 1 and 2 at (PREFILL_MS at qwen3-8b's shapes, ARCH_MS at the
-    other configs')."""
-    off = sorted(set(rows) - set(checked))
-    check(not off, f"{label}: prefill forwards ran at rows {off}, where "
-                   f"the PSI kernels were not checked against their plain "
-                   f"versions ({sorted(checked)})")
+def _admissions(server):
+    """Wrap ``server._prefill_admits`` to record each admission event's
+    size (the requests one loop iteration admitted: one prefill forward
+    for the burst, unless it falls back to one by one); returns (sizes,
+    undo)."""
+    sizes = []
+    admit = server._prefill_admits
+    depth = [0]
+
+    def logged(cache, admits, *a, **kw):
+        if not depth[0]:
+            sizes.append(len(admits))
+        depth[0] += 1
+        try:
+            return admit(cache, admits, *a, **kw)
+        finally:
+            depth[0] -= 1
+
+    server._prefill_admits = logged
+
+    def undo():
+        del server._prefill_admits
+    return sizes, undo
+
+
+def _check_prefill_rows(torch, rows, label, params, checked=PREFILL_MS):
+    """Every prefill row count a serve ran is one where kernels 1 and 2
+    were held against their plain versions: phase_kernels held them at
+    ``checked`` (PREFILL_MS at qwen3-8b's shapes, ARCH_MS at the other
+    configs'); a burst's B x Sb rows past those (they follow the
+    admissions' timing) are held here on the served weights (layer 0's
+    matrices and the lm-head), bf16, within one bf16 ulp of the output.
+    Returns {rows: max abs err} of the rows held here."""
+    from repro_torch.kernels import ops, ref
+    new = sorted(set(rows) - set(checked))
+    layer = params["layers"][0]
+    leaves = ([layer["attn"][n] for n in ("wq", "wk", "wv", "wo")]
+              + [layer["mlp"][n] for n in sorted(layer["mlp"])]
+              + ([params["lm_head"]] if "lm_head" in params else []))
+    dev = leaves[0].data.device
+    gen = torch.Generator(device=dev).manual_seed(len(rows))
+    held = {}
+    for M in new:
+        worst = 0.0
+        for qt in leaves:
+            if qt.packed:
+                plain = lambda x, q=qt: ref.psi_matmul_packed_ref(
+                    x, q.data, q.scale, q.fmt.bits)
+            else:
+                plain = lambda x, q=qt: ref.psi_matmul_codes_ref(
+                    x, q.data, q.scale)
+            err, ratio = _gemm_errors(torch, ops, ref, qt, plain, (M,),
+                                      torch.bfloat16, gen, dev)
+            check(ratio <= 1.0, f"{label}: a PSI kernel at a prefill's {M} "
+                                f"rows is {err} off its plain version "
+                                f"(over one bf16 ulp of the output)")
+            worst = max(worst, err)
+        held[M] = worst
+    return held
 
 
 def _fill_log(server, serve_mod):
     """Record each fill of ``server`` (rid, pos0, len(full_seq)), each
-    preemption (rid, covered) and, on a speculative server, each round of
-    each active request (rid, its feed position) for the chunk and forward
-    counts that :func:`_fills_expect` works out and for the replays of
-    :func:`_token_rule`; returns (log, undo)."""
+    burst admission (its size; then a whole-prompt fill of each of its
+    requests, "bfill"), each preemption (rid, covered) and, on a
+    speculative server, each round of each active request (rid, its feed
+    position) for the chunk and forward counts that :func:`_fills_expect`
+    works out and for the replays of :func:`_token_rule`; returns (log,
+    undo)."""
     log = []
     bs = server.block_size
     begin = server._begin_fill
@@ -1374,14 +1653,25 @@ def _fill_log(server, serve_mod):
             log.append(("cut", self.running[slot].rid, covered))
             return super().preempt(slot, now, covered=covered)
 
+    admit = server._prefill_admits
+
+    def logged_admits(cache, admits, *a, **kw):
+        if not server._ctx_serving:
+            # one forward for the admission event, whole prompts from 0
+            log.append(("burst", -1, len(admits)))
+            log.extend(("bfill", req.rid, 0, len(req.full_seq))
+                       for _, req in admits)
+        return admit(cache, admits, *a, **kw)
+
     server._begin_fill = logged_begin
     server._spec_round = logged_round
+    server._prefill_admits = logged_admits
     plain = serve_mod.Scheduler
     serve_mod.Scheduler = LoggedScheduler
 
     def undo():
         serve_mod.Scheduler = plain
-        del server._begin_fill, server._spec_round
+        del server._begin_fill, server._spec_round, server._prefill_admits
     return log, undo
 
 
@@ -1391,11 +1681,14 @@ def _fills_expect(log, chunk):
     ceil((L - pos0) / chunk) pieces, the last with the lm-head, unless a
     preemption cut it while chunking (covered < L): then it ran (covered -
     pos0) / chunk pieces, none with the head.  A shorter fill is one
-    forward with the head and no chunk."""
+    forward with the head and no chunk; a burst admission (outside context
+    serving) is one forward for all its requests."""
     fwd = headless = chunks = 0
     open_fill = {}
     for ev in log:
-        if ev[0] == "fill":
+        if ev[0] == "burst":
+            fwd += 1
+        elif ev[0] == "fill":
             _, rid, pos0, L = ev
             open_fill[rid] = (pos0, L)
             if not (chunk and L - pos0 > chunk):
@@ -1427,18 +1720,40 @@ def _replay(torch, server, seq, P, events, last):
     tokens up to ``last``; later ones cannot reach those rows).  Returns
     {absolute row: logits} up to row ``last``; row r predicts the token at
     r + 1.  ``events``: ("fill", pos0, L), ("cut", covered) and ("round",
-    pos) in run order."""
+    pos) in run order.  A dense server's run is replayed on a dense slab
+    (whole-prompt fills and decode steps only: no context serving or
+    speculation there)."""
     from repro_torch.models.kvcache import KVCache
     ex = server.executor
     model, params, dev = ex.model, ex.params, ex.device
     bs, chunk = server.block_size, server.prefill_chunk
-    cache = model.init_cache(1, ex.n_bt * bs, device=dev, n_blocks=ex.n_bt)
-    table = torch.arange(ex.n_bt, dtype=torch.int64, device=dev)
+    if server.paged:
+        cache = model.init_cache(1, ex.n_bt * bs, device=dev,
+                                 n_blocks=ex.n_bt, layout="paged")
+        table = torch.arange(ex.n_bt, dtype=torch.int64, device=dev)
+    else:
+        cache = model.init_cache(1, server.max_seq, device=dev,
+                                 layout="dense")
+        table = None
     x = torch.as_tensor(seq, device=dev)
     rows = {}
 
     def forward(cur, end, record=True):
         """Prefill seq[cur:end] as the server's pieces, over [0, cur)."""
+        if not server.paged:
+            check(cur == 0 and not chunk, "a dense replay has no context")
+            n = server._bucket_len(end)
+            toks = torch.zeros((1, n), dtype=torch.int32, device=dev)
+            toks[0, :end] = x[:end]
+            logits, _ = model.forward(params, toks)
+            _, seq_cache = model.prefill(
+                params, toks, cache_len=server.max_seq,
+                true_lens=torch.tensor([end], device=dev))
+            model.insert_cache(cache, seq_cache, 0)
+            if record:
+                for i in range(end):
+                    rows[i] = logits[0, i]
+            return
         while cur < end:
             rem = end - cur
             final = not (chunk and rem > chunk)
@@ -1497,8 +1812,9 @@ def _replay(torch, server, seq, P, events, last):
                          "pos": torch.tensor([[row]], dtype=torch.int32,
                                              device=dev),
                          "active": torch.ones((1,), dtype=torch.bool,
-                                              device=dev),
-                         "block_table": table[None].to(torch.int32)}
+                                              device=dev)}
+                if table is not None:
+                    batch["block_table"] = table[None].to(torch.int32)
                 logits, _ = model.decode_step(params, batch, cache)
                 rows[row] = logits[0]
                 row += 1
@@ -1631,7 +1947,7 @@ def phase_serve_ctx(torch, dev, launches):
             undo()
         torch.cuda.synchronize()
         got = ops.launch_counts()                     # ... and ends here
-        _check_prefill_rows(rows, f"ctx ({label})")
+        held = _check_prefill_rows(torch, rows, f"ctx ({label})", params)
         fwd, headless, chunks = _fills_expect(log, server.prefill_chunk)
         check((stats["prefill_forwards"],
                stats["prefill_forwards_headless"],
@@ -1666,9 +1982,11 @@ def phase_serve_ctx(torch, dev, launches):
         row = {k: stats.get(k) for k in keep}
         row["prefill_chunks"] = stats.get("prefill_chunks", 0)
         row["prefix_cache"] = stats.get("prefix_cache")
-        row["fills"] = sum(1 for ev in log if ev[0] == "fill")
+        row["fills"] = sum(1 for ev in log if ev[0] in ("fill", "bfill"))
+        row["bursts"] = [ev[2] for ev in log if ev[0] == "burst"]
         row["launches"] = got
         row["prefill_rows"] = sorted(set(rows))
+        row["prefill_rows_held_here"] = held
         runs[label] = (done, stats, row, log)
     sa, sb, sd = runs["a"][1], runs["b"][1], runs["d"][1]
     check(sb["prefix_tokens_reused"] > 0, "ctx (b): no prefix token reused")
@@ -1726,22 +2044,32 @@ def _decode_window(torch, server, multi=None, steps=5):
     step (a round's time over M).  Wall time per step on the host clock
     (synchronized at the end of the window), against device time by kernel
     from a torch.profiler trace of the same window (all slots active at 72
-    positions, full table; a round rebuilt from host arrays each time).
-    Device numbers are "not measured" when the profiler records no device
-    time."""
+    positions: a full table, or a dense slab holding positions 0-71; a
+    round rebuilt from host arrays each time).  Device numbers are "not
+    measured" when the profiler records no device time."""
     import numpy as np
     ex = server.executor
     B = server.max_batch
     dev = ex.device
-    table = np.arange(B * ex.n_bt, dtype=np.int32).reshape(B, ex.n_bt)
     tok = np.arange(B, dtype=np.int32)[:, None]
     pos = np.full((B, 1), 72, np.int32)
     act = np.ones((B,), bool)
-    cache = ex.init_cache()
     batch = {"token": torch.from_numpy(tok).to(dev),
              "pos": torch.from_numpy(pos).to(dev),
-             "active": torch.from_numpy(act).to(dev),
-             "block_table": torch.from_numpy(table).to(dev)}
+             "active": torch.from_numpy(act).to(dev)}
+
+    def slab(executor):
+        cache = executor.init_cache()
+        if not executor.paged:
+            for layer in cache.kv:
+                layer["k_pos"][:, :72] = torch.arange(72, device=dev)
+        return cache
+
+    cache = slab(ex)
+    table = None
+    if ex.paged:
+        table = np.arange(B * ex.n_bt, dtype=np.int32).reshape(B, ex.n_bt)
+        batch["block_table"] = torch.from_numpy(table).to(dev)
 
     def eager():
         with torch.inference_mode():
@@ -1751,7 +2079,7 @@ def _decode_window(torch, server, multi=None, steps=5):
              "graph": (lambda: ex.decode(tok, pos, act, cache, table), 1)}
     if multi is not None:
         mex = multi.executor
-        mcache = mex.init_cache()
+        mcache = slab(mex)
         rem = np.full((B,), 1 << 20, np.int32)
         modes[f"horizon_{mex.decode_horizon}"] = (
             lambda: mex.decode_multi(tok, pos, act, rem, mcache, table),
@@ -1887,12 +2215,85 @@ def phase_card_vs_cpu(torch, dev):
     spec = _spec_card_vs_cpu(torch, dev, cfg, model)
     del params, model
     archs = {arch: _arch_card_vs_cpu(torch, dev, arch) for arch in ARCHS}
+    swa = _swa_card_vs_cpu(torch, dev)
     emit({"phase": "card_vs_cpu", "layers": cfg.n_layers, "dtype": "float32",
           "steps": "prefill(16) + 8 decode", "max_abs_err": err,
           "max_abs_logit": amax, "tolerance": tol,
           "argmax_agree": f"{agree}/{len(card)}",
           "suffix_vs_full": suffix, "speculative": spec,
-          "archs": archs, "ok": True})
+          "archs": archs, "swa_ring": swa, "ok": True})
+
+
+def _swa_card_vs_cpu(torch, dev, n_layers=2, window=16):
+    """qwen3-8b at full width cut to ``n_layers`` layers, float32 psi8
+    (seed 1), under attn_type="swa" with a ``window``-position ring on the
+    dense layout, served on the CPU and on the card, continuous then
+    static: 6 requests arriving at once on 3 slots, first three prompts
+    of 18-23 tokens (past the window: exact lengths that differ, so their
+    burst prefills one by one and each prompt rolls the ring), then three
+    of 10-14 (one bucket of 16: one burst forward), 7-9 new tokens each,
+    so every ring wraps while decoding.  Tokens identical on the card and
+    the CPU; static runs 3 + 1 forwards; on the card exact launch counts
+    (none of kernel 3) and one decode graph."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import scheduler, serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime.executor import params_to
+    t0 = time.perf_counter()
+    cfg = get_config(MAIN_ARCH, n_layers=n_layers, dtype="float32",
+                     quant_mode="psi8", attn_type="swa", window=window)
+    params = build_model(cfg).init(seed=1, device=dev, bits=8)
+    lens = (20, 23, 18, 10, 14, 12)
+
+    def trace():
+        rng = np.random.default_rng(6)
+        return [scheduler.Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, size=n).astype(np.int32),
+            max_new=7 + i % 3) for i, n in enumerate(lens)]
+
+    check(all(n + 7 > window for n in lens), "a ring that never wraps")
+    per_fwd, per_step = counts_per_step(cfg)
+    toks, out = {}, {}
+    for device, p in (("cpu", params_to(params, "cpu")), ("cuda", params)):
+        server = serve.Server(cfg, p, max_batch=3, max_seq=48, device=device)
+        check(not server.paged, "the SWA config resolved to paged")
+        if device == "cuda":
+            server.warmup(trace())
+        for mode in ("continuous", "static"):
+            ops.reset_launch_counts()
+            done, stats = server.serve(trace(),
+                                       continuous=(mode == "continuous"),
+                                       warmup=False)
+            got = ops.launch_counts()
+            toks[(device, mode)] = {r.rid: r.tokens for r in done}
+            out[f"{device}_{mode}"] = {
+                k: stats[k] for k in ("decode_steps", "prefill_forwards",
+                                      "decode_compiles", "cache_bytes")}
+            if device == "cuda":
+                want = {"psi_matmul_codes": per_fwd * (
+                    stats["decode_steps"] + stats["prefill_forwards"]),
+                    "psi_matmul_packed": 0, "paged_attention": 0}
+                check(got == want, f"swa card vs CPU {mode}: card launch "
+                                   f"counts {got} != {want}")
+                check(stats["decode_compiles"] == 1,
+                      f"swa card vs CPU {mode}: want one decode graph")
+            if mode == "static":
+                check(stats["prefill_forwards"] == 4,
+                      f"swa card vs CPU ({device}): static ran "
+                      f"{stats['prefill_forwards']} forwards, want 3 alone "
+                      f"(the pad_safe fallback) + 1 burst")
+        del server, p
+    for mode in ("continuous", "static"):
+        check(toks[("cuda", mode)] == toks[("cpu", mode)],
+              f"swa card vs CPU {mode}: tokens differ: card "
+              f"{toks[('cuda', mode)]}, CPU {toks[('cpu', mode)]}")
+    del params
+    _free(torch)
+    return {"layers": n_layers, "window": window, "prompts": list(lens),
+            "tokens": "identical", "runs": out,
+            "wall_s": time.perf_counter() - t0}
 
 
 def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):

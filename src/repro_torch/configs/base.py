@@ -1,7 +1,7 @@
 """Model configuration for the PyTorch port: the architecture record, the
 registry behind ``--arch`` and the reduced (CPU test) variant.
 
-Only the fields the dense family and the paged serving path read are kept;
+Only the fields the dense family and its serving paths read are kept;
 the field names, defaults and reduced widths are those of the JAX package's
 configuration, so the same names build the same shapes in both packages.
 """
@@ -25,7 +25,9 @@ class ModelConfig:
     head_dim: int = 0               # 0 -> d_model // n_heads
 
     # --- attention ---
-    attn_type: str = "full"         # full (a block table cannot hold a ring)
+    attn_type: str = "full"         # full | swa (sliding window: a ring
+                                    # of `window` positions, dense only)
+    window: int = 0                 # the swa window
     rope: str = "rope"              # rope (plain NeoX rotate-half) | rope2d
                                     # (rotate-half on the first half of the
                                     # head dims, the rest passed through)
@@ -43,7 +45,8 @@ class ModelConfig:
 
     # --- decode cache ---
     kv_quant: str = ""              # "" | "int8"
-    cache_layout: str = "auto"      # auto | paged
+    cache_layout: str = "auto"      # auto | dense (per-slot slabs; the
+                                    # ring for swa) | paged (block pool)
     cache_block_size: int = 16      # positions per paged block
     # shared-prefix block reuse over the paged pool: admissions serve the
     # longest cached block-aligned prompt prefix out of ref-counted blocks
@@ -58,24 +61,32 @@ class ModelConfig:
 
     @property
     def paged_capable(self) -> bool:
+        """True when every decode-cache leaf is full-attention KV, the only
+        state a block pool can hold: an SWA ring wraps past ``max_seq``,
+        which a bounded block table cannot."""
         return self.family == "dense" and self.attn_type == "full"
 
     @property
     def resolved_cache_layout(self) -> str:
-        """The port serves the paged layout only; anything else is refused
-        here rather than served through a path that does not exist."""
-        if self.cache_layout not in ("auto", "paged"):
-            raise ValueError(f"cache_layout {self.cache_layout!r}: the port "
-                             f"serves the paged layout only")
-        if not self.paged_capable:
-            raise ValueError(f"{self.name or self.family}: the port serves "
-                             f"dense full-attention stacks only")
-        return "paged"
+        """``cache_layout`` with "auto" resolved: paged where the stack can
+        be paged, dense otherwise."""
+        if self.cache_layout == "auto":
+            return "paged" if self.paged_capable else "dense"
+        if self.cache_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown cache_layout {self.cache_layout!r} "
+                             f"(want auto | dense | paged)")
+        if self.cache_layout == "paged" and not self.paged_capable:
+            raise ValueError(
+                f"{self.name or self.family}: cache_layout=paged requires a "
+                f"pure full-attention stack (family {self.family!r}, "
+                f"attn_type {self.attn_type!r} must use dense)")
+        return self.cache_layout
 
     @property
     def prefix_cache_enabled(self) -> bool:
         """``prefix_cache`` validated: block reuse shares paged pool blocks
-        and replays absolute RoPE positions from a scalar ``pos0``."""
+        (a dense slab has none to share) and replays absolute RoPE
+        positions from a scalar ``pos0``."""
         if not self.prefix_cache:
             return False
         if self.resolved_cache_layout != "paged":
@@ -109,7 +120,7 @@ def get_config(name: str, **overrides) -> ModelConfig:
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Tiny same-family config for CPU tests: the JAX package's reduced
     widths (float32, 2 layers, d_model 64, 4 q heads, <= 2 kv heads,
-    head_dim 16, d_ff 128, vocab 256)."""
+    head_dim 16, d_ff 128, vocab 256, a window of at most 32)."""
     small = dict(
         dtype="float32",
         n_layers=2,
@@ -119,6 +130,7 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=256,
+        window=min(cfg.window, 32) if cfg.window else 0,
     )
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

@@ -1,13 +1,17 @@
 """Continuous-batching serving engine over PSI-quantized weights (port).
 
-The engine owns ``max_batch`` decode slots over the paged KV pool: a FIFO
-scheduler admits arriving requests into free slots mid-decode (gated on a
-worst-case block reservation), prefills each admission at a bucketed
-length and scatters its KV into freshly allocated pool blocks, runs one
-masked decode step over all slots per iteration, and retires sequences at
-EOS or their own ``max_new`` — freeing slot and blocks for the next
-arrival.  ``static`` mode barriers admission until every slot drains (the
-batch-synchronous baseline).  Greedy tokens do not depend on the mode.
+The engine owns ``max_batch`` decode slots over the paged KV pool (or,
+with ``--cache-layout dense`` and for SWA configs, a dense per-slot slab:
+a ring of ``window`` positions for SWA): a FIFO scheduler admits arriving
+requests into free slots mid-decode (paged: gated on a worst-case block
+reservation), prefills the admissions of one iteration in one forward at
+bucketed lengths (a burst) and writes each row's KV into its slot
+(paged: freshly allocated pool blocks), runs one masked decode step over
+all slots per iteration, and retires sequences at EOS or their own
+``max_new`` — freeing slot and blocks for the next arrival.  ``static``
+mode barriers admission until every slot drains (the batch-synchronous
+baseline).  Greedy tokens do not depend on the mode: a burst row's first
+token and KV are bit-identical to its prefill alone.
 
 With ``--decode-horizon M`` (M > 1) each iteration runs a round of M
 steps with EOS and budget retirement on the device and one host sync per
@@ -15,9 +19,9 @@ round; the host replays the same recurrence (``scheduler.replay_round``)
 to recover the streams, which equal horizon 1's.  Round N+1 is dispatched
 from the device carry before the host replays round N.
 
-Context serving — ``--prefix-cache on``, ``--prefill-chunk N`` and
-``--slo SPEC``, alone or together — sends every admission through one
-per-request suffix prefill that starts at a block-aligned offset ``pos0``
+Context serving (paged only) — ``--prefix-cache on``, ``--prefill-chunk
+N`` and ``--slo SPEC``, alone or together — sends every admission through
+one per-request suffix prefill that starts at a block-aligned offset ``pos0``
 and reads the KV of ``[0, pos0)`` out of the pool:
 
 * the prefix cache serves the longest cached block-aligned prefix of a
@@ -38,13 +42,15 @@ round: K greedy draft steps with a psiBITS view of the serving codes (no
 second checkpoint), then one K-token verify at the serving width; each
 slot emits its longest agreed draft prefix plus the target's own next
 token, so tokens equal plain decode's.  It composes with the prefix
-cache, chunked prefill and SLO scheduling, not with a horizon M > 1.
+cache, chunked prefill and SLO scheduling, not with a horizon M > 1 or
+the dense layout.
 
 The Server is the host half; device work goes through
 ``repro_torch.runtime.Executor``, which runs every projection through the
-PSI matmul kernel and every decode attention read through the paged
+PSI matmul kernel and every paged decode attention read through the paged
 attention kernel (CUDA on the card, where each decode step or round is a
-CUDA-graph replay; plain PyTorch, eagerly, with ``--device cpu``).
+CUDA-graph replay; plain PyTorch, eagerly, with ``--device cpu``); the
+dense read is plain PyTorch in both places.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
       --reduced --quant psi8 --mode both --device cpu --decode-horizon 4
@@ -54,6 +60,8 @@ CUDA-graph replay; plain PyTorch, eagerly, with ``--device cpu``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
       --reduced --quant psi8 --mode both --device cpu --speculative 3:4 \\
       --qat-precondition 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
+      --reduced --quant psi8 --mode both --device cpu --cache-layout dense
 """
 from __future__ import annotations
 
@@ -76,7 +84,7 @@ from repro_torch.launch.scheduler import (BlockAllocator, Request, Scheduler,
                                           poisson_trace, replay_round,
                                           summarize)
 from repro_torch.launch.slo import parse_slo_spec, slo_report
-from repro_torch.models import build_model, kvcache as kvc
+from repro_torch.models import attention, build_model, kvcache as kvc
 from repro_torch.runtime.executor import Executor
 
 # prompt lengths round up to a multiple of this before prefill; the pad
@@ -106,7 +114,7 @@ class Server:
     """Slot-based serving engine: continuous or batch-synchronous
     scheduling (FIFO, or an SLO policy with preemption) over one masked
     decode step, a round of M steps, or a self-speculative round, on the
-    paged layout."""
+    paged or the dense layout."""
 
     def __init__(self, cfg, params, max_batch: int = 4, max_seq: int = 256,
                  eos_id: int = -1, device=None,
@@ -114,6 +122,7 @@ class Server:
                  prefill_chunk: int = 0, slo=None,
                  speculative: Optional[Tuple[int, int]] = None):
         self.cfg = cfg
+        self.paged = cfg.resolved_cache_layout == kvc.PAGED
         # decode in rounds of M steps with retirement on the device and one
         # host sync per round; 1 = one step at a time
         self.decode_horizon = int(decode_horizon)
@@ -129,10 +138,16 @@ class Server:
         self.spec_k = self.spec[1] if self.spec else 0
         self._spec_overhang = self.spec_k - 1 if self.spec else 0
         self.prefix_enabled = cfg.prefix_cache_enabled
-        self.block_size = cfg.cache_block_size
-        # the paged read attends over n_bt * block_size keys: align the
-        # extent to the block grid
-        max_seq = -(-max_seq // self.block_size) * self.block_size
+        if n_blocks is not None and not self.paged:
+            raise ValueError(
+                "n_blocks/--cache-blocks only applies to the paged cache "
+                "layout; this server resolved to dense "
+                "(cfg.resolved_cache_layout)")
+        self.block_size = cfg.cache_block_size if self.paged else 0
+        if self.paged:
+            # the paged read attends over n_bt * block_size keys: align the
+            # extent to the block grid
+            max_seq = -(-max_seq // self.block_size) * self.block_size
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.eos_id = eos_id
@@ -145,8 +160,9 @@ class Server:
                 f"prefill_chunk must be >= 0, got {prefill_chunk}")
         if self.slo is not None or self.prefill_chunk:
             what = "--slo" if self.slo is not None else "--prefill-chunk"
-            if cfg.resolved_cache_layout != "paged":
-                raise ValueError(f"{what} requires the paged cache layout")
+            if not self.paged:
+                raise ValueError(f"{what} requires the paged cache layout "
+                                 f"(cfg.resolved_cache_layout)")
             if cfg.rope != "rope":
                 raise ValueError(
                     f"{what} replays absolute positions from a block-"
@@ -159,15 +175,27 @@ class Server:
             # stays inside the admission's reservation)
             grid = math.lcm(self.block_size, PREFILL_BUCKET)
             self.prefill_chunk = -(-self.prefill_chunk // grid) * grid
+        # every admission prefills alone, as a suffix over pool context,
+        # when any of the three context consumers is on
+        self._ctx_serving = (self.prefix_enabled or self.slo is not None
+                             or self.prefill_chunk > 0)
         self.executor = Executor(cfg, params, max_batch=max_batch,
                                  max_seq=max_seq, device=device,
                                  n_blocks=n_blocks,
                                  decode_horizon=self.decode_horizon,
                                  speculative=self.spec)
+        self._swa_window = cfg.window if cfg.attn_type == "swa" else 0
+        self._ring_extent = attention.cache_extent(cfg, max_seq)
 
     # -------------------------------------------------------------- plumbing
     def _bucket_len(self, n: int) -> int:
-        return -(-n // PREFILL_BUCKET) * PREFILL_BUCKET
+        sb = -(-n // PREFILL_BUCKET) * PREFILL_BUCKET
+        # pad positions past an SWA ring's extent would roll real prompt
+        # tokens out of the window: then the prompt prefills at its exact
+        # length
+        if self._swa_window and sb > self._ring_extent:
+            return n
+        return sb
 
     def _blocks_needed(self, req: Request) -> int:
         """Blocks to reserve at admission, over ``full_seq`` (a restore
@@ -201,22 +229,88 @@ class Server:
 
     def _prefill_admits(self, cache, admits: Sequence[Tuple[int, Request]],
                         sched: Scheduler, bt, chunking: Dict[int, int]):
-        """Prefill new admissions and scatter each into its slot's blocks;
-        returns the first greedy token per admission (None for a slot that
-        chunked prefill deferred).
+        """Prefill new admissions and insert each into its slot; returns
+        the first greedy token per admission (None for a slot that chunked
+        prefill deferred).
 
-        Each admission is its own (1, Sb) prefill: a sequence's prefill is
-        then the same computation whether it arrived alone or in a burst,
-        so greedy tokens cannot depend on the scheduling mode through
-        batch-shape-dependent rounding on the card.  A prefix hit's blocks
-        enter the table read-only and only the suffix of ``full_seq`` is
-        prefilled; with no hit that suffix is the whole prompt."""
-        firsts = []
-        for slot, req in admits:
-            f, cache = self._begin_fill(cache, slot, req, sched, bt,
-                                        chunking)
-            firsts.append(f)
-        return firsts, cache
+        The JAX package's rule: one admission runs a (1, Sb) prefill fused
+        with its insert; a burst (static mode, startup, or several
+        arrivals in one iteration) runs one forward over all its prompts,
+        right-padded to the longest bucket, then inserts each row.  (The
+        reference also pads the batch to ``max_batch`` to bound its
+        compiles; eager PyTorch has none to bound.)  Each row attends at
+        its own bucketed length and the PSI kernels' rows do not depend on
+        the batch, so a row's first token and KV are bit-identical to its
+        prefill alone: greedy tokens do not depend on the scheduling mode.
+        Where right-padding is unsafe — an SWA ring that the longest
+        bucket overruns, with prompt lengths that differ — each request
+        prefills alone.
+
+        Paged: each admission's prompt blocks are allocated here (drawing
+        down its reservation) and written into ``bt``; the insert scatters
+        the rows into exactly those blocks (a row's padding past them goes
+        to the slot's scratch block).
+
+        Context serving (prefix cache, SLO, chunked prefill) prefills each
+        admission alone, since hit depths and restores differ per request:
+        a prefix hit's blocks enter the table read-only and only the suffix
+        of ``full_seq`` is prefilled; with no hit that suffix is the whole
+        prompt."""
+        if self._ctx_serving:
+            firsts = []
+            for slot, req in admits:
+                f, cache = self._begin_fill(cache, slot, req, sched, bt,
+                                            chunking)
+                firsts.append(f)
+            return firsts, cache
+        lens = [len(r.prompt) for _, r in admits]
+        sb = self._bucket_len(max(lens))
+        pad_safe = not (self._swa_window and sb > self._ring_extent)
+        if len(set(lens)) > 1 and not pad_safe:
+            firsts = []
+            for adm in admits:
+                f, cache = self._prefill_admits(cache, [adm], sched, bt,
+                                                chunking)
+                firsts.extend(f)
+            return firsts, cache
+        if self.paged:
+            for slot, req in admits:
+                bt[slot, :] = -1
+                for j in range(kvc.blocks_for(
+                        self._bucket_len(len(req.prompt)), self.block_size)):
+                    bt[slot, j] = sched.blocks.alloc(req.rid)
+        if not self._swa_window:
+            # a longer prefill, or a decode past max_seq, would wrap the
+            # full-attention slab and evict prompt tokens the causal mask
+            # still expects (an SWA ring rolls by definition)
+            need = max(sb, *(len(r.prompt) + r.max_new + self._spec_overhang
+                             for _, r in admits))
+            if need > self.max_seq:
+                raise ValueError(
+                    f"request needs cache extent {need} (bucketed prompt + "
+                    f"max_new) but Server was built with max_seq="
+                    f"{self.max_seq}; size the Server for the longest "
+                    f"request")
+        B = len(admits)
+        toks = np.zeros((B, sb), np.int32)
+        for i, (_, req) in enumerate(admits):
+            toks[i, :len(req.prompt)] = req.prompt
+            req.prefilled_tokens += len(req.prompt)
+        tl = np.asarray(lens, np.int32)
+        ex = self.executor
+        if B == 1:                               # fused prefill + insert
+            slot = admits[0][0]
+            first, cache = ex.prefill_insert(
+                toks, tl, cache, slot, bt[slot] if self.paged else None)
+            return [int(first[0])], cache
+        first, seq_cache = ex.prefill(
+            toks, tl, row_lens=[self._bucket_len(n) for n in lens])
+        first = first.cpu().numpy()
+        slots = [slot for slot, _ in admits]
+        rows = np.stack([bt[slot] for slot in slots]) if self.paged else None
+        cache = ex.insert_burst(cache, seq_cache, slots, np.ones(B, bool),
+                                block_rows=rows)
+        return [int(f) for f in first], cache
 
     def _begin_fill(self, cache, slot, req, sched, bt,
                     chunking: Dict[int, int]):
@@ -284,7 +378,7 @@ class Server:
         shapes run."""
         ex = self.executor
         cache = ex.init_cache()
-        brow = np.full((ex.n_bt,), -1, np.int32)
+        brow = np.full((ex.n_bt,), -1, np.int32) if self.paged else None
         buckets = sorted({self._bucket_len(len(r.prompt)) for r in requests})
         for sb in buckets:
             ex.prefill_insert(np.zeros((1, sb), np.int32),
@@ -292,7 +386,8 @@ class Server:
         B = self.max_batch
         zeros = np.zeros((B, 1), np.int32)
         idle = np.zeros((B,), bool)
-        table = np.full((B, ex.n_bt), -1, np.int32)
+        table = (np.full((B, ex.n_bt), -1, np.int32) if self.paged
+                 else None)
         if self.spec:
             drafts, _ = ex.draft(zeros, zeros, idle, cache, table)
             ex.verify(zeros, drafts, zeros, idle, cache, table)
@@ -374,8 +469,11 @@ class Server:
         start of this call); returns (finished requests, stats)."""
         clock = time.perf_counter
         ex = self.executor
+        # fail fast, before any request is served (an SWA ring rolls by
+        # definition, so its extent needs no check)
         bad = [r.rid for r in requests
-               if self._worst_extent(r) > self.max_seq]
+               if not self._swa_window
+               and self._worst_extent(r) > self.max_seq]
         if bad:
             raise ValueError(
                 f"requests {bad} need more cache than max_seq="
@@ -383,15 +481,15 @@ class Server:
                 + (" + the k-1 speculative overhang"
                    if self._spec_overhang else "")
                 + "); size the Server for the longest request")
-        bad = [r.rid for r in requests
-               if kvc.blocks_for(self._worst_extent(r), self.block_size)
+        bad = [r.rid for r in requests if self.paged
+               and kvc.blocks_for(self._worst_extent(r), self.block_size)
                > ex.n_blocks]
         if bad:
             raise ValueError(f"requests {bad} need more blocks than the pool "
                              f"holds (n_blocks={ex.n_blocks})")
         if warmup:
             self.warmup(requests)
-        blocks = BlockAllocator(ex.n_blocks)
+        blocks = BlockAllocator(ex.n_blocks) if self.paged else None
         prefix = None
         if self.prefix_enabled or self.slo is not None:
             # hits aligned to the bucket grid; under an SLO policy the
@@ -400,8 +498,9 @@ class Server:
             prefix = PrefixCache(self.block_size,
                                  align_tokens=PREFILL_BUCKET)
         sched = Scheduler(requests, self.max_batch, blocks=blocks,
-                          blocks_needed=self._blocks_needed, prefix=prefix,
-                          policy=self.slo)
+                          blocks_needed=(self._blocks_needed if self.paged
+                                         else None),
+                          prefix=prefix, policy=self.slo)
         cache = ex.init_cache()
         B = self.max_batch
         tok = np.zeros((B, 1), np.int32)
@@ -410,7 +509,7 @@ class Server:
         # remaining emission budget per slot: the round's on-device
         # retirement counter (unused at horizon 1)
         rem = np.zeros((B,), np.int32)
-        bt = ex.make_block_table()
+        bt = ex.make_block_table() if self.paged else None
         chunking: Dict[int, int] = {}      # slot -> next piece's offset
         steps = rounds = host_syncs = loop_iters = peak_running = 0
         n_chunks = 0
@@ -431,7 +530,8 @@ class Server:
         def retire(slot, now):
             act[slot] = False
             sched.retire(slot, now)
-            bt[slot, :] = -1
+            if self.paged:
+                bt[slot, :] = -1
 
         def process_toks(round_toks) -> None:
             """Sync one finished round and replay the device's retirement
@@ -562,20 +662,21 @@ class Server:
                 continue
             if not act.any():
                 continue       # every running slot is still mid-chunking
-            # alloc-on-demand: every block this step's or round's writes can
-            # touch must exist before it runs.  FIFO reserved the worst
-            # case at admission; an SLO policy secures the shortfall here.
-            # A round writes up to M positions, a speculative round k, and
-            # with a round in flight the device carry may already be M
-            # ahead of the host mirror, so the span grows by M.  Positions
-            # past a request's last feed (prompt + max_new - 2) hold no
-            # emitted token's KV: a block there is never needed.
+            # alloc-on-demand (paged): every block this step's or round's
+            # writes can touch must exist before it runs.  FIFO reserved
+            # the worst case at admission; an SLO policy secures the
+            # shortfall here.  A round writes up to M positions, a
+            # speculative round k, and with a round in flight the device
+            # carry may already be M ahead of the host mirror, so the span
+            # grows by M.  Positions past a request's last feed (prompt +
+            # max_new - 2) hold no emitted token's KV: a block there is
+            # never needed.
             span = max(self.spec_k, M)
             if pipeline and pending is not None:
                 span += M
             for slot, req in list(sched.running.items()):
-                if not act[slot]:
-                    continue        # chunking, or preempted just now
+                if not (self.paged and act[slot]):
+                    continue        # dense, chunking, or preempted just now
                 p0 = int(pos[slot, 0])
                 hi = min(p0 + span - 1, len(req.prompt) + req.max_new - 2)
                 for li in range(p0 // self.block_size,
@@ -647,7 +748,7 @@ class Server:
             "prefill_forwards_headless": ex.prefill_headless - headless0,
             "kernel_launches": {k: launches[k] - launches0[k]
                                 for k in launches},
-            "cache_layout": "paged",
+            "cache_layout": "paged" if self.paged else "dense",
             "cache_bytes": kvc.cache_nbytes(cache),
             "peak_concurrency": peak_running,
             # every host-blocking device-to-host read the loop paid: decode
@@ -656,12 +757,6 @@ class Server:
             "host_syncs_per_token": round(
                 host_syncs / max(stats["tokens"], 1), 4),
             "loop_iters": loop_iters,
-            "block_size": self.block_size,
-            "n_blocks": ex.n_blocks,
-            "block_table_transfers": dict(bt.stats),
-            "peak_blocks_in_use": blocks.high_watermark,
-            "block_util_pct": round(
-                100.0 * blocks.high_watermark / max(ex.n_blocks, 1), 1),
             # the per-request forwarded count: chunks, restores and hits
             # all move it away from len(prompt) - hits
             "prefilled_tokens": prefilled,
@@ -684,12 +779,21 @@ class Server:
                 "mean_accepted": (round(accepted / n_rounds, 3)
                                   if n_rounds else 0.0),
                 "spec_compiles": ex.spec_cache_sizes()}
-        if prefix is not None:
-            stats["prefix_cache"] = prefix.stats()
-            # the allocator is back to its initial state only once the LRU
-            # is drained: then blocks_free_end == n_blocks (the leak check)
-            prefix.drain(blocks)
-        stats["blocks_free_end"] = blocks.free_count
+        if self.paged:
+            stats.update({
+                "block_size": self.block_size,
+                "n_blocks": ex.n_blocks,
+                "block_table_transfers": dict(bt.stats),
+                "peak_blocks_in_use": blocks.high_watermark,
+                "block_util_pct": round(
+                    100.0 * blocks.high_watermark / max(ex.n_blocks, 1), 1)})
+            if prefix is not None:
+                stats["prefix_cache"] = prefix.stats()
+                # the allocator is back to its initial state only once the
+                # LRU is drained: then blocks_free_end == n_blocks (the leak
+                # check)
+                prefix.drain(blocks)
+            stats["blocks_free_end"] = blocks.free_count
         return sched.finished, stats
 
 
@@ -699,14 +803,15 @@ def build_server(args) -> Tuple[Server, object]:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    over = {"cache_block_size": int(getattr(args, "block_size", 0)
+    over = {"cache_layout": getattr(args, "cache_layout", "auto") or "auto",
+            "cache_block_size": int(getattr(args, "block_size", 0)
                                     or cfg.cache_block_size)}
     if getattr(args, "n_layers", 0):
         over["n_layers"] = int(args.n_layers)
     over["prefix_cache"] = getattr(args, "prefix_cache", "off") == "on"
     cfg = dataclasses.replace(cfg, **over)
-    cfg.resolved_cache_layout
-    cfg.prefix_cache_enabled         # validate before the weights are drawn
+    cfg.resolved_cache_layout        # validate the layout and the prefix
+    cfg.prefix_cache_enabled         # cache before the weights are drawn
     device = resolve_device(getattr(args, "device", None))
     policy = parse_policy(getattr(args, "quant_policy", None))
     spec = parse_spec_spec(getattr(args, "speculative", None))
@@ -745,6 +850,8 @@ def build_server(args) -> Tuple[Server, object]:
         # a restore re-prefills prompt + generated in one bucketed piece,
         # which can pass the prompt-only pad by up to one bucket
         max_seq += PREFILL_BUCKET
+    # the block grid for every layout: dense then attends over the same
+    # extent as paged
     bsz = cfg.cache_block_size
     max_seq = -(-max_seq // bsz) * bsz
     server = Server(cfg, params, max_batch=args.max_batch, max_seq=max_seq,
@@ -804,11 +911,16 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--min-new", type=int, default=1)
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--prompt-jitter", type=int, default=0)
+    ap.add_argument("--cache-layout", default="auto",
+                    choices=["auto", "dense", "paged"],
+                    help="decode-cache layout: paged = block pool + per-slot "
+                         "block tables (the default for full attention); "
+                         "dense = per-slot slabs (required for SWA rings)")
     ap.add_argument("--block-size", type=int, default=0,
                     help="positions per paged block (0 = config default)")
     ap.add_argument("--cache-blocks", type=int, default=None,
-                    help="usable pool blocks (default max_batch * "
-                         "ceil(max_seq / block_size))")
+                    help="usable pool blocks for the paged layout (default "
+                         "max_batch * ceil(max_seq / block_size))")
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="-1 disables EOS retirement")
     ap.add_argument("--prefix-cache", default="off", choices=["on", "off"],
@@ -900,9 +1012,12 @@ def main():
               f"p99 {stats['p99_latency_s'] * 1e3:.0f}ms | "
               f"ttft p50 {stats['p50_ttft_s'] * 1e3:.0f}ms | "
               f"itl p50 {stats['p50_itl_s'] * 1e3:.1f}ms | "
-              f"peak concurrency {stats['peak_concurrency']} | cache paged "
-              f"({stats['n_blocks']}x{stats['block_size']} blocks, peak "
-              f"util {stats['block_util_pct']}%) | decode compiles "
+              f"peak concurrency {stats['peak_concurrency']} | cache "
+              + (f"paged ({stats['n_blocks']}x{stats['block_size']} blocks, "
+                 f"peak util {stats['block_util_pct']}%)"
+                 if "n_blocks" in stats else "dense")
+              + f" | prefill forwards {stats['prefill_forwards']}"
+              f" | decode compiles "
               f"{stats['decode_compiles']} | kernel launches "
               f"{stats['kernel_launches']}{horizon}")
         if "slo" in stats:

@@ -1,11 +1,14 @@
-"""Attention for the dense family: GQA with qk-norm and RoPE, plain
-prefill attention, and single-token decode against the paged block pool.
+"""Attention for the dense family: GQA with qk-norm and RoPE, causal and
+sliding-window masks, plain prefill attention, and single-token decode
+against the paged block pool or the dense per-slot slab (a ring buffer of
+``window`` positions for SWA).
 
-Prefill attention has no hand kernel (the JAX package leaves it to XLA):
-it is plain PyTorch here, processed in query chunks of ``Q_CHUNK`` so the
-live score tensor stays (B, H, Q_CHUNK, S).  The decode read side goes
-through ``kernels.ops.paged_decode_attention`` — the CUDA flash-decode
-kernel for a CUDA tensor.
+Prefill attention and the dense decode read have no hand kernel (the JAX
+package leaves both to XLA): they are plain PyTorch here, processed in
+query chunks of ``Q_CHUNK`` so the live score tensor stays (B, H, Q_CHUNK,
+S).  The paged decode read side goes through
+``kernels.ops.paged_decode_attention`` — the CUDA flash-decode kernel for
+a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -40,24 +43,28 @@ def _weighted_values(probs, v, Hq):
     return o.reshape(B, Sq, Hq, D).to(v.dtype)
 
 
-def _mask(q_pos, k_pos, causal):
-    """(B, Sq, Skv) validity from absolute positions (k_pos -1 = empty)."""
+def _mask(q_pos, k_pos, causal, window=0):
+    """(B, Sq, Skv) validity from absolute positions (k_pos -1 = empty);
+    ``window`` > 0 keeps only keys less than ``window`` positions back."""
     m = (k_pos[:, None, :] >= 0).expand(q_pos.shape[0], q_pos.shape[1],
                                         k_pos.shape[1])
     if causal:
         m = m & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        m = m & (k_pos[:, None, :] > q_pos[:, :, None] - window)
     return m
 
 
-def sdpa(q, k, v, q_pos, k_pos, *, causal=True, q_chunk=Q_CHUNK):
+def sdpa(q, k, v, q_pos, k_pos, *, causal=True, window=0, q_chunk=Q_CHUNK):
     """Chunked attention.  q (B,Sq,Hq,D); k,v (B,Skv,Hkv,D); q_pos (B,Sq),
-    k_pos (B,Skv) absolute positions."""
+    k_pos (B,Skv) absolute positions (they drive the causal and window
+    masks, so a ring-buffer layout needs nothing else)."""
     Hq = q.shape[2]
     outs = []
     for c0 in range(0, q.shape[1], q_chunk):
         q_c, qp_c = q[:, c0:c0 + q_chunk], q_pos[:, c0:c0 + q_chunk]
         s = _grouped_scores(q_c, k)
-        m = _mask(qp_c, k_pos, causal)[:, None]
+        m = _mask(qp_c, k_pos, causal, window)[:, None]
         s = torch.where(m, s, torch.full_like(s, NEG_INF))
         outs.append(_weighted_values(torch.softmax(s, dim=-1), v, Hq))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
@@ -77,7 +84,32 @@ def _project_qkv(p, x, cfg, positions):
             layers.apply_rope(k, positions, cfg), v)
 
 
-def attention_block(p, x, cfg, positions, ctx=None):
+def _window(cfg) -> int:
+    return cfg.window if cfg.attn_type == "swa" else 0
+
+
+def cache_extent(cfg, seq_len: int) -> int:
+    """A dense slab's extent for ``seq_len`` positions: the whole length,
+    or the window for SWA if that is less (the ring)."""
+    return min(seq_len, cfg.window) if _window(cfg) else seq_len
+
+
+def _rowwise_sdpa(q, k, v, positions, row_lens, window):
+    """A burst's attention, row by row: row i attends over its first
+    ``row_lens[i]`` positions (its bucketed prompt), exactly the shapes its
+    prefill has alone, so its outputs round the same whatever the burst's
+    longest row.  Outputs past a row's length (burst padding) are zeros."""
+    o = torch.zeros_like(q)
+    for i, n in enumerate(row_lens):
+        pos = positions[i:i + 1, :n]
+        o[i:i + 1, :n] = sdpa(q[i:i + 1, :n].contiguous(),
+                              k[i:i + 1, :n].contiguous(),
+                              v[i:i + 1, :n].contiguous(), pos, pos,
+                              causal=True, window=window)
+    return o
+
+
+def attention_block(p, x, cfg, positions, ctx=None, row_lens=None):
     """Prefill self-attention.  Returns (y, (k, v, k_pos)).
 
     ``ctx`` (the suffix prefill of the prefix cache and of chunked
@@ -86,8 +118,17 @@ def attention_block(p, x, cfg, positions, ctx=None):
     ``positions`` then start at ``P``; queries attend over the context
     keys followed by the fresh ones (RoPE and the causal mask are driven
     by absolute positions), and the returned state covers the fresh
-    suffix only."""
+    suffix only.
+
+    ``row_lens`` (a burst prefill, no ``ctx``): per-row attention extents,
+    see :func:`_rowwise_sdpa`; the projections still run over the whole
+    burst."""
     q, k, v = _project_qkv(p, x, cfg, positions)
+    if row_lens is not None:
+        o = _rowwise_sdpa(q, k, v, positions, row_lens, _window(cfg))
+        B, S = x.shape[:2]
+        y = linear(p["wo"], o.reshape(B, S, -1), cfg.quant_mode)
+        return y, (k, v, positions)
     k_all, v_all, kpos_all = k, v, positions
     if ctx is not None:
         ck, cv = ctx["k"], ctx["v"]
@@ -97,7 +138,8 @@ def attention_block(p, x, cfg, positions, ctx=None):
         k_all = torch.cat([ck.to(k.dtype), k], dim=1)
         v_all = torch.cat([cv.to(v.dtype), v], dim=1)
         kpos_all = torch.cat([cpos, positions], dim=1)
-    o = sdpa(q, k_all, v_all, positions, kpos_all, causal=True)
+    o = sdpa(q, k_all, v_all, positions, kpos_all, causal=True,
+             window=_window(cfg))
     B, S = x.shape[:2]
     y = linear(p["wo"], o.reshape(B, S, -1), cfg.quant_mode)
     return y, (k, v, positions)
@@ -114,6 +156,51 @@ def _kv_quantize(t):
 
 def _kv_dequantize(q, scale, dtype):
     return (q.to(torch.float32) * scale).to(dtype)
+
+
+def _masked_row_write(buf, bidx, slot, new_val, active):
+    """``buf[b, slot[b]] = new_val[b]`` in place, only where ``active[b]``
+    (inactive slots run through the step but their rows stay as they
+    are)."""
+    new_val = new_val.to(buf.dtype)
+    if active is not None:
+        mask = active.reshape(-1, *([1] * (new_val.ndim - 1)))
+        new_val = torch.where(mask, new_val, buf[bidx, slot])
+    buf[bidx, slot] = new_val
+
+
+def decode_attention_block(p, x, cfg, positions, cache, active=None):
+    """Single-token decode against the dense per-slot slab, a ring buffer
+    when the extent is below the position (SWA).
+
+    cache: {"k", "v": (B, C, Hkv, D), "k_pos": (B, C) int32 (-1 = empty)}
+    (+ int8 codes with "k_scale"/"v_scale" (B, C, Hkv, 1) f32 under
+    kv_quant="int8").  The new token's KV goes to ring slot ``pos % C`` of
+    its row, for active rows only.  The read is the plain ``sdpa`` over the
+    whole slab, masked by ``k_pos`` (and the window).  The slab is updated
+    IN PLACE (the JAX package donated it); the same dict is returned."""
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    B = x.shape[0]
+    pos = positions[:, 0]
+    slot = (pos % cache["k"].shape[1]).long()
+    bidx = torch.arange(B, device=x.device)
+    _masked_row_write(cache["k_pos"], bidx, slot, pos, active)
+    if "k_scale" in cache:
+        kq, ks = _kv_quantize(k_new[:, 0])
+        vq, vs = _kv_quantize(v_new[:, 0])
+        for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
+                          ("v_scale", vs)):
+            _masked_row_write(cache[name], bidx, slot, val, active)
+        k = _kv_dequantize(cache["k"], cache["k_scale"], x.dtype)
+        v = _kv_dequantize(cache["v"], cache["v_scale"], x.dtype)
+    else:
+        _masked_row_write(cache["k"], bidx, slot, k_new[:, 0], active)
+        _masked_row_write(cache["v"], bidx, slot, v_new[:, 0], active)
+        k, v = cache["k"], cache["v"]
+    o = sdpa(q, k, v, positions, cache["k_pos"], causal=True,
+             window=_window(cfg))
+    y = linear(p["wo"], o.reshape(B, 1, -1), cfg.quant_mode)
+    return y, cache
 
 
 def paged_decode_attention_block(p, x, cfg, positions, cache, block_tables,
@@ -213,6 +300,26 @@ def paged_verify_attention_block(p, x, cfg, positions, cache, block_tables,
         k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
     y = linear(p["wo"], o.reshape(B, S, -1), cfg.quant_mode)
     return y, cache
+
+
+def init_kv_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
+    """Dense slab KV storage for one layer on ``device`` (CUDA unless the
+    caller names another): extent ``seq_len``, or ``min(seq_len, window)``
+    for SWA; every ``k_pos`` -1 (empty)."""
+    device = resolve_device(device)
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    shape = (batch, cache_extent(cfg, seq_len), hkv, hd)
+    cache = {"k_pos": torch.full(shape[:2], -1, dtype=torch.int32,
+                                 device=device)}
+    if cfg.kv_quant == "int8":
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=torch.int8, device=device)
+            cache[f"{name}_scale"] = torch.zeros(
+                shape[:3] + (1,), dtype=torch.float32, device=device)
+    else:
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
 def init_paged_kv_cache(cfg, n_total, block_size, dtype=torch.bfloat16,

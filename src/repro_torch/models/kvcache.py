@@ -1,13 +1,15 @@
-"""The serving decode cache.
+"""The serving decode cache, in one of two engine layouts.
 
 * ``paged`` — per-layer block pools ``(n_blocks + max_batch, block_size,
   Hkv, head_dim)`` indexed through per-slot block tables (``-1`` =
   unallocated); the last ``max_batch`` blocks are per-slot scratch for the
   writes of inactive slots.  Key positions are synthesized from the table,
   so no ``k_pos`` is stored.
-* ``dense`` — what a prefill returns: one ``(B, C, Hkv, D)`` slab per layer
-  in position order plus ``k_pos`` (-1 = empty), scattered into the pool by
-  ``Model.insert_cache``.
+* ``dense`` — one ``(B, C, Hkv, D)`` slab per layer plus ``k_pos`` (B, C)
+  (-1 = empty): the engine's per-slot slabs (C = ``max_seq``, or the
+  window for SWA: a ring written at slot ``pos % C``), and also what a
+  prefill returns, which ``Model.insert_cache`` copies into a slot's row
+  or scatters into the pool.
 """
 from __future__ import annotations
 

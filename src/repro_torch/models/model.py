@@ -1,4 +1,5 @@
-"""Model facade for the dense family on the paged serving layout:
+"""Model facade for the dense family on both serving layouts (the paged
+block pool and the dense per-slot slab, a ring for SWA):
 
   * ``init(seed, device, bits=..., pack=..., policy=...,
     qat_precondition=...)`` -> params (random weights from a
@@ -9,7 +10,8 @@
   * ``prefill(params, tokens, ...)``         -> (last logits, dense cache);
                                                 with ``pos0``/``ctx_kv``
                                                 a suffix prefill over
-                                                context KV from the pool
+                                                context KV from the pool;
+                                                with ``row_lens`` a burst
   * ``gather_prefix_ctx(cache, ctx_ids)``     -> that context KV
   * ``decode_step(params, batch, cache)``     -> (logits, cache updated in
                                                 place)
@@ -19,7 +21,9 @@
   * ``verify_step(params, batch, cache)``     -> ((B, k, V) logits, cache):
                                                 the speculative verify of
                                                 k tokens per slot
-  * ``init_cache`` / ``insert_cache``         -> the paged pool
+  * ``init_cache`` / ``insert_cache`` / ``slice_cache``
+                                             -> the paged pool or the
+                                                dense slab
 """
 from __future__ import annotations
 
@@ -135,19 +139,21 @@ class Model:
         return linear(params["lm_head"], x, cfg.quant_mode)
 
     def forward(self, params, tokens, pos0: int = 0, ctx_kv=None,
-                emit_logits: bool = True):
+                emit_logits: bool = True, row_lens=None):
         """tokens (B, S) -> (logits (B, S, V), per-layer prefill states).
 
         ``pos0`` / ``ctx_kv`` (suffix prefill): positions start at
         ``pos0`` and attention also reads the per-layer context KV of
         ``[0, pos0)`` (:meth:`gather_prefix_ctx`).  ``emit_logits=False``
         (a chunk that emits nothing) skips the lm-head and returns None
-        logits."""
+        logits.  ``row_lens`` (a burst): row i's attention covers its
+        first ``row_lens[i]`` positions only."""
         B, S = tokens.shape
         x = embed(params["embed"], tokens, self.dtype)
         positions = _positions(B, S, tokens.device, offset=pos0)
         x, states = transformer.apply_decoder_stack(
-            params["layers"], x, self.cfg, positions, ctx_kv=ctx_kv)
+            params["layers"], x, self.cfg, positions, ctx_kv=ctx_kv,
+            row_lens=row_lens)
         if not emit_logits:
             return None, states
         x = layers.apply_norm(params["norm_f"], x, self.cfg)
@@ -155,27 +161,27 @@ class Model:
 
     def prefill(self, params, tokens, cache_len: Optional[int] = None,
                 true_lens=None, pos0: int = 0, ctx_kv=None,
-                emit_logits: bool = True):
+                emit_logits: bool = True, row_lens=None):
         """Forward the prompt; return (last-token logits (B, V), dense
-        cache of extent ``cache_len`` (default S)).  ``true_lens`` (B,)
-        supports right-padded prompts: logits are taken at
-        ``true_lens - 1`` and cache rows past the true length read as empty
-        (k_pos -1).
+        cache of extent ``cache_len`` (default S), or ``window`` for SWA
+        if that is less: a ring holding the last positions at slots
+        ``pos % C``).  ``true_lens`` (B,) supports right-padded prompts:
+        logits are taken at ``true_lens - 1`` and cache rows past the true
+        length read as empty (k_pos -1).
 
         ``pos0`` / ``ctx_kv``: ``tokens`` hold only the suffix after the
         context; positions run ``[pos0, pos0 + S)``, the returned cache
         covers the suffix rows only, and ``true_lens`` stays
         suffix-relative (k_pos is absolute, so the pad mask is at
         ``true_lens + pos0``).  ``emit_logits=False`` returns None
-        logits."""
+        logits.  ``row_lens`` (a burst of right-padded prompts): each row's
+        attention at its own bucketed length (:meth:`forward`)."""
         S = tokens.shape[1]
-        C = cache_len or S
-        if C < S:
-            raise ValueError(f"cache_len={C} < prompt length {S}: the port "
-                             f"has no ring (sliding-window) cache")
         logits, states = self.forward(params, tokens, pos0=pos0,
-                                      ctx_kv=ctx_kv, emit_logits=emit_logits)
-        kv = [_state_to_cache(self.cfg, st, S, C) for st in states]
+                                      ctx_kv=ctx_kv, emit_logits=emit_logits,
+                                      row_lens=row_lens)
+        kv = [_states_to_cache(self.cfg, st, S, cache_len or S)
+              for st in states]
         if true_lens is None:
             return (logits[:, -1] if emit_logits else None), KVCache(kv)
         B = tokens.shape[0]
@@ -201,11 +207,20 @@ class Model:
     # ---------------------------------------------------------------- decode
     def init_cache(self, batch: int, seq_len: int, device=None,
                    block_size: Optional[int] = None,
-                   n_blocks: Optional[int] = None) -> KVCache:
-        """Paged pools: ``n_blocks`` usable blocks (default
-        ``batch * ceil(seq_len / block_size)``) plus ``batch`` scratch,
-        on ``device`` (CUDA unless the caller names another)."""
+                   n_blocks: Optional[int] = None,
+                   layout: Optional[str] = None) -> KVCache:
+        """The batched decode cache on ``device`` (CUDA unless the caller
+        names another), in ``layout`` (default the config's resolved
+        one).  Paged: pools of ``n_blocks`` usable blocks (default
+        ``batch * ceil(seq_len / block_size)``) plus ``batch`` scratch.
+        Dense: one ``(batch, C)`` slab per layer, C = ``seq_len`` or the
+        SWA window."""
         device = resolve_device(device)
+        layout = layout or self.cfg.resolved_cache_layout
+        if layout == kvc.DENSE:
+            return KVCache([attention.init_kv_cache(self.cfg, batch, seq_len,
+                                                    self.dtype, device)
+                            for _ in range(self.cfg.n_layers)])
         bs = block_size or self.cfg.cache_block_size
         nb = (n_blocks if n_blocks is not None
               else batch * kvc.blocks_for(seq_len, bs))
@@ -216,14 +231,20 @@ class Model:
 
     def decode_step(self, params, batch, cache: KVCache):
         """batch: {"token": (B, 1), "pos": (B, 1) int32, "active": (B,)
-        bool, "block_table": (B, n_bt) int32}.  Rows with ``active`` False
-        compute a throwaway logit and write only their scratch block."""
-        if not cache.paged:
-            raise ValueError("decode runs against the paged cache")
+        bool, "block_table": (B, n_bt) int32 (paged only)}.  Rows with
+        ``active`` False compute a throwaway logit and write only their
+        scratch block (paged) or nothing (dense).  The layout follows the
+        cache."""
+        bt = None
+        if cache.paged:
+            bt = batch.get("block_table")
+            if bt is None:
+                raise ValueError('paged decode needs batch["block_table"] '
+                                 "(B, n_bt) int32, -1 = unallocated")
         x = embed(params["embed"], batch["token"], self.dtype)
         x, _ = transformer.apply_decoder_stack_decode(
-            params["layers"], x, self.cfg, batch["pos"], cache.kv,
-            batch["block_table"], active=batch.get("active"))
+            params["layers"], x, self.cfg, batch["pos"], cache.kv, bt,
+            active=batch.get("active"))
         x = layers.apply_norm(params["norm_f"], x, self.cfg)
         return self._logits(params, x)[:, 0], cache
 
@@ -233,7 +254,8 @@ class Model:
         batch: {"token": (B, 1), "pos": (B, 1) int32, "active": (B,) bool,
         "remaining": (B,) int32 emission budget per slot, "eos_id": int32
         scalar tensor (-1 disables; greedy tokens are >= 0), "block_table":
-        (B, n_bt) int32}.  Each step is a masked :meth:`decode_step`, then::
+        (B, n_bt) int32 (paged only)}.  Each step is a masked
+        :meth:`decode_step`, then::
 
             remaining -= active
             active   &= (next != eos_id) & (remaining > 0)
@@ -249,7 +271,7 @@ class Model:
         """
         tok, p = batch["token"], batch["pos"]
         act, rem = batch["active"], batch["remaining"]
-        eos, bt = batch["eos_id"], batch["block_table"]
+        eos, bt = batch["eos_id"], batch.get("block_table")
         toks = []
         for _ in range(length):
             logits, cache = self.decode_step(
@@ -289,29 +311,53 @@ class Model:
         x = layers.apply_norm(params["norm_f"], x, self.cfg)
         return self._logits(params, x), cache
 
+    def slice_cache(self, cache: KVCache, row: int) -> KVCache:
+        """Batch row ``row`` of a batched dense cache as a batch-1 cache
+        (splits a burst's prefill output into per-slot inserts)."""
+        if cache.paged:
+            raise ValueError("slice_cache slices per-slot rows; a paged "
+                             "cache has no slot rows to slice")
+        return KVCache(transformer.slice_stack_cache(cache.kv, int(row)))
+
     def insert_cache(self, cache: KVCache, seq_cache: KVCache, slot: int,
-                     block_row) -> KVCache:
-        """Scatter a batch-1 dense prefill cache into the blocks named by
-        ``block_row`` (n_bt,); -1 entries go to the slot's scratch block."""
-        transformer.insert_paged_stack_cache(cache.kv, seq_cache.kv,
-                                             block_row,
-                                             cache.n_blocks + int(slot))
+                     block_row=None) -> KVCache:
+        """Admit a batch-1 dense prefill cache, in place: dense writes the
+        slot's row of every leaf; paged scatters the rows into the blocks
+        named by ``block_row`` (n_bt,), -1 entries to the slot's scratch
+        block."""
+        if cache.paged:
+            if block_row is None:
+                raise ValueError("paged insert_cache needs block_row")
+            transformer.insert_paged_stack_cache(cache.kv, seq_cache.kv,
+                                                 block_row,
+                                                 cache.n_blocks + int(slot))
+            return cache
+        transformer.insert_stack_cache(cache.kv, seq_cache.kv, int(slot))
         return cache
 
 
-def _state_to_cache(cfg, st, S, C):
-    """Prefill state (B, S, ...) -> dense cache of extent C (pad rows
-    empty), int8-quantized under kv_quant="int8"."""
-    def pad(a, value=0):
+def _ring_layout(a, S, C):
+    """A prefill sequence (B, S, ...) over positions [0, S) -> the ring
+    (B, C, ...) holding its last min(S, C) entries at slots ``pos % C``:
+    a pad (S <= C) or a roll of the tail window (S > C)."""
+    if S <= C:
         if S == C:
             return a
-        fill = torch.full((a.shape[0], C - S) + tuple(a.shape[2:]), value,
-                          dtype=a.dtype, device=a.device)
+        fill = a.new_zeros((a.shape[0], C - S) + tuple(a.shape[2:]))
         return torch.cat([a, fill], dim=1)
+    return torch.roll(a[:, -C:], shifts=(S - C) % C, dims=1)
 
-    kp = pad(torch.where(st["k_pos"] >= 0, st["k_pos"],
-                         torch.full_like(st["k_pos"], -1)), -1)
-    k, v = pad(st["k"]), pad(st["v"])
+
+def _states_to_cache(cfg, st, S, cache_len):
+    """One layer's prefill state (B, S, ...) -> its dense cache: extent
+    ``cache_len``, or the window for SWA if less (the ring layout), pad
+    rows empty (k_pos -1), int8-quantized under kv_quant="int8"."""
+    C = attention.cache_extent(cfg, cache_len)
+    kp = _ring_layout(torch.where(st["k_pos"] >= 0, st["k_pos"],
+                                  torch.full_like(st["k_pos"], -1)), S, C)
+    if S < C:                             # the pad slots read as empty
+        kp[:, S:] = -1
+    k, v = _ring_layout(st["k"], S, C), _ring_layout(st["v"], S, C)
     if cfg.kv_quant == "int8":
         kq, ks = attention._kv_quantize(k)
         vq, vs = attention._kv_quantize(v)

@@ -8,24 +8,31 @@ import torch
 from repro_torch.models import attention, layers
 
 
-def apply_block(p, x, cfg, positions, ctx=None):
-    """Prefill block (``ctx``: the layer's context KV, see
+def apply_block(p, x, cfg, positions, ctx=None, row_lens=None):
+    """Prefill block (``ctx``: the layer's context KV; ``row_lens``: a
+    burst's per-row attention extents; see
     :func:`attention.attention_block`).  Returns (x, {"k", "v", "k_pos"})."""
     h = layers.apply_norm(p["norm1"], x, cfg)
     y, (k, v, k_pos) = attention.attention_block(p["attn"], h, cfg,
-                                                 positions, ctx=ctx)
+                                                 positions, ctx=ctx,
+                                                 row_lens=row_lens)
     x = x + y
     h2 = layers.apply_norm(p["norm2"], x, cfg)
     return x + layers.apply_mlp(p["mlp"], h2, cfg), {"k": k, "v": v,
                                                      "k_pos": k_pos}
 
 
-def apply_block_decode(p, x, cfg, positions, cache, block_tables,
+def apply_block_decode(p, x, cfg, positions, cache, block_tables=None,
                        active=None):
-    """One-token decode block against the layer's pool (updated in place)."""
+    """One-token decode block against the layer's pool, or its dense slab
+    when ``block_tables`` is None (updated in place)."""
     h = layers.apply_norm(p["norm1"], x, cfg)
-    y, cache = attention.paged_decode_attention_block(
-        p["attn"], h, cfg, positions, cache, block_tables, active=active)
+    if block_tables is None:
+        y, cache = attention.decode_attention_block(
+            p["attn"], h, cfg, positions, cache, active=active)
+    else:
+        y, cache = attention.paged_decode_attention_block(
+            p["attn"], h, cfg, positions, cache, block_tables, active=active)
     x = x + y
     h2 = layers.apply_norm(p["norm2"], x, cfg)
     return x + layers.apply_mlp(p["mlp"], h2, cfg), cache
@@ -44,20 +51,24 @@ def apply_block_verify(p, x, cfg, positions, cache, block_tables,
     return x + layers.apply_mlp(p["mlp"], h2, cfg), cache
 
 
-def apply_decoder_stack(layer_params, x, cfg, positions, ctx_kv=None):
+def apply_decoder_stack(layer_params, x, cfg, positions, ctx_kv=None,
+                        row_lens=None):
     """Returns (x, per-layer states).  ``ctx_kv``: one context dict per
-    layer (:func:`gather_paged_ctx`), or None."""
+    layer (:func:`gather_paged_ctx`), or None; ``row_lens``: a burst's
+    per-row attention extents, or None."""
     states = []
     for i, p in enumerate(layer_params):
         x, st = apply_block(p, x, cfg, positions,
-                            ctx=None if ctx_kv is None else ctx_kv[i])
+                            ctx=None if ctx_kv is None else ctx_kv[i],
+                            row_lens=row_lens)
         states.append(st)
     return x, states
 
 
 def apply_decoder_stack_decode(layer_params, x, cfg, positions, pools,
-                               block_tables, active=None):
-    """Every layer indexes its own pool through the same block table."""
+                               block_tables=None, active=None):
+    """Every layer indexes its own pool through the same block table, or
+    (``block_tables`` None) reads and writes its own dense slab."""
     for p, pool in zip(layer_params, pools):
         x, _ = apply_block_decode(p, x, cfg, positions, pool, block_tables,
                                   active=active)
@@ -100,6 +111,22 @@ def gather_paged_ctx(pools, ctx_ids, dtype):
         else:
             out.append({"k": gather(pool["k"]), "v": gather(pool["v"])})
     return out
+
+
+def slice_stack_cache(kv, row):
+    """Batch row ``row`` of a batched dense cache as a batch-1 cache (views,
+    no copy)."""
+    return [{name: t[row:row + 1] for name, t in layer.items()}
+            for layer in kv]
+
+
+def insert_stack_cache(kv, seq_kv, slot):
+    """Write a batch-1 dense cache into row ``slot`` of the engine's dense
+    slabs, in place: every leaf (``k_pos`` included) of the slot's row."""
+    for big, small in zip(kv, seq_kv):
+        for name, buf in big.items():
+            buf[slot] = small[name][0].to(buf.dtype)
+    return kv
 
 
 def insert_paged_stack_cache(pools, seq_kv, block_row, scratch_block):

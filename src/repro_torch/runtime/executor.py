@@ -1,16 +1,17 @@
-"""Single-device execution for the serving engine: params and the paged
-cache on one device, and the serving entry points — prefill, fused
-prefill + insert, the decode step, the horizon-M decode round and the
-self-speculative draft and verify passes.
+"""Single-device execution for the serving engine: params and the decode
+cache (the paged pool or the dense per-slot slab) on one device, and the
+serving entry points — prefill, fused prefill + insert, the burst insert,
+the decode step, the horizon-M decode round and the self-speculative draft
+and verify passes (paged only).
 
 On a CUDA device the decode step, the decode round, the draft and the
 verify each run as one captured CUDA graph, the counterpart of the JAX
 package's jitted decode executables: the host uploads a round's inputs
 into fixed device buffers and replays the graph, instead of issuing a few
 thousand small launches.  A graph reads and writes fixed addresses, so the
-executor owns them all for its life: one paged pool (``init_cache`` zeroes
-it in place), one block-table buffer, and the static token / pos / active
-/ remaining / EOS inputs and token outputs (the drafts and verdicts
+executor owns them all for its life: one cache (``init_cache`` resets it
+in place), one block-table buffer (paged), and the static token / pos /
+active / remaining / EOS inputs and token outputs (the drafts and verdicts
 included).  On the CPU the same bodies run eagerly; that is
 the plain version the parity tests compare.  The cache is updated in place
 where the JAX package donated it.
@@ -153,8 +154,9 @@ def _host_array(a) -> np.ndarray:
 
 
 class Executor:
-    """Owns the device, the params on it, the paged pool, the decode graphs
-    and the serving entry points.
+    """Owns the device, the params on it, the decode cache in the config's
+    resolved layout (the paged pool, or the dense slab: no block table),
+    the decode graphs and the serving entry points.
 
     ``speculative=(bits, k)`` adds the self-speculative pair: a draft tree
     (:func:`quantizer.draft_param_tree` of the serving params at ``bits``)
@@ -170,15 +172,25 @@ class Executor:
         self.decode_horizon = int(decode_horizon)
         if self.decode_horizon < 1:
             raise ValueError(f"decode_horizon={decode_horizon} must be >= 1")
-        cfg.resolved_cache_layout                 # paged dense stacks only
-        self.block_size = cfg.cache_block_size
-        self.n_bt = kvc.table_width(max_seq, self.block_size)
-        self.n_blocks = (n_blocks if n_blocks is not None
-                         else max_batch * self.n_bt)
+        self.layout = cfg.resolved_cache_layout
+        self.paged = self.layout == kvc.PAGED
+        if self.paged:
+            self.block_size = cfg.cache_block_size
+            self.n_bt = kvc.table_width(max_seq, self.block_size)
+            self.n_blocks = (n_blocks if n_blocks is not None
+                             else max_batch * self.n_bt)
+        else:
+            self.block_size = self.n_bt = self.n_blocks = 0
+            if n_blocks is not None:
+                raise ValueError("n_blocks only applies to the paged cache "
+                                 "layout (cfg.resolved_cache_layout)")
         self.speculative = tuple(speculative) if speculative else None
         self.spec_bits = self.spec_k = 0
         if self.speculative is not None:
             bits, k = self.speculative
+            if not self.paged:
+                raise ValueError("speculative decoding needs the paged "
+                                 "cache layout (cfg.resolved_cache_layout)")
             if not 1 <= k <= self.block_size:
                 raise ValueError(
                     f"speculative k={k} must be in [1, block_size="
@@ -212,10 +224,12 @@ class Executor:
         self._rows = None               # host copy of the rows' last upload
         self._eos = torch.full((), -1, dtype=torch.int32, device=dev)
         self._eos_id = -1
-        self._bt = torch.full((B, self.n_bt), -1, dtype=torch.int32,
-                              device=dev)
+        self._bt = self._host_table = None
         self._bt_holder = None          # the DeviceBlockTable _bt holds
-        self._host_table = self.make_block_table()  # for raw host tables
+        if self.paged:
+            self._bt = torch.full((B, self.n_bt), -1, dtype=torch.int32,
+                                  device=dev)
+            self._host_table = self.make_block_table()  # raw host tables
         # ... and their fixed outputs
         self._next = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._toks = torch.zeros((self.decode_horizon, B), dtype=torch.int32,
@@ -237,20 +251,29 @@ class Executor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
 
     def init_cache(self) -> kvc.KVCache:
-        """The executor's paged pool: allocated at the first call, zeroed
-        in place at every later one.  The decode graphs are captured
-        against its tensors, so it never moves."""
+        """The executor's cache (the paged pool or the dense slab):
+        allocated at the first call, reset in place at every later one
+        (zeros, and every dense ``k_pos`` -1).  The decode graphs are
+        captured against its tensors, so it never moves."""
         if self._cache is None:
             self._cache = self.model.init_cache(
                 self.max_batch, self.max_seq, device=self.device,
-                block_size=self.block_size, n_blocks=self.n_blocks)
+                block_size=self.block_size or None,
+                n_blocks=self.n_blocks if self.paged else None,
+                layout=self.layout)
         else:
             for layer in self._cache.kv:
-                for t in layer.values():
-                    t.zero_()
+                for name, t in layer.items():
+                    if name == "k_pos":
+                        t.fill_(-1)
+                    else:
+                        t.zero_()
         return self._cache
 
     def make_block_table(self) -> DeviceBlockTable:
+        if not self.paged:
+            raise ValueError("DeviceBlockTable mirrors the paged layout's "
+                             "block table; this executor is dense")
         return DeviceBlockTable(self._bt)
 
     def graph_counts(self) -> dict:
@@ -291,6 +314,10 @@ class Executor:
         self._rows = rows
 
     def _table(self, block_table) -> None:
+        if not self.paged:
+            if block_table is not None:
+                raise ValueError("a dense executor takes no block table")
+            return
         if isinstance(block_table, DeviceBlockTable):
             table = block_table
             if table._device is not self._bt:
@@ -372,7 +399,8 @@ class Executor:
     def _capture(self, body):
         """Capture ``body`` into a CUDA graph over the fixed buffers.  One
         eager run comes first, on a side stream, with every row inactive
-        (those write only their scratch blocks) and the input rows restored
+        (those write only their scratch blocks, or nothing on the dense
+        slab) and the input rows restored
         after it: kernels load and lazy state is set up outside the capture.
         The capture's own calls launch nothing, so the counts they add are
         taken back; a failed capture raises."""
@@ -397,26 +425,30 @@ class Executor:
     # --------------------------------------------------------- entry points
     @torch.inference_mode()
     def prefill(self, tokens, true_lens, pos0: int = 0, ctx_kv=None,
-                emit: bool = True):
+                emit: bool = True, row_lens=None):
         """(B, Sb) right-padded prompts -> (first greedy token (B,) int32
         tensor, or None with ``emit=False``; dense per-sequence cache at
-        the bucketed extent).  ``pos0`` / ``ctx_kv``: a suffix prefill
-        (``Model.prefill``).  Counts one model forward, and one forward
-        without the lm-head when ``emit`` is False."""
+        the bucketed extent (paged) or at ``max_seq`` (dense: a slot's
+        extent)).  ``pos0`` / ``ctx_kv``: a suffix prefill; ``row_lens``: a
+        burst's per-row attention extents (``Model.prefill``).  Counts one
+        model forward, and one forward without the lm-head when ``emit``
+        is False."""
         self.prefill_calls += 1
         self.prefill_headless += int(not emit)
         logits, cache = self.model.prefill(
             self.params, self._t(tokens, torch.int32),
+            cache_len=None if self.paged else self.max_seq,
             true_lens=self._t(true_lens, torch.int64), pos0=pos0,
-            ctx_kv=ctx_kv, emit_logits=emit)
+            ctx_kv=ctx_kv, emit_logits=emit, row_lens=row_lens)
         if not emit:
             return None, cache
         return torch.argmax(logits, -1).to(torch.int32), cache
 
     @torch.inference_mode()
-    def prefill_insert(self, tokens, true_lens, cache, slot: int, block_row,
-                       ctx_ids=None, emit: bool = True):
-        """Prefill one sequence and scatter its cache into ``block_row``.
+    def prefill_insert(self, tokens, true_lens, cache, slot: int,
+                       block_row=None, ctx_ids=None, emit: bool = True):
+        """Prefill one sequence and scatter its cache into ``block_row``
+        (paged), or write it into the slot's row of the slab (dense).
 
         ``ctx_ids`` (nctx,) names pool blocks holding the KV of absolute
         positions ``[0, nctx * block_size)``: ``tokens`` then hold only the
@@ -428,6 +460,12 @@ class Executor:
         if ctx_ids is None and not emit:
             raise ValueError("emit=False is for a chunk of the context "
                              "path: pass ctx_ids (possibly empty)")
+        if not self.paged:
+            if ctx_ids is not None:
+                raise ValueError("prefix context is gathered from a paged "
+                                 "cache; this executor is dense")
+            first, seq_cache = self.prefill(tokens, true_lens)
+            return first, self.model.insert_cache(cache, seq_cache, slot)
         row = self._t(block_row, torch.int64)
         pos0, ctx_kv = 0, None
         if ctx_ids is not None and len(ctx_ids):
@@ -444,10 +482,31 @@ class Executor:
         return first, cache
 
     @torch.inference_mode()
-    def decode(self, token, pos, active, cache, block_table):
+    def insert_burst(self, cache, seq_cache, slots, valid, block_rows=None):
+        """Insert row i of a burst's prefill cache into slot ``slots[i]``
+        for every i with ``valid[i]``: the slot's row of the slab (dense),
+        or the blocks of ``block_rows[i]`` (paged; -1 entries, the burst's
+        padding past a row's own blocks, go to the slot's scratch
+        block)."""
+        self._check_pool(cache)
+        if self.paged and block_rows is None:
+            raise ValueError("a paged burst insert needs block_rows")
+        for i, (slot, ok) in enumerate(zip(np.asarray(slots),
+                                           np.asarray(valid))):
+            if not ok:
+                continue
+            row = self.model.slice_cache(seq_cache, i)
+            cache = self.model.insert_cache(
+                cache, row, int(slot),
+                self._t(block_rows[i], torch.int64) if self.paged else None)
+        return cache
+
+    @torch.inference_mode()
+    def decode(self, token, pos, active, cache, block_table=None):
         """One masked decode step over all slots -> (greedy next token (B,)
         int32 tensor, cache updated in place).  ``cache`` is the executor's
-        pool; on a CUDA device the step is a graph replay."""
+        own; ``block_table`` the slots' table (paged) or None (dense).  On
+        a CUDA device the step is a graph replay."""
         self._check_pool(cache)
         self._put(token, pos, active, 0)
         self._table(block_table)
@@ -456,7 +515,7 @@ class Executor:
 
     @torch.inference_mode()
     def decode_multi(self, token, pos, active, remaining, cache,
-                     block_table, eos_id: int = -1):
+                     block_table=None, eos_id: int = -1):
         """One horizon-M decode round (``decode_horizon > 1``): M masked
         steps with EOS and budget retirement on the device
         (``Model.decode_scan``).

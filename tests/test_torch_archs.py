@@ -44,10 +44,9 @@ ATOL = 1e-4                 # logits tolerance of test_torch_model.py
 TIGHT = 1e-6                # one layer in f32: a few ulp of O(1) values
 TRACE = dict(rate_rps=1e9, prompt_len=12, max_new=6, min_new=2,
              vocab_size=256, seed=3, prompt_jitter=4)
-# the stats that depend on neither the clock nor the prefill grouping
-# (the port prefills each admission alone, the reference in bursts)
+# the stats that do not depend on the clock
 INT_STATS = ("n_requests", "tokens", "decode_steps", "host_syncs",
-             "blocks_free_end", "prefilled_tokens")
+             "blocks_free_end", "prefilled_tokens", "prefill_forwards")
 
 
 def np_tree(t):
@@ -64,6 +63,31 @@ def np_tree(t):
 
 def _toks(done):
     return {r.rid: list(r.tokens) for r in done}
+
+
+def jax_serve(server, trace, **kw):
+    """The JAX ``Server.serve`` with the stat it does not report:
+    ``prefill_forwards``, its executor's prefill and prefill-insert calls
+    after warmup (one forward each, a burst's included)."""
+    ex = server.executor
+    calls = [0]
+
+    def counted(fn):
+        def call(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return call
+
+    ex.prefill, ex.prefill_insert = (counted(ex.prefill),
+                                     counted(ex.prefill_insert))
+    try:
+        server.warmup(trace, verbose=False)
+        calls[0] = 0
+        done, stats = server.serve(trace, warmup=False, **kw)
+    finally:
+        del ex.prefill, ex.prefill_insert
+    stats["prefill_forwards"] = calls[0]
+    return done, stats
 
 
 _FLOATS, _SETUPS = {}, {}
@@ -261,8 +285,8 @@ def test_server_matches_jax(arch, mode):
                                         device="cpu"))
     jserver, tserver = _SERVERS[arch]
     cont = mode == "continuous"
-    jdone, js = jserver.serve(jsched.poisson_trace(4, **TRACE),
-                              continuous=cont)
+    jdone, js = jax_serve(jserver, jsched.poisson_trace(4, **TRACE),
+                          continuous=cont)
     tdone, ts = tserver.serve(tsched.poisson_trace(4, **TRACE),
                               continuous=cont)
     assert _toks(tdone) == _toks(jdone)
@@ -280,8 +304,8 @@ def test_granite_multi_token_serve_matches_jax(how):
     jcfg, jp, tcfg, tp = _setup("granite-34b", 5, qat=3)
     kw = ({"decode_horizon": 4} if how == "horizon4"
           else {"speculative": (3, 4)})
-    jdone, js = JServer(jcfg, jp, max_batch=2, max_seq=48, **kw).serve(
-        jsched.poisson_trace(4, **TRACE))
+    jdone, js = jax_serve(JServer(jcfg, jp, max_batch=2, max_seq=48, **kw),
+                          jsched.poisson_trace(4, **TRACE))
     tdone, ts = tserve.Server(tcfg, tp, max_batch=2, max_seq=48,
                               device="cpu", **kw).serve(
         tsched.poisson_trace(4, **TRACE))
@@ -289,7 +313,8 @@ def test_granite_multi_token_serve_matches_jax(how):
                              device="cpu").serve(
         tsched.poisson_trace(4, **TRACE))
     assert _toks(tdone) == _toks(jdone) == _toks(plain)
-    for k in ("tokens", "decode_steps", "host_syncs", "blocks_free_end"):
+    for k in ("tokens", "decode_steps", "host_syncs", "blocks_free_end",
+              "prefill_forwards"):
         assert ts[k] == js[k], k
     if how == "horizon4":
         assert ts["decode_rounds"] == js["decode_rounds"] > 0

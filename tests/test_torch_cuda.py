@@ -1008,3 +1008,217 @@ def test_arch_serving_on_the_card_matches_the_cpu(cuda, arch):
             stats["decode_steps"] + stats["prefill_forwards"]),
         "psi_matmul_packed": 0,
         "paged_attention": cfg.n_layers * stats["decode_steps"]}
+
+
+# ---------------------------------------------------------------------------
+# The dense layout (per-slot slabs, the SWA ring) and burst prefill on the
+# card: the decode and round graphs over the slab, a burst's rows against
+# their prefills alone at full width, and a dense serve that reaches only
+# the kernels.
+# ---------------------------------------------------------------------------
+DENSE_CASES = {
+    # label: (bits, dtype, kv_quant, SWA window)
+    "psi8-f32": (8, "float32", "", 0),
+    "psi8-bf16": (8, "bfloat16", "", 0),
+    "psi5-f32": (5, "float32", "", 0),
+    "psi5-bf16": (5, "bfloat16", "", 0),
+    "psi8-bf16-int8kv": (8, "bfloat16", "int8", 0),
+    "psi8-f32-ring": (8, "float32", "", 16),
+    "psi8-bf16-ring": (8, "bfloat16", "", 16),
+}
+
+
+def _dense_executor(case, horizon):
+    """A reduced qwen3-8b executor on the dense slab (the SWA ring of 16
+    positions when the case has a window, its prompts then 20 and 13
+    tokens so slot 0's ring has already rolled), two prefilled slots and
+    an inactive one: (executor, cache, inputs)."""
+    from repro_torch.runtime import Executor
+    bits, dtype, kvq, window = DENSE_CASES[case]
+    over = (dict(attn_type="swa", window=window) if window
+            else dict(cache_layout="dense"))
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode=f"psi{bits}",
+                         dtype=dtype, kv_quant=kvq, **over)
+    params = build_model(cfg).init(seed=0, device="cuda", bits=bits,
+                                   pack=bits < 8)
+    ex = Executor(cfg, params, max_batch=3, max_seq=64, device="cuda",
+                  decode_horizon=horizon)
+    cache = ex.init_cache()
+    rng = np.random.default_rng(0)
+    lens = (20, 13) if window else (13, 13)
+    for slot, n in enumerate(lens):
+        sb = n if n > 16 and window else -(-n // 16) * 16
+        prompt = np.zeros((1, sb), np.int32)
+        prompt[0, :n] = rng.integers(0, cfg.vocab_size, size=n)
+        ex.prefill_insert(prompt, np.array([n], np.int32), cache, slot)
+    inputs = dict(token=np.array([[5], [7], [0]], np.int32),
+                  pos=np.array([[lens[0]], [lens[1]], [0]], np.int32),
+                  active=np.array([True, True, False]),
+                  remaining=np.array([20, 3, 0], np.int32))
+    return ex, cache, inputs
+
+
+def _dense_batch(inputs, with_round=False):
+    b = {k: torch.from_numpy(inputs[k]).cuda()
+         for k in ("token", "pos", "active")}
+    if with_round:
+        b["remaining"] = torch.from_numpy(inputs["remaining"]).cuda()
+        b["eos_id"] = torch.tensor(-1, dtype=torch.int32, device="cuda")
+    return b
+
+
+def _assert_slabs_equal(cache, ref_cache):
+    """Every slab entry bit for bit (no scratch: an inactive row writes
+    nothing)."""
+    for a, b in zip(cache.kv, ref_cache.kv):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_dense_decode_graph_replay_equals_eager_step(cuda, case):
+    """Three horizon-1 graph replays over the slab against eager
+    decode_steps on a copy: tokens and slabs bit for bit (the ring wraps
+    on slot 0), one step's PSI launches per replay and no paged-attention
+    launch."""
+    ex, cache, inp = _dense_executor(case, 1)
+    ref_cache = _pool_copy(cache)
+    per = _matmuls_per_forward(ex.model.cfg)
+    for step in range(3):
+        with torch.inference_mode():
+            logits, _ = ex.model.decode_step(ex.params, _dense_batch(inp),
+                                             ref_cache)
+        want = torch.argmax(logits, -1).to(torch.int32)
+        before = ops.launch_counts()
+        got, _ = ex.decode(inp["token"], inp["pos"], inp["active"], cache)
+        after = ops.launch_counts()
+        assert torch.equal(got, want), step
+        key = "psi_matmul_codes" if DENSE_CASES[case][0] == 8 \
+            else "psi_matmul_packed"
+        if step:                     # the first call also ran the warm step
+            assert after[key] - before[key] == per
+        assert after["paged_attention"] == before["paged_attention"]
+        inp["token"] = got.cpu().numpy()[:, None]
+        inp["pos"] = inp["pos"] + 1
+    assert ex.graph_counts() == {"decode": 1, "decode_multi": 0,
+                                 "draft": 0, "verify": 0}
+    _assert_slabs_equal(cache, ref_cache)
+
+
+@pytest.mark.parametrize("case", list(DENSE_CASES))
+def test_dense_round_graph_equals_eager_steps(cuda, case):
+    """One horizon-4 round graph over the slab against Model.decode_scan,
+    eagerly, on a copy: tokens, carry and slabs bit for bit; slot 1's
+    budget of 3 ends inside the round; the carry chains into a second
+    round."""
+    ex, cache, inp = _dense_executor(case, 4)
+    ref_cache = _pool_copy(cache)
+    with torch.inference_mode():
+        want, wcarry, _ = ex.model.decode_scan(
+            ex.params, _dense_batch(inp, True), ref_cache, 4)
+    toks, carry, _ = ex.decode_multi(inp["token"], inp["pos"],
+                                     inp["active"], inp["remaining"], cache)
+    np.testing.assert_array_equal(np.asarray(toks), want.cpu().numpy())
+    for k in ("token", "pos", "remaining"):
+        assert torch.equal(carry[k], wcarry[k].to(torch.int32)), k
+    assert carry["active"].tolist() == [1, 0, 0]
+    _assert_slabs_equal(cache, ref_cache)
+    toks2, _, _ = ex.decode_multi(carry["token"], carry["pos"],
+                                  carry["active"], carry["remaining"], cache)
+    with torch.inference_mode():
+        want2, _, _ = ex.model.decode_scan(
+            ex.params, dict(wcarry, eos_id=torch.tensor(
+                -1, dtype=torch.int32, device="cuda")), ref_cache, 4)
+    np.testing.assert_array_equal(np.asarray(toks2), want2.cpu().numpy())
+    _assert_slabs_equal(cache, ref_cache)
+    assert ex.graph_counts() == {"decode": 0, "decode_multi": 1,
+                                 "draft": 0, "verify": 0}
+
+
+@pytest.mark.parametrize("bits", [8, 5])
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_burst_rows_equal_alone_full_width(cuda, layout, bits):
+    """qwen3-8b at full width, 2 layers, bf16: four prompts of four buckets
+    (64, 80, 32, 16) in one burst forward give each row's first token and
+    cache rows bit for bit as its prefill alone (kernels 1 and 2 take the
+    burst's 4 x 80 rows; attention runs per row at its own bucket)."""
+    from repro_torch.runtime import Executor
+    cfg = get_config("qwen3-8b", n_layers=2, quant_mode=f"psi{bits}",
+                     dtype="bfloat16", cache_layout=layout)
+    params = build_model(cfg).init(seed=0, device="cuda", bits=bits,
+                                   pack=bits < 8)
+    ex = Executor(cfg, params, max_batch=4, max_seq=112, device="cuda")
+    rng = np.random.default_rng(5)
+    lens, buckets = [64, 72, 20, 9], [64, 80, 32, 16]
+    toks = np.zeros((4, 80), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, size=n)
+    first, burst = ex.prefill(toks, np.asarray(lens, np.int32),
+                              row_lens=buckets)
+    for i, (n, sb) in enumerate(zip(lens, buckets)):
+        f1, alone = ex.prefill(toks[i:i + 1, :sb], np.asarray([n], np.int32))
+        assert int(f1[0]) == int(first[i]), i
+        for lb, la in zip(burst.kv, alone.kv):
+            for name in la:
+                assert torch.equal(lb[name][i, :sb], la[name][0, :sb]), \
+                    (i, name)
+                if layout == "dense":
+                    assert torch.equal(lb["k_pos"][i], la["k_pos"][0])
+
+
+@pytest.mark.parametrize("case", ["dense", "dense-h4", "swa-16"])
+def test_dense_serve_reaches_only_the_kernels(cuda, case, monkeypatch):
+    """A reduced psi8 serve on the dense layout (float32), continuous then
+    static: the same tokens as the CPU (the SWA ring of 16 wraps; a burst
+    of long prompts takes the one-by-one fallback), no CUDA tensor on a
+    plain version, and exactly (7 n_layers + 1) PSI launches per decode
+    step and per prefill forward, none of kernel 3."""
+    over = ({"attn_type": "swa", "window": 16} if case == "swa-16"
+            else {"cache_layout": "dense"})
+    horizon = 4 if case == "dense-h4" else 1
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode="psi8", **over)
+    params = build_model(cfg).init(seed=0, device="cpu", bits=8)
+    lens = ([20, 23, 18, 10, 14, 12] if case == "swa-16"
+            else [12, 9, 15, 30, 7, 11])
+
+    def trace():
+        rng = np.random.default_rng(9)
+        return [scheduler.Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, size=n).astype(np.int32), max_new=6 + i % 4)
+            for i, n in enumerate(lens)]
+    want = {}
+    cpu = serve.Server(cfg, params, max_batch=3, max_seq=64, device="cpu",
+                       decode_horizon=horizon)
+    for mode in (True, False):
+        want[mode] = {r.rid: r.tokens
+                      for r in cpu.serve(trace(), continuous=mode)[0]}
+    bad = []
+    for mod, name in ((ref, "psi_matmul_codes_ref"),
+                      (ref, "psi_matmul_packed_ref"),
+                      (pa, "paged_attention_ref")):
+        real = getattr(mod, name)
+
+        def guarded(*a, _real=real, _name=name, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                bad.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, guarded)
+    server = serve.Server(cfg, params, max_batch=3, max_seq=64,
+                          device="cuda", decode_horizon=horizon)
+    server.warmup(trace())
+    per = _matmuls_per_forward(cfg)
+    for mode in (True, False):
+        ops.reset_launch_counts()
+        done, stats = server.serve(trace(), continuous=mode, warmup=False)
+        counts = ops.launch_counts()
+        assert not bad, bad
+        assert {r.rid: r.tokens for r in done} == want[mode], mode
+        assert counts == {"psi_matmul_codes": per * (
+            stats["decode_steps"] + stats["prefill_forwards"]),
+            "psi_matmul_packed": 0, "paged_attention": 0}
+        assert stats["cache_layout"] == "dense"
+        assert stats["decode_compiles"] == 1
+        if not mode and case == "swa-16":
+            assert stats["prefill_forwards"] == 4    # 3 alone + 1 burst
+        elif not mode:
+            assert stats["prefill_forwards"] == 2    # two bursts of 3

@@ -281,6 +281,31 @@ def _toks(done):
     return {r.rid: list(r.tokens) for r in done}
 
 
+def jax_serve(server, trace, **kw):
+    """The JAX ``Server.serve`` with the stat it does not report:
+    ``prefill_forwards``, its executor's prefill and prefill-insert calls
+    after warmup (one forward each, a burst's included)."""
+    ex = server.executor
+    calls = [0]
+
+    def counted(fn):
+        def call(*a, **k):
+            calls[0] += 1
+            return fn(*a, **k)
+        return call
+
+    ex.prefill, ex.prefill_insert = (counted(ex.prefill),
+                                     counted(ex.prefill_insert))
+    try:
+        server.warmup(trace, verbose=False)
+        calls[0] = 0
+        done, stats = server.serve(trace, warmup=False, **kw)
+    finally:
+        del ex.prefill, ex.prefill_insert
+    stats["prefill_forwards"] = calls[0]
+    return done, stats
+
+
 CASES = {
     # label: (params, speculative, continuous, prefix cache, max_seq)
     "psi8-3:4": ("psi8", (3, 4), True, False, 64),
@@ -290,9 +315,8 @@ CASES = {
     "psi8-3:4-prefix": ("psi8", (3, 4), True, True, 96),
     "psi5-3:4": ("psi5", (3, 4), True, False, 64),
 }
-# prefill forwards differ by design (the port prefills each admission
-# alone, the reference in bursts)
-INT_STATS = ("decode_steps", "host_syncs", "blocks_free_end", "tokens")
+INT_STATS = ("decode_steps", "host_syncs", "blocks_free_end", "tokens",
+             "prefill_forwards")
 
 
 @pytest.fixture(scope="module")
@@ -359,9 +383,9 @@ def test_server_matches_jax_and_plain_decode(setups, plain, case,
     jcfg = dataclasses.replace(jcfg, prefix_cache=prefix)
     tcfg = dataclasses.replace(tcfg, prefix_cache=prefix)
     trace = _prefix_trace if prefix else _trace
-    jdone, js = JServer(jcfg, jparams, max_batch=2, max_seq=max_seq,
-                        speculative=spec).serve(trace(jsched),
-                                                continuous=continuous)
+    jdone, js = jax_serve(JServer(jcfg, jparams, max_batch=2,
+                                  max_seq=max_seq, speculative=spec),
+                          trace(jsched), continuous=continuous)
     server = tserve.Server(tcfg, tparams, max_batch=2, max_seq=max_seq,
                            device="cpu", speculative=spec)
     guard = _spec_prefix_guard(monkeypatch, server) if prefix else None
