@@ -6,8 +6,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
 (sm_90a), holds each against its plain PyTorch version on the card, serves
 full-width qwen3-8b (on the paged pool and on the dense slab),
-phi3-medium-14b, granite-34b and chatglm3-6b from PSI codes through them,
-and compares the card with the CPU.  Phases, each
+phi3-medium-14b, granite-34b, chatglm3-6b and qwen3-moe-30b-a3b from PSI
+codes through them, and compares the card with the CPU.  Phases, each
 printing one JSON line; any failure exits non-zero before the result line:
 
   1. card and build    — nvidia-smi name and power limit, kernel build time;
@@ -22,7 +22,8 @@ printing one JSON line; any failure exits non-zero before the result line:
                          only) and the memory bound; kernels 1 and 2 also
                          at the five weight shapes of each other dense
                          config (kernel_shape_arch, kernel_step_arch) and
-                         kernel 3 at their head layouts;
+                         kernel 3 at their head layouts (4 x 80, 4 x 512,
+                         16 x 2048), qwen3-moe's 32/4 included;
   3. serve psi8        — Server.serve of qwen3-8b, all 36 layers, in
                          continuous and static modes: identical tokens, and
                          253 PSI-matmul (kernel 1) + 36 attention launches
@@ -78,15 +79,32 @@ printing one JSON line; any failure exits non-zero before the result line:
                          attention calls per step), one decode graph, no
                          leaked block, a decode window (eager, graph) and
                          one 288-row prefill forward;
+  4d. MoE (serve_qwen3moe_psi8, serve_qwen3moe_psi8_horizon) — full-width
+                         qwen3-moe-30b-a3b, all 48 layers, psi8: 8
+                         requests arriving at once (the same two bursts of
+                         four in every run), continuous and static at
+                         horizon 1 and continuous at horizon 8, tokens
+                         identical across the three; 193 matmuls per
+                         forward (none from the experts), 48 attention
+                         calls per step; one decode and one round graph;
+                         no leaked block; tokens dropped in the prefills
+                         (slots kept < k x S summed over the forwards); a
+                         decode window (eager, graph), one 288-row
+                         prefill forward (C = 23) and one decode step's
+                         MoE time split into expert dequantize and expert
+                         GEMMs;
   5. card vs CPU       — prefill + 8 greedy decode steps of a 2-layer
                          float32 psi8 model on the card and on the CPU, on
                          the card a suffix prefill (the prompt split at a
                          block boundary) against the full prefill, and a
                          speculative serve (--speculative 3:4, QAT
                          precondition 3) on the card and on the CPU, a
-                         2-layer float32 serve of each other config, and a
-                         2-layer float32 qwen3-8b serve on a 16-position
-                         SWA ring (dense; wrapping rings, a burst that
+                         2-layer float32 serve of each other config
+                         (qwen3-moe with 32 of its 128 experts, plus a
+                         --speculative 3:3 serve whose verifies drop
+                         tokens), and a 2-layer float32 qwen3-8b serve and
+                         a reduced mixtral-8x22b serve on a 16-position SWA
+                         ring (dense; wrapping rings, a burst that
                          prefills one by one), tokens identical on the
                          card and the CPU;
   6. summary           — {"kernels": [...]}, the card line, then the result
@@ -114,7 +132,13 @@ SRC = ROOT / "src"
 MAIN_ARCH = "qwen3-8b"
 ARCHS = {"phi3-medium-14b": ("phi3", "psi8"),
          "granite-34b": ("granite", "psi5"),
-         "chatglm3-6b": ("chatglm3", "psi8")}
+         "chatglm3-6b": ("chatglm3", "psi8"),
+         "qwen3-moe-30b-a3b": ("qwen3moe", "psi8")}
+# the card-vs-CPU serve of an MoE config cuts its experts (the CPU's plain
+# path dequantizes every expert block each forward): qwen3-moe keeps its
+# widths and top-8 over 32 experts, so a 3-token verify still has C = 1
+MOE_CARD_VS_CPU_EXPERTS = 32
+MOE_SPEC_K = 3                   # the MoE card-vs-CPU serve's --speculative
 # the rows kernels 1 and 2 are held at for those configs' weights: decode,
 # the 16-row prefill of the card-vs-CPU serve, the serve's bucketed
 # prompts (64 +- 8 -> 64, 80) and the prefill window's 288 (a burst's
@@ -166,21 +190,28 @@ def check(cond, msg):
 
 def counts_per_step(cfg):
     """(PSI-matmul launches per forward, attention calls per decode step):
-    wq, wk, wv, wo and the MLP's matrices (3 gated, 2 for the GELU MLP)
-    per layer plus the lm-head; one attention read per layer."""
-    return (4 + (2 if cfg.act == "gelu" else 3)) * cfg.n_layers + 1, \
-        cfg.n_layers
+    wq, wk, wv, wo and the MLP's matrices (3 gated, 2 for the GELU MLP,
+    none for MoE: its experts are dequantized blocks in a plain batched
+    product) per layer plus the lm-head; one attention read per layer."""
+    mlp = 0 if cfg.family == "moe" else (2 if cfg.act == "gelu" else 3)
+    return (4 + mlp) * cfg.n_layers + 1, cfg.n_layers
 
 
 def weight_shapes(cfg):
-    """{label: ((K, N), launches per forward)} of a config's PSI matmuls."""
+    """{label: ((K, N), launches per forward)} of a config's PSI matmuls
+    (wq and wo apart where n_heads x head_dim != d_model; no MLP for MoE)."""
     d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
-    check(cfg.n_heads * hd == d, f"{cfg.name}: wq and wo differ in shape")
-    mlp = ({"w_up": ((d, cfg.d_ff), L)} if cfg.act == "gelu"
-           else {"w_gate/w_up": ((d, cfg.d_ff), 2 * L)})
-    return {"wq/wo": ((d, d), 2 * L),
-            "wk/wv": ((d, cfg.n_kv_heads * hd), 2 * L), **mlp,
-            "w_down": ((cfg.d_ff, d), L),
+    q = cfg.n_heads * hd
+    attn = ({"wq/wo": ((d, d), 2 * L)} if q == d
+            else {"wq": ((d, q), L), "wo": ((q, d), L)})
+    if cfg.family == "moe":
+        mlp = {}
+    elif cfg.act == "gelu":
+        mlp = {"w_up": ((d, cfg.d_ff), L), "w_down": ((cfg.d_ff, d), L)}
+    else:
+        mlp = {"w_gate/w_up": ((d, cfg.d_ff), 2 * L),
+               "w_down": ((cfg.d_ff, d), L)}
+    return {**attn, "wk/wv": ((d, cfg.n_kv_heads * hd), 2 * L), **mlp,
             "lm_head": ((d, cfg.vocab_size), 1)}
 
 
@@ -190,7 +221,8 @@ def check_full(cfg, arch):
     from repro_torch.configs import get_config
     want = get_config(arch)
     keys = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
-            "vocab_size", "head_dim", "act", "rope")
+            "vocab_size", "head_dim", "act", "rope", "n_experts", "top_k",
+            "capacity_factor")
     check(all(getattr(cfg, k) == getattr(want, k) for k in keys),
           f"{arch}: not full width and depth")
 
@@ -830,7 +862,7 @@ def phase_kernels(torch, dev, bw, peak):
                   attn_times(16, 2048, "bf16"), attn_times(16, 2048, "int8")):
         emit({"phase": "kernel_paged_attention_time", **extra})
     for arch, (hq, hkv) in zip(ARCHS, arch_heads):
-        for B, n_pos in ((4, 80), (16, 2048)):
+        for B, n_pos in ((4, 80), (4, 512), (16, 2048)):
             row = attn_times(B, n_pos, "bf16", hq, hkv)
             max_err["paged_attention"] = max(max_err["paged_attention"],
                                              row["max_abs_err"])
@@ -1022,12 +1054,30 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     at horizon 8 (phase serve_psi8_horizon); for the other configs the
     eager step and the graph, and one prefill forward of
     ARCH_PREFILL_ROWS rows.  The other configs serve the psi8 trace (8
-    requests, prompts 64 +- 8, 8-16 new tokens)."""
+    requests, prompts 64 +- 8, 8-16 new tokens).
+
+    An MoE config (qwen3-moe-30b-a3b: 193 matmuls per forward, none from
+    its experts) serves the same trace with every request arriving at
+    once and 16 new tokens each, and is served at horizon 8 too (phase
+    serve_qwen3moe_psi8_horizon); the routing of its prefills is logged
+    (capacities, slots kept, which must fall short of the slots routed:
+    tokens drop), and one decode step's MoE time is split into the
+    expert dequantize and the expert GEMMs (moe_layer_split)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     main = arch == MAIN_ARCH
+    moe = get_config(arch).family == "moe"
     if main and quant != "psi8":
         args = _serve_args(quant=quant, requests=4, max_new=8, min_new=4)
+    elif moe:
+        # an MoE row's routing depends on the burst that prefills it (pad
+        # positions route and take capacity; C follows the padded length),
+        # in the JAX package too: so that continuous, static and horizon 8
+        # are comparable token for token, every request arrives at once
+        # with one budget and all three admit the same two bursts of four
+        args = _serve_args(arch=arch, quant=quant, arrival_rate=1e9,
+                           min_new=16)
     else:
         args = _serve_args(arch=arch, quant=quant)
     name = f"serve_{quant}" if main else f"serve_{ARCHS[arch][0]}_{quant}"
@@ -1043,6 +1093,7 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     per_fwd, per_step = counts_per_step(cfg)
     server.warmup(serve.trace_from_args(args, cfg))
     rows, undo = _record_prefill_rows(server.executor)
+    routed, undo_route = _route_log() if moe else ([], lambda: None)
     ops.reset_launch_counts()                         # the main path starts
     runs, admitted = {}, {}
     try:
@@ -1057,6 +1108,7 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
             runs[mode] = ({r.rid: r.tokens for r in done}, stats, done)
     finally:
         undo()
+        undo_route()
     torch.cuda.synchronize()
     got = ops.launch_counts()                         # ... and ends here
     held = _check_prefill_rows(torch, rows, name, server.executor.params,
@@ -1069,6 +1121,10 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
           f"{name}: a request did not get its max_new tokens")
     check(all(0 <= t < cfg.vocab_size for toks in tc.values() for t in toks),
           "token id out of the vocabulary")
+    drops = _drops(routed) if moe else None
+    if moe:
+        check(drops["slots_kept"] < drops["slots_routed"],
+              f"{name}: no token dropped in the prefills {drops}")
     check(sc["decode_compiles"] == ss["decode_compiles"] == 1,
           f"{name}: want one captured decode graph, got "
           f"{sc['decode_compiles']} / {ss['decode_compiles']}")
@@ -1095,15 +1151,18 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     launches[key] = launches.get(key, 0) + got[key]
     launches["paged_attention"] = (launches.get("paged_attention", 0)
                                    + got["paged_attention"])
-    server8 = prefill = None
-    if main:
+    server8 = prefill = split = None
+    if main or moe:
         # the same params behind a horizon-8 server: its warmup captures
         # the one 8-step round graph
         server8 = serve.Server(cfg, ex.params, max_batch=args.max_batch,
                                max_seq=server.max_seq, eos_id=args.eos_id,
                                device=dev, decode_horizon=HORIZON)
         server8.warmup(serve.trace_from_args(args, cfg))
-    window = _decode_window(torch, server, server8)
+    # an eager MoE step is ~10k ops, each recorded by the profiler: two
+    # steps a mode, and no round window (its horizon phase serves one)
+    window = (_decode_window(torch, server, steps=2) if moe
+              else _decode_window(torch, server, server8))
     burst = _burst_window(torch, server) if main and quant == "psi8" \
         else None
     if not main:
@@ -1113,7 +1172,21 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
         nb = -(-(ARCH_PREFILL_ROWS + bs) // bs)
         pserver = serve.Server(cfg, ex.params, max_batch=1,
                                max_seq=nb * bs, device=dev, n_blocks=nb)
-        prefill = _prefill_window(torch, pserver, rows=(ARCH_PREFILL_ROWS,))
+        prefill = _prefill_window(torch, pserver, rows=(ARCH_PREFILL_ROWS,),
+                                  calls=1 if moe else 3)
+        if moe:
+            # one more such forward with its routing logged
+            import numpy as np
+            M = ARCH_PREFILL_ROWS
+            log, undo_route = _route_log()
+            try:
+                pserver.executor.prefill(
+                    (np.arange(M, dtype=np.int32) % cfg.vocab_size)[None],
+                    np.asarray([M], np.int32))
+            finally:
+                undo_route()
+            prefill["routing"] = _drops(log)
+            split = _moe_split(torch, ex)
         del pserver
     keep = ("tok_per_s", "wall_s", "tokens", "p50_latency_s",
             "p99_latency_s", "p50_ttft_s", "p99_ttft_s", "p50_itl_s",
@@ -1137,9 +1210,13 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
           "attention_per_decode_step": per_step,
           "admissions": admitted, "prefill_rows_held_here": held,
           "decode_window": window, "prefill_window": prefill,
-          "burst_prefill_window": burst,
+          "burst_prefill_window": burst, "prefill_routing": drops,
+          "moe_layer_split": split,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
           "phase_wall_s": time.perf_counter() - t_phase})
+    if moe:
+        phase_serve_horizon(torch, server8, args, cfg, tc, launches, keep,
+                            f"{name}_horizon", ("continuous",))
     if main and quant == "psi8":
         phase_serve_horizon(torch, server8, args, cfg, tc, launches, keep)
         del server8
@@ -1159,6 +1236,90 @@ def _check_bursts(name, stats, admitted):
               f"{name} {mode}: {st['prefill_forwards']} prefill forwards "
               f"for {len(admitted[mode])} admission events "
               f"{admitted[mode]}")
+
+
+def _route_log():
+    """Wrap the MoE router (``models.moe.route``) to record each call over
+    more than one token (prefills, chunks, verifies; decode steps replay
+    graphs): (tokens a row S, capacity C, slots routed B x k x S, slots
+    kept as a device tensor read after the run); returns (log, undo)."""
+    from repro_torch.models import moe
+    log = []
+    real = moe.route
+
+    def logged(p, x, cfg, *a, **kw):
+        out = real(p, x, cfg, *a, **kw)
+        if x.shape[1] > 1:
+            log.append((int(x.shape[1]), out[4], out[2].numel(),
+                        out[2].sum()))
+        return out
+
+    moe.route = logged
+
+    def undo():
+        moe.route = real
+    return log, undo
+
+
+def _drops(log):
+    """The routing a _route_log recorded: calls, rows S and capacities C
+    seen, slots routed and kept, and the dropped share."""
+    kept = sum(int(k) for _, _, _, k in log)
+    total = sum(n for _, _, n, _ in log)
+    return {"route_calls": len(log),
+            "rows": sorted({S for S, _, _, _ in log}),
+            "capacities": sorted({C for _, C, _, _ in log}),
+            "slots_routed": total, "slots_kept": kept,
+            "dropped_share": 1.0 - kept / total if total else 0.0}
+
+
+def _moe_split(torch, ex):
+    """One decode step's MoE FFNs at the serve's shape (max_batch tokens,
+    one a slot), device time from CUDA-graph replays over every layer in
+    turn (each layer's codes, 604 MB at psi8, come from HBM): the three
+    expert blocks' one-pass dequantize to bf16 (and the plain
+    ``QuantizedTensor.dequantize``: three passes through f32, bit-equal),
+    the three expert GEMMs on
+    dequantized blocks (C = 1), and the whole moe_ffn (routing, dispatch,
+    dequantize, GEMMs, combine); each summed over the layers, beside the
+    bytes the dequantize and the GEMMs move and their bound."""
+    from repro_torch.models import moe
+    cfg = ex.model.cfg
+    layers = [p["moe"] for p in ex.params["layers"]]
+    L, B, dev = len(layers), ex.max_batch, ex.device
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    bf16 = torch.bfloat16
+    bw = card_rates(torch.cuda.get_device_name(0))[0]
+    names = ("w_gate", "w_up", "w_down")
+    x = torch.randn(B, 1, d, device=dev).to(bf16)
+    xe = torch.randn(E, B, d, device=dev).to(bf16)
+    he = torch.randn(E, B, f, device=dev).to(bf16)
+    deq = lambda i: [moe._dequantize_bf16(layers[i][n]) for n in names]
+    plain = lambda i: [layers[i][n].dequantize(bf16) for n in names]
+    w = deq(0)
+    gemm = lambda i: (moe._expert_bmm(xe, w[0]), moe._expert_bmm(xe, w[1]),
+                      moe._expert_bmm(he, w[2]))
+    with torch.inference_mode():
+        t_deq = _graph_ms(torch, deq, L, iters=L, reps=3) * L
+        t_plain = _graph_ms(torch, plain, L, iters=L, reps=3) * L
+        t_gemm = _graph_ms(torch, gemm, 1, iters=L, reps=3) * L
+        t_ffn = _graph_ms(torch, lambda i: moe.moe_ffn(layers[i], x, cfg),
+                          L, iters=L, reps=3) * L
+    del w
+    n = 3 * E * d * f                       # expert weights a layer
+    codes = sum(layers[0][k].data.numel() * layers[0][k].data.element_size()
+                + layers[0][k].scale.numel() * 4 for k in names)
+    deq_bytes = L * (codes + 2 * n)         # read codes, write bf16
+    gemm_bytes = L * 2 * n                  # read the bf16 blocks
+    return {"layers": L, "tokens": B, "dequantize_ms_per_step": t_deq,
+            "plain_dequantize_ms_per_step": t_plain,
+            "expert_gemm_ms_per_step": t_gemm,
+            "moe_ffn_ms_per_step": t_ffn,
+            "routing_dispatch_combine_ms_per_step": t_ffn - t_deq - t_gemm,
+            "dequantize_bytes": deq_bytes, "expert_gemm_bytes": gemm_bytes,
+            "dequantize_bound_ms": deq_bytes / bw * 1e3,
+            "expert_gemm_bound_ms": gemm_bytes / bw * 1e3,
+            "codes_read_once_ms": L * codes / bw * 1e3}
 
 
 def _burst_window(torch, server, lens=(64, 72, 66, 80), calls=3):
@@ -1343,29 +1504,30 @@ def _dense_read(torch, cfg, ex, n_pos=72):
 
 
 def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
-                        keep):
-    """The psi8 trace of phase_serve served at horizon 8 (continuous, then
-    static) on a server whose warmup captured its round graph: tokens
-    identical to horizon 1, 253 matmul launches per forward and 36
-    attention launches per decode step under replay (decode_steps = 8 x
-    rounds), one captured decode graph."""
+                        keep, name="serve_psi8_horizon",
+                        modes=("continuous", "static")):
+    """The trace of phase_serve served at horizon 8 (in ``modes``) on a
+    server whose warmup captured its round graph: tokens identical to
+    horizon 1, the config's matmul launches per forward (253 for
+    qwen3-8b) and attention launches per decode step (36) under replay
+    (decode_steps = 8 x rounds), one captured decode graph."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     ops.reset_launch_counts()                         # the main path starts
     runs = {}
-    for mode in ("continuous", "static"):
+    for mode in modes:
         done, stats = server.serve(serve.trace_from_args(args, cfg),
                                    continuous=(mode == "continuous"),
                                    warmup=False)
         runs[mode] = ({r.rid: r.tokens for r in done}, stats)
     torch.cuda.synchronize()
     got = ops.launch_counts()                         # ... and ends here
-    (tc, sc), (ts, ss) = runs["continuous"], runs["static"]
-    check(tc == want_tokens and ts == want_tokens,
-          f"horizon {HORIZON}: tokens differ from horizon 1")
-    steps = sc["decode_steps"] + ss["decode_steps"]
-    rounds = sc["decode_rounds"] + ss["decode_rounds"]
-    fwd = sc["prefill_forwards"] + ss["prefill_forwards"]
+    check(all(t == want_tokens for t, _ in runs.values()),
+          f"{name}: tokens differ from horizon 1")
+    stats = [st for _, st in runs.values()]
+    steps = sum(st["decode_steps"] for st in stats)
+    rounds = sum(st["decode_rounds"] for st in stats)
+    fwd = sum(st["prefill_forwards"] for st in stats)
     check(steps == HORIZON * rounds, "decode steps != horizon x rounds")
     per_fwd, per_step = counts_per_step(cfg)
     want = {"psi_matmul_codes": per_fwd * (steps + fwd),
@@ -1373,19 +1535,17 @@ def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
     check(got == want, f"horizon {HORIZON} launch counts {got} != expected "
                        f"{want} ({per_fwd} per forward, {per_step} "
                        f"attention per step)")
-    check(sc["decode_compiles"] == ss["decode_compiles"] == 1
+    check(all(st["decode_compiles"] == 1 for st in stats)
           and server.executor.graph_counts() == {
               "decode": 0, "decode_multi": 1, "draft": 0, "verify": 0},
-          f"horizon {HORIZON}: want exactly one captured round graph, got "
+          f"{name}: want exactly one captured round graph, got "
           f"{server.executor.graph_counts()}")
     for k in got:
         launches[k] = launches.get(k, 0) + got[k]
-    emit({"phase": "serve_psi8_horizon", "decode_horizon": HORIZON,
+    emit({"phase": name, "decode_horizon": HORIZON,
           "layers": cfg.n_layers, "requests": args.requests,
-          "continuous": {k: sc[k] for k in keep + ("decode_rounds",
-                                                   "loop_iters")},
-          "static": {k: ss[k] for k in keep + ("decode_rounds",
-                                               "loop_iters")},
+          **{mode: {k: st[k] for k in keep + ("decode_rounds", "loop_iters")}
+             for mode, (_, st) in runs.items()},
           "tokens_identical_to_horizon_1": True, "launches": got})
 
 
@@ -1599,8 +1759,9 @@ def _check_prefill_rows(torch, rows, label, params, checked=PREFILL_MS):
     from repro_torch.kernels import ops, ref
     new = sorted(set(rows) - set(checked))
     layer = params["layers"][0]
+    mlp = layer.get("mlp", {})              # an MoE layer's experts run none
     leaves = ([layer["attn"][n] for n in ("wq", "wk", "wv", "wo")]
-              + [layer["mlp"][n] for n in sorted(layer["mlp"])]
+              + [mlp[n] for n in sorted(mlp)]
               + ([params["lm_head"]] if "lm_head" in params else []))
     dev = leaves[0].data.device
     gen = torch.Generator(device=dev).manual_seed(len(rows))
@@ -2163,7 +2324,7 @@ def _param_bytes(params):
 # Phase 5: the card against the CPU.
 # ---------------------------------------------------------------------------
 def phase_card_vs_cpu(torch, dev):
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import build_model
     from repro_torch.runtime.executor import params_to
     torch.set_num_threads(os.cpu_count() or 1)
@@ -2215,35 +2376,38 @@ def phase_card_vs_cpu(torch, dev):
     spec = _spec_card_vs_cpu(torch, dev, cfg, model)
     del params, model
     archs = {arch: _arch_card_vs_cpu(torch, dev, arch) for arch in ARCHS}
-    swa = _swa_card_vs_cpu(torch, dev)
+    swa = _swa_card_vs_cpu(torch, dev, get_config(
+        MAIN_ARCH, n_layers=2, dtype="float32", quant_mode="psi8",
+        attn_type="swa", window=16))
+    mixtral = _swa_card_vs_cpu(torch, dev, reduced_config(
+        get_config("mixtral-8x22b"), quant_mode="psi8", window=16))
     emit({"phase": "card_vs_cpu", "layers": cfg.n_layers, "dtype": "float32",
           "steps": "prefill(16) + 8 decode", "max_abs_err": err,
           "max_abs_logit": amax, "tolerance": tol,
           "argmax_agree": f"{agree}/{len(card)}",
           "suffix_vs_full": suffix, "speculative": spec,
-          "archs": archs, "swa_ring": swa, "ok": True})
+          "archs": archs, "swa_ring": swa, "mixtral_reduced_swa_ring": mixtral,
+          "ok": True})
 
 
-def _swa_card_vs_cpu(torch, dev, n_layers=2, window=16):
-    """qwen3-8b at full width cut to ``n_layers`` layers, float32 psi8
-    (seed 1), under attn_type="swa" with a ``window``-position ring on the
-    dense layout, served on the CPU and on the card, continuous then
-    static: 6 requests arriving at once on 3 slots, first three prompts
-    of 18-23 tokens (past the window: exact lengths that differ, so their
-    burst prefills one by one and each prompt rolls the ring), then three
-    of 10-14 (one bucket of 16: one burst forward), 7-9 new tokens each,
-    so every ring wraps while decoding.  Tokens identical on the card and
-    the CPU; static runs 3 + 1 forwards; on the card exact launch counts
-    (none of kernel 3) and one decode graph."""
+def _swa_card_vs_cpu(torch, dev, cfg):
+    """An SWA config (qwen3-8b at full width cut to 2 layers under
+    attn_type="swa", or reduced mixtral-8x22b; float32 psi8, seed 1) with
+    a 16-position ring on the dense layout, served on the CPU and on the
+    card, continuous then static: 6 requests arriving at once on 3 slots,
+    first three prompts of 18-23 tokens (past the window: exact lengths
+    that differ, so their burst prefills one by one and each prompt rolls
+    the ring), then three of 10-14 (one bucket of 16: one burst forward),
+    7-9 new tokens each, so every ring wraps while decoding.  Tokens
+    identical on the card and the CPU; static runs 3 + 1 forwards; on the
+    card exact launch counts (none of kernel 3) and one decode graph."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import scheduler, serve
     from repro_torch.models import build_model
     from repro_torch.runtime.executor import params_to
     t0 = time.perf_counter()
-    cfg = get_config(MAIN_ARCH, n_layers=n_layers, dtype="float32",
-                     quant_mode="psi8", attn_type="swa", window=window)
+    n_layers, window = cfg.n_layers, cfg.window
     params = build_model(cfg).init(seed=1, device=dev, bits=8)
     lens = (20, 23, 18, 10, 14, 12)
 
@@ -2291,9 +2455,9 @@ def _swa_card_vs_cpu(torch, dev, n_layers=2, window=16):
               f"{toks[('cuda', mode)]}, CPU {toks[('cpu', mode)]}")
     del params
     _free(torch)
-    return {"layers": n_layers, "window": window, "prompts": list(lens),
-            "tokens": "identical", "runs": out,
-            "wall_s": time.perf_counter() - t0}
+    return {"arch": cfg.name, "layers": n_layers, "d_model": cfg.d_model,
+            "window": window, "prompts": list(lens), "tokens": "identical",
+            "runs": out, "wall_s": time.perf_counter() - t0}
 
 
 def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
@@ -2301,15 +2465,20 @@ def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
     float32 psi8 (random weights, seed 1), on the CPU and on the card: 2
     requests, 16-token prompts, 6 new tokens each, 2 slots.  Tokens must
     be identical; on the card exact launch counts and one decode graph;
-    no leaked block on either."""
+    no leaked block on either.  An MoE config also cuts its experts to
+    MOE_CARD_VS_CPU_EXPERTS (the cut is on the line) and adds a
+    --speculative 3:MOE_SPEC_K serve, whose verifies drop tokens (C = 1
+    at S = k)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import scheduler, serve
     from repro_torch.models import build_model
     from repro_torch.runtime.executor import params_to
     t0 = time.perf_counter()
+    cut = ({"n_experts": MOE_CARD_VS_CPU_EXPERTS}
+           if get_config(arch).family == "moe" else {})
     cfg = get_config(arch, n_layers=n_layers, dtype="float32",
-                     quant_mode="psi8")
+                     quant_mode="psi8", **cut)
     params = build_model(cfg).init(seed=1, device=dev, bits=8)
     trace = lambda: scheduler.poisson_trace(
         2, rate_rps=1e9, prompt_len=16, max_new=6, min_new=6,
@@ -2342,17 +2511,27 @@ def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
           f"{arch} card vs CPU: tokens differ: card {toks['cuda']}, CPU "
           f"{toks['cpu']}")
     del params
+    spec = None
+    if cut:
+        spec = _spec_card_vs_cpu(torch, dev, cfg, build_model(cfg),
+                                 k=MOE_SPEC_K)
+        check(spec["cpu_routing"]["verify"]["slots_kept"]
+              < spec["cpu_routing"]["verify"]["slots_routed"],
+              f"{arch} card vs CPU: no token dropped in a verify "
+              f"{spec['cpu_routing']}")
     _free(torch)
-    return {"layers": n_layers, "tokens": "identical", "runs": out,
-            "launches": got, "wall_s": time.perf_counter() - t0}
+    return {"layers": n_layers, "cut": cut, "tokens": "identical",
+            "runs": out, "launches": got, "speculative": spec,
+            "wall_s": time.perf_counter() - t0}
 
 
-def _spec_card_vs_cpu(torch, dev, cfg, model):
-    """A speculative serve (--speculative SPEC_BITS:SPEC_K over psi8 codes
+def _spec_card_vs_cpu(torch, dev, cfg, model, k=SPEC_K):
+    """A speculative serve (--speculative SPEC_BITS:k over psi8 codes
     with the QAT precondition at SPEC_BITS, so drafts are accepted) of the
     2-layer float32 model on the CPU and on the card: the same tokens, or a
     divergence only under the token rule; one draft and one verify graph
-    on the card; no leaked block on either."""
+    on the card; no leaked block on either.  For MoE the CPU run's routing
+    is logged (cpu_routing: prefills, and verifies at S = k)."""
     from repro_torch.launch import scheduler, serve
     from repro_torch.runtime.executor import params_to
     params = model.init(seed=1, device=dev, bits=8,
@@ -2364,14 +2543,21 @@ def _spec_card_vs_cpu(torch, dev, cfg, model):
     servers, done, logs, out = [], [], [], {}
     for device, p in (("cpu", params_to(params, "cpu")), ("cuda", params)):
         server = serve.Server(cfg, p, max_batch=2, max_seq=48, device=device,
-                              speculative=(SPEC_BITS, SPEC_K))
+                              speculative=(SPEC_BITS, k))
         log, undo = _fill_log(server, serve)
+        routed, undo_route = (_route_log() if cfg.family == "moe"
+                              and device == "cpu" else (None, lambda: None))
         try:
             # the CPU has no graph to capture: its warmup would only repeat
             # full-width eager work
             reqs, stats = server.serve(trace(), warmup=device == "cuda")
         finally:
             undo()
+            undo_route()
+        if routed is not None:
+            out["cpu_routing"] = {
+                "prefill": _drops([r for r in routed if r[0] > k]),
+                "verify": _drops([r for r in routed if r[0] == k])}
         check(stats["blocks_free_end"] == stats["n_blocks"],
               f"spec card vs CPU ({device}): a block leaked")
         sp = stats["speculative"]

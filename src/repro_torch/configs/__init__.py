@@ -1,8 +1,9 @@
-"""Architecture registry of the port: the dense, paged-capable configs
+"""Architecture registry of the port: the dense configs and the MoE ones
 (other families arrive with their model code)."""
 from repro_torch.configs.base import (ModelConfig, get_config, reduced_config,
                                       register)
 from repro_torch.configs import (chatglm3_6b, granite_34b,  # noqa: F401
-                                 phi3_medium_14b, qwen3_8b)
+                                 mixtral_8x22b, phi3_medium_14b, qwen3_8b,
+                                 qwen3_moe_30b_a3b)
 
 __all__ = ["ModelConfig", "get_config", "reduced_config", "register"]

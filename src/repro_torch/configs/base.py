@@ -1,9 +1,10 @@
 """Model configuration for the PyTorch port: the architecture record, the
 registry behind ``--arch`` and the reduced (CPU test) variant.
 
-Only the fields the dense family and its serving paths read are kept;
-the field names, defaults and reduced widths are those of the JAX package's
-configuration, so the same names build the same shapes in both packages.
+Only the fields the dense and MoE families and their serving paths read
+are kept; the field names, defaults and reduced widths are those of the
+JAX package's configuration, so the same names build the same shapes in
+both packages.
 """
 from __future__ import annotations
 
@@ -13,9 +14,9 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense (the only family ported so far:
-                                    # qwen3-8b, phi3-medium-14b, granite-34b,
-                                    # chatglm3-6b)
+    family: str                     # dense (qwen3-8b, phi3-medium-14b,
+                                    # granite-34b, chatglm3-6b) | moe
+                                    # (qwen3-moe-30b-a3b, mixtral-8x22b)
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,6 +37,12 @@ class ModelConfig:
     norm: str = "rmsnorm"
     act: str = "swiglu"             # swiglu | geglu (gated, 3 matrices) |
                                     # gelu (w_down(gelu(w_up x)), 2 matrices)
+
+    # --- MoE (per-expert intermediate size is d_ff) ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
     # --- numerics / technique ---
     norm_eps: float = 1e-6
@@ -64,7 +71,7 @@ class ModelConfig:
         """True when every decode-cache leaf is full-attention KV, the only
         state a block pool can hold: an SWA ring wraps past ``max_seq``,
         which a bounded block table cannot."""
-        return self.family == "dense" and self.attn_type == "full"
+        return self.family in ("dense", "moe") and self.attn_type == "full"
 
     @property
     def resolved_cache_layout(self) -> str:
@@ -120,9 +127,16 @@ def get_config(name: str, **overrides) -> ModelConfig:
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Tiny same-family config for CPU tests: the JAX package's reduced
     widths (float32, 2 layers, d_model 64, 4 q heads, <= 2 kv heads,
-    head_dim 16, d_ff 128, vocab 256, a window of at most 32)."""
+    head_dim 16, d_ff 128, vocab 256, a window of at most 32; for MoE at
+    most 8 experts, top-2, and a capacity factor of at least 8, so that no
+    token drops unless the caller passes a lower one)."""
+    moe = bool(cfg.n_experts)
     small = dict(
         dtype="float32",
+        capacity_factor=(max(cfg.capacity_factor, 8.0) if moe
+                         else cfg.capacity_factor),
+        n_experts=min(cfg.n_experts, 8) if moe else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         n_layers=2,
         d_model=64,
         n_heads=4,

@@ -63,9 +63,11 @@ def _n_layers(groups) -> int:
 
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """The port's parameter structure (``embed``, ``layers`` — one dict per
-    layer with ``norm1``, ``attn``, ``norm2``, ``mlp`` — ``norm_f`` and,
-    when untied, ``lm_head``) on ``device`` (CUDA unless the caller names
-    another)."""
+    layer with ``norm1``, ``attn``, ``norm2``, ``mlp`` or ``moe`` —
+    ``norm_f`` and, when untied, ``lm_head``) on ``device`` (CUDA unless
+    the caller names another).  A ``moe`` subtree's stacked expert leaves
+    ((L, E, d, f) codes, (L, E, bits, d/8, f) planes, (L, E, 1, f) scales)
+    unstack like any other."""
     device = resolve_device(device)
     stack = tree["stack"]
     if stack.get("tail"):

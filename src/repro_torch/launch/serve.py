@@ -10,8 +10,11 @@ bucketed lengths (a burst) and writes each row's KV into its slot
 all slots per iteration, and retires sequences at EOS or their own
 ``max_new`` — freeing slot and blocks for the next arrival.  ``static``
 mode barriers admission until every slot drains (the batch-synchronous
-baseline).  Greedy tokens do not depend on the mode: a burst row's first
-token and KV are bit-identical to its prefill alone.
+baseline).  For the dense family greedy tokens do not depend on the
+mode: a burst row's first token and KV are bit-identical to its prefill
+alone.  An MoE burst runs each row whole over the burst's padded length,
+as the JAX package does: pad tokens route and take expert capacity, so
+its rows can differ from their prefills alone, in both packages.
 
 With ``--decode-horizon M`` (M > 1) each iteration runs a round of M
 steps with EOS and budget retirement on the device and one host sync per
@@ -62,6 +65,9 @@ dense read is plain PyTorch in both places.
       --qat-precondition 3
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
       --reduced --quant psi8 --mode both --device cpu --cache-layout dense
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen3-moe-30b-a3b --reduced --quant psi8 --mode both \\
+      --device cpu
 """
 from __future__ import annotations
 
@@ -238,10 +244,14 @@ class Server:
         arrivals in one iteration) runs one forward over all its prompts,
         right-padded to the longest bucket, then inserts each row.  (The
         reference also pads the batch to ``max_batch`` to bound its
-        compiles; eager PyTorch has none to bound.)  Each row attends at
+        compiles; eager PyTorch has none to bound, and MoE dispatch is per
+        row, so those rows change nothing.)  Dense: each row attends at
         its own bucketed length and the PSI kernels' rows do not depend on
         the batch, so a row's first token and KV are bit-identical to its
         prefill alone: greedy tokens do not depend on the scheduling mode.
+        MoE: each row attends over the whole padded burst, as in the
+        reference, whose pad positions route to experts and take capacity
+        (C from the padded length) from later slots' tokens.
         Where right-padding is unsafe — an SWA ring that the longest
         bucket overruns, with prompt lengths that differ — each request
         prefills alone.
@@ -303,8 +313,9 @@ class Server:
             first, cache = ex.prefill_insert(
                 toks, tl, cache, slot, bt[slot] if self.paged else None)
             return [int(first[0])], cache
-        first, seq_cache = ex.prefill(
-            toks, tl, row_lens=[self._bucket_len(n) for n in lens])
+        row_lens = (None if self.cfg.family == "moe"
+                    else [self._bucket_len(n) for n in lens])
+        first, seq_cache = ex.prefill(toks, tl, row_lens=row_lens)
         first = first.cpu().numpy()
         slots = [slot for slot, _ in admits]
         rows = np.stack([bt[slot] for slot in slots]) if self.paged else None

@@ -1,5 +1,5 @@
-"""Model facade for the dense family on both serving layouts (the paged
-block pool and the dense per-slot slab, a ring for SWA):
+"""Model facade for the dense and MoE families on both serving layouts
+(the paged block pool and the dense per-slot slab, a ring for SWA):
 
   * ``init(seed, device, bits=..., pack=..., policy=...,
     qat_precondition=...)`` -> params (random weights from a
@@ -33,7 +33,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import quantizer
-from repro_torch.models import attention, kvcache as kvc, layers, transformer
+from repro_torch.models import (attention, kvcache as kvc, layers, moe,
+                                transformer)
 from repro_torch.models.kvcache import KVCache
 from repro_torch.quant import embed, linear, tied_logits
 
@@ -47,9 +48,10 @@ def _positions(B, S, device, offset=0):
 
 class Model:
     def __init__(self, cfg):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+                f"family {cfg.family!r} is not ported yet (dense and moe "
+                f"only)")
         self.cfg = cfg
 
     @property
@@ -76,6 +78,9 @@ class Model:
                 specs += [(f"{pre}/attn/q_norm_scale", (hd,), None),
                           (f"{pre}/attn/k_norm_scale", (hd,), None)]
             specs.append((f"{pre}/norm2/scale", (d,), None))
+            if cfg.family == "moe":
+                specs += moe.param_specs(cfg, f"{pre}/moe")
+                continue
             if cfg.act != "gelu":                     # gated: 3 matrices
                 specs.append((f"{pre}/mlp/w_gate", (d, ff), d ** -0.5))
             specs += [

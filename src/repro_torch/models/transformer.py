@@ -1,11 +1,20 @@
-"""The dense decoder stack: a Python loop over per-layer parameter dicts
-(the JAX package scans over stacked layers; eager PyTorch needs no scan).
+"""The decoder stack of the dense and MoE families: a Python loop over
+per-layer parameter dicts (the JAX package scans over stacked layers; eager
+PyTorch needs no scan).  A layer's FFN half is its ``mlp`` or, for MoE,
+its ``moe`` experts; the MoE auxiliary loss is dropped at serving.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
+
+
+def _ffn(p, x, cfg):
+    """The FFN half of a block over (B, S, d), normed input ``x``."""
+    if cfg.family == "moe":
+        return moe.moe_ffn(p["moe"], x, cfg)[0]
+    return layers.apply_mlp(p["mlp"], x, cfg)
 
 
 def apply_block(p, x, cfg, positions, ctx=None, row_lens=None):
@@ -18,8 +27,7 @@ def apply_block(p, x, cfg, positions, ctx=None, row_lens=None):
                                                  row_lens=row_lens)
     x = x + y
     h2 = layers.apply_norm(p["norm2"], x, cfg)
-    return x + layers.apply_mlp(p["mlp"], h2, cfg), {"k": k, "v": v,
-                                                     "k_pos": k_pos}
+    return x + _ffn(p, h2, cfg), {"k": k, "v": v, "k_pos": k_pos}
 
 
 def apply_block_decode(p, x, cfg, positions, cache, block_tables=None,
@@ -35,20 +43,21 @@ def apply_block_decode(p, x, cfg, positions, cache, block_tables=None,
             p["attn"], h, cfg, positions, cache, block_tables, active=active)
     x = x + y
     h2 = layers.apply_norm(p["norm2"], x, cfg)
-    return x + layers.apply_mlp(p["mlp"], h2, cfg), cache
+    return x + _ffn(p, h2, cfg), cache
 
 
 def apply_block_verify(p, x, cfg, positions, cache, block_tables,
                        active=None):
     """k-token verify block: the attention half through
-    :func:`attention.paged_verify_attention_block`; norms and the MLP are
-    shape-generic over (B, k, d)."""
+    :func:`attention.paged_verify_attention_block`; norms and the FFN are
+    shape-generic over (B, k, d) (an MoE FFN routes the k tokens as one
+    row: capacity from S = k)."""
     h = layers.apply_norm(p["norm1"], x, cfg)
     y, cache = attention.paged_verify_attention_block(
         p["attn"], h, cfg, positions, cache, block_tables, active=active)
     x = x + y
     h2 = layers.apply_norm(p["norm2"], x, cfg)
-    return x + layers.apply_mlp(p["mlp"], h2, cfg), cache
+    return x + _ffn(p, h2, cfg), cache
 
 
 def apply_decoder_stack(layer_params, x, cfg, positions, ctx_kv=None,

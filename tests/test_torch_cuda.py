@@ -6,6 +6,7 @@ machine with a card and PyTorch only:
 
 Every test skips when no CUDA device is present.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -28,8 +29,11 @@ SHAPES = [(1, 64, 32), (3, 40, 36), (5, 40, 37), (2, 64, 33),
 
 def _matmuls_per_forward(cfg):
     """PSI-matmul launches of one forward: wq, wk, wv, wo and the MLP's
-    matrices (3 gated, 2 for the GELU MLP) per layer, plus the lm-head."""
-    return (4 + (2 if cfg.act == "gelu" else 3)) * cfg.n_layers + 1
+    matrices (3 gated, 2 for the GELU MLP; none for MoE experts, which are
+    dequantized blocks in a plain batched product) per layer, plus the
+    lm-head."""
+    mlp = 0 if cfg.family == "moe" else (2 if cfg.act == "gelu" else 3)
+    return (4 + mlp) * cfg.n_layers + 1
 
 
 @pytest.fixture
@@ -903,14 +907,18 @@ def test_spec_serve_never_hands_a_cuda_tensor_to_a_plain_version(
 # ---------------------------------------------------------------------------
 ARCHS = ["phi3-medium-14b", "granite-34b", "chatglm3-6b"]
 # (K, N) of wq/wo, wk/wv, w_gate/w_up (granite: w_up), w_down, lm_head;
-# chatglm3's wq/wo (4096, 4096) is qwen3-8b's, in QWEN_KN above
+# chatglm3's wq/wo (4096, 4096) is qwen3-8b's, in QWEN_KN above; then
+# qwen3-moe-30b-a3b's wq, wk/wv, wo and lm_head (its experts take no PSI
+# kernel)
 ARCH_KN = [(5120, 5120), (5120, 1280), (5120, 17920), (17920, 5120),
            (5120, 100352),
            (6144, 6144), (6144, 128), (6144, 24576), (24576, 6144),
            (6144, 49152),
-           (4096, 256), (4096, 13696), (13696, 4096), (4096, 65024)]
-# (Hq, Hkv) at D 128: phi3 (G 4), granite (MQA, G 48), chatglm3 (G 16)
-ARCH_HEADS = [(40, 10), (48, 1), (32, 2)]
+           (4096, 256), (4096, 13696), (13696, 4096), (4096, 65024),
+           (2048, 4096), (2048, 512), (4096, 2048), (2048, 151936)]
+# (Hq, Hkv) at D 128: phi3 (G 4), granite (MQA, G 48), chatglm3 (G 16),
+# qwen3-moe (G 8)
+ARCH_HEADS = [(40, 10), (48, 1), (32, 2), (32, 4)]
 
 
 @pytest.mark.parametrize("M", [1, 4, 16, 64])
@@ -974,16 +982,18 @@ def test_paged_attention_arch_heads_bf16_split(cuda, hq, hkv, n_bt, q_mul):
     assert bool((d <= tol).all()), float((d - tol).max())
 
 
-@pytest.mark.parametrize("arch", ["granite-34b", "chatglm3-6b"])
+@pytest.mark.parametrize("arch", ["granite-34b", "chatglm3-6b",
+                                  "qwen3-moe-30b-a3b"])
 def test_arch_decode_graph_replay_equals_eager_step(cuda, arch):
     """The horizon-1 graph of a full-width 2-layer model (granite: one kv
-    head and 48 query heads on it, the GELU MLP; chatglm3: 2-D RoPE)
+    head and 48 query heads on it, the GELU MLP; chatglm3: 2-D RoPE;
+    qwen3-moe: the MoE FFN of 128 experts captured, routing included)
     against eager decode_steps, bit for bit at f32, with one step's
     launches per replay."""
     _graph_vs_eager_steps(*_graph_executor("float32", 1, arch))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["qwen3-moe-30b-a3b"])
 def test_arch_serving_on_the_card_matches_the_cpu(cuda, arch):
     """The reduced arch at psi8 (float32): the same params and trace give
     the same greedy tokens on the card and the CPU, with exact launch
@@ -1222,3 +1232,106 @@ def test_dense_serve_reaches_only_the_kernels(cuda, case, monkeypatch):
             assert stats["prefill_forwards"] == 4    # 3 alone + 1 burst
         elif not mode:
             assert stats["prefill_forwards"] == 2    # two bursts of 3
+
+
+# ---------------------------------------------------------------------------
+# The MoE family (qwen3-moe-30b-a3b): the MoE FFN on the card against the
+# CPU, and the routing of a padded burst.  Its PSI shapes and its 32/4 head
+# layout are in ARCH_KN and ARCH_HEADS above.
+# ---------------------------------------------------------------------------
+MOE = "qwen3-moe-30b-a3b"
+
+
+def _moe_layer(cfg, bits, seed=0):
+    """One layer's MoE leaves on the card at ``cfg``'s widths: router in
+    f32, the expert blocks quantized (psi5 packed)."""
+    from repro_torch.core import quantizer
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = {}
+    for path, shape, std in moe.param_specs(cfg, "moe"):
+        w = torch.randn(shape, generator=gen, device="cuda") * std
+        p[path.split("/")[-1]] = quantizer.quantize_leaf(path, w, bits,
+                                                         pack=bits < 8)
+    return p
+
+
+@pytest.mark.parametrize("bits", [8, 5])
+@pytest.mark.parametrize("width", ["reduced", "full"])
+@pytest.mark.parametrize("cf", [1.0, 8.0])
+def test_moe_ffn_card_matches_cpu(cuda, width, bits, cf):
+    """moe_ffn on the card against the CPU plain path on the same leaves
+    and inputs, 2 x 80 tokens (the full width at one layer: C = 5 at cf 1
+    against a mean load of 5, so tokens drop; none at cf 8, where C
+    covers S at the reduced width and far exceeds the load at the full
+    one): slots and keep exact; y within 1e-4 of O(1)
+    outputs in float32, and within 2^-6 of the output's largest magnitude
+    in bf16 (the card's f32 products of bf16 blocks through out_dtype, the
+    CPU's through an f32 upcast: sums in another order, rounded to bf16
+    at h, ye and each combine step)."""
+    from repro_torch.models import moe
+    cfg = get_config(MOE) if width == "full" else reduced_config(
+        get_config(MOE))
+    cfg = dataclasses.replace(cfg, capacity_factor=cf,
+                              quant_mode=f"psi{bits}")
+    p = _moe_layer(cfg, bits)
+    pc = {k: v.to("cpu") for k, v in p.items()}
+    x = torch.randn(2, 80, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    for dtype in (torch.float32, torch.bfloat16):
+        want, _ = moe.moe_ffn(pc, x.to(dtype), cfg)
+        _, ws, wk, _, _ = moe.route(pc, x.to(dtype), cfg)
+        with torch.inference_mode():
+            got, _ = moe.moe_ffn(p, x.to(cuda, dtype), cfg)
+            _, gs, gk, _, _ = moe.route(p, x.to(cuda, dtype), cfg)
+        assert got.dtype == dtype
+        assert torch.equal(gs.cpu(), ws) and torch.equal(gk.cpu(), wk)
+        tol = 1e-4 if dtype == torch.float32 else \
+            2 ** -6 * float(want.float().abs().max())
+        torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0,
+                                   atol=tol)
+        assert bool(wk.all()) == (cf == 8.0)    # cf 1 drops tokens
+
+
+def test_moe_burst_routes_pads_as_whole_rows(cuda):
+    """An MoE burst runs attention over each whole padded row, as the JAX
+    package does (no per-row extents): pad positions route and take
+    capacity, so a row's routing equals that row prefilled alone at the
+    burst's padded length (not at its own bucket).  Reduced qwen3-moe at
+    psi8, float32, capacity factor 1: per layer the same slots and keep,
+    the same first token, cache rows within 1e-5."""
+    from repro_torch.models import moe
+    from repro_torch.runtime import Executor
+    cfg = reduced_config(get_config(MOE), quant_mode="psi8",
+                         capacity_factor=1.0)
+    params = build_model(cfg).init(seed=0, device="cuda", bits=8)
+    ex = Executor(cfg, params, max_batch=3, max_seq=64, device="cuda")
+    rng = np.random.default_rng(2)
+    lens = [13, 30, 9]
+    toks = np.zeros((3, 32), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, size=n)
+    routes = []
+    real = moe.route
+
+    def logged(*a, **kw):
+        out = real(*a, **kw)
+        routes.append(out[1:3])
+        return out
+    moe.route = logged
+    try:
+        first, burst = ex.prefill(toks, np.asarray(lens, np.int32))
+        burst_routes, routes[:] = list(routes), []
+        for i, n in enumerate(lens):
+            f1, alone = ex.prefill(toks[i:i + 1], np.asarray([n], np.int32))
+            assert int(f1[0]) == int(first[i]), i
+            for (bs_, bk), (as_, ak) in zip(burst_routes, routes):
+                assert torch.equal(bs_[i], as_[0]) and torch.equal(bk[i],
+                                                                   ak[0])
+            for lb, la in zip(burst.kv, alone.kv):
+                torch.testing.assert_close(lb["k"][i], la["k"][0], rtol=0,
+                                           atol=1e-5)
+            routes[:] = []
+    finally:
+        moe.route = real
+    assert not all(bool(k.all()) for _, k in burst_routes)   # drops
