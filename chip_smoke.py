@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
 (sm_90a), holds each against its plain PyTorch version on the card, serves
 full-width qwen3-8b (on the paged pool and on the dense slab),
-phi3-medium-14b, granite-34b, chatglm3-6b and qwen3-moe-30b-a3b from PSI
-codes through them, and compares the card with the CPU.  Phases, each
+phi3-medium-14b, granite-34b, chatglm3-6b, qwen3-moe-30b-a3b, qwen2-vl-2b
+and recurrentgemma-9b from PSI codes through them, and compares the card
+with the CPU.  Phases, each
 printing one JSON line; any failure exits non-zero before the result line:
 
   1. card and build    — nvidia-smi name and power limit, kernel build time;
@@ -23,7 +24,9 @@ printing one JSON line; any failure exits non-zero before the result line:
                          at the five weight shapes of each other dense
                          config (kernel_shape_arch, kernel_step_arch) and
                          kernel 3 at their head layouts (4 x 80, 4 x 512,
-                         16 x 2048), qwen3-moe's 32/4 included;
+                         16 x 2048), qwen3-moe's 32/4 and qwen2-vl's
+                         12/2 (G = 6) included (recurrentgemma decodes
+                         on the dense ring: no kernel 3);
   3. serve psi8        — Server.serve of qwen3-8b, all 36 layers, in
                          continuous and static modes: identical tokens, and
                          253 PSI-matmul (kernel 1) + 36 attention launches
@@ -93,6 +96,21 @@ printing one JSON line; any failure exits non-zero before the result line:
                          prefill forward (C = 23) and one decode step's
                          MoE time split into expert dequantize and expert
                          GEMMs;
+  4e. VLM and hybrid (serve_qwen2vl_psi8, serve_recurrentgemma_psi8 and
+                         their _horizon phases) — full width and depth,
+                         the psi8 trace: qwen2-vl on the paged pool (197
+                         matmuls a forward, 28 attention calls a step),
+                         recurrentgemma on the dense 2048-ring (293
+                         matmuls, no kernel 3; exact-length prefills:
+                         one forward a request where an admission's
+                         prompt lengths differ); continuous and static at
+                         horizon 1 and continuous at horizon 8, tokens
+                         identical; one decode and one round graph; a
+                         decode window (eager, graph), one 288-row
+                         prefill; the tied head's time built once against
+                         a transpose per call; for the hybrid the rec
+                         blocks' non-PSI time at decode and prefill (the
+                         scan's share) split out (rec_layer_split);
   5. card vs CPU       — prefill + 8 greedy decode steps of a 2-layer
                          float32 psi8 model on the card and on the CPU, on
                          the card a suffix prefill (the prompt split at a
@@ -105,8 +123,12 @@ printing one JSON line; any failure exits non-zero before the result line:
                          tokens), and a 2-layer float32 qwen3-8b serve and
                          a reduced mixtral-8x22b serve on a 16-position SWA
                          ring (dense; wrapping rings, a burst that
-                         prefills one by one), tokens identical on the
-                         card and the CPU;
+                         prefills one by one), a 2-layer qwen2-vl serve,
+                         a 3-layer (one group) recurrentgemma serve, a
+                         2-layer qwen2-vl prefill with 8 spliced patches
+                         and distinct M-RoPE streams (logits), and the
+                         reduced 5-layer hybrid on its 32-ring, tokens
+                         identical on the card and the CPU;
   6. summary           — {"kernels": [...]}, the card line, then the result
                          {"ok": true, "device": {...}} as the last line.
 
@@ -133,7 +155,14 @@ MAIN_ARCH = "qwen3-8b"
 ARCHS = {"phi3-medium-14b": ("phi3", "psi8"),
          "granite-34b": ("granite", "psi5"),
          "chatglm3-6b": ("chatglm3", "psi8"),
-         "qwen3-moe-30b-a3b": ("qwen3moe", "psi8")}
+         "qwen3-moe-30b-a3b": ("qwen3moe", "psi8"),
+         "qwen2-vl-2b": ("qwen2vl", "psi8"),
+         "recurrentgemma-9b": ("recurrentgemma", "psi8")}
+# configs whose phase also serves the trace at horizon 8 (continuous)
+HORIZON_ARCHS = ("qwen3-moe-30b-a3b", "qwen2-vl-2b", "recurrentgemma-9b")
+# the card-vs-CPU serve's depth by config (2 layers; the hybrid one
+# (rec, rec, attn) group)
+CARD_VS_CPU_LAYERS = {"recurrentgemma-9b": 3}
 # the card-vs-CPU serve of an MoE config cuts its experts (the CPU's plain
 # path dequantizes every expert block each forward): qwen3-moe keeps its
 # widths and top-8 over 32 experts, so a 3-token verify still has C = 1
@@ -190,29 +219,51 @@ def check(cond, msg):
 
 def counts_per_step(cfg):
     """(PSI-matmul launches per forward, attention calls per decode step):
-    wq, wk, wv, wo and the MLP's matrices (3 gated, 2 for the GELU MLP,
-    none for MoE: its experts are dequantized blocks in a plain batched
-    product) per layer plus the lm-head; one attention read per layer."""
+    wq, wk, wv, wo (a rec layer's w_in_gate, w_in_rec, rglru_wa, rglru_wx,
+    w_out) and the MLP's matrices (3 gated, 2 for the GELU MLP, none for
+    MoE: its experts are dequantized blocks in a plain batched product)
+    per layer plus the lm-head; one paged attention read per attention
+    layer (none on the dense slab: its read is plain)."""
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(cfg)
     mlp = 0 if cfg.family == "moe" else (2 if cfg.act == "gelu" else 3)
-    return (4 + mlp) * cfg.n_layers + 1, cfg.n_layers
+    per_fwd = sum((5 if k == "rec" else 4) + mlp for k in kinds) + 1
+    paged = cfg.resolved_cache_layout == "paged"
+    return per_fwd, kinds.count("attn") if paged else 0
 
 
 def weight_shapes(cfg):
     """{label: ((K, N), launches per forward)} of a config's PSI matmuls
-    (wq and wo apart where n_heads x head_dim != d_model; no MLP for MoE)."""
-    d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
+    (wq and wo apart where n_heads x head_dim != d_model; no MLP for MoE;
+    the rec layers' five; labels of one shape merged)."""
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(cfg)
+    d, hd, L = cfg.d_model, cfg.resolved_head_dim, len(kinds)
+    La, Lr, dr = kinds.count("attn"), kinds.count("rec"), cfg.resolved_d_rnn
     q = cfg.n_heads * hd
-    attn = ({"wq/wo": ((d, d), 2 * L)} if q == d
-            else {"wq": ((d, q), L), "wo": ((q, d), L)})
+    rows = ([("wq/wo", (d, d), 2 * La)] if q == d
+            else [("wq", (d, q), La), ("wo", (q, d), La)])
+    rows.append(("wk/wv", (d, cfg.n_kv_heads * hd), 2 * La))
+    if Lr:
+        rows += [("w_in_gate/w_in_rec", (d, dr), 2 * Lr),
+                 ("rglru_wa/rglru_wx", (dr, dr), 2 * Lr),
+                 ("w_out", (dr, d), Lr)]
     if cfg.family == "moe":
-        mlp = {}
+        pass
     elif cfg.act == "gelu":
-        mlp = {"w_up": ((d, cfg.d_ff), L), "w_down": ((cfg.d_ff, d), L)}
+        rows += [("w_up", (d, cfg.d_ff), L), ("w_down", (cfg.d_ff, d), L)]
     else:
-        mlp = {"w_gate/w_up": ((d, cfg.d_ff), 2 * L),
-               "w_down": ((cfg.d_ff, d), L)}
-    return {**attn, "wk/wv": ((d, cfg.n_kv_heads * hd), 2 * L), **mlp,
-            "lm_head": ((d, cfg.vocab_size), 1)}
+        rows += [("w_gate/w_up", (d, cfg.d_ff), 2 * L),
+                 ("w_down", (cfg.d_ff, d), L)]
+    rows.append(("lm_head", (d, cfg.vocab_size), 1))
+    out = {}
+    for label, kn, n in rows:
+        old = next((k for k, (s, _) in out.items() if s == kn), None)
+        if old is None:
+            out[label] = (kn, n)
+        else:
+            out[f"{old}+{label}"] = (kn, out.pop(old)[1] + n)
+    return out
 
 
 def check_full(cfg, arch):
@@ -222,7 +273,8 @@ def check_full(cfg, arch):
     want = get_config(arch)
     keys = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
             "vocab_size", "head_dim", "act", "rope", "n_experts", "top_k",
-            "capacity_factor")
+            "capacity_factor", "block_pattern", "d_rnn", "rglru_c",
+            "window", "vision_patches", "tie_embeddings")
     check(all(getattr(cfg, k) == getattr(want, k) for k in keys),
           f"{arch}: not full width and depth")
 
@@ -710,10 +762,11 @@ def phase_kernels(torch, dev, bw, peak):
             for qdt, pool in types:
                 worst = max(worst, held(split_case(
                     G * 1000 + D, 64, G, 1 if G == 48 else 2, D, qdt, pool)))
-    # the other dense configs' head layouts (phi3 40/10, granite 48/1,
-    # chatglm3 32/2; D 128) over split tables
+    # the other paged configs' head layouts (phi3 40/10, granite 48/1,
+    # chatglm3 32/2, qwen3-moe 32/4, qwen2-vl 12/2: G = 6, a partial head
+    # block; D 128) over split tables
     arch_heads = _arch_heads()
-    for hq, hkv in arch_heads:
+    for _, hq, hkv in arch_heads:
         for n_bt in (64, 160):
             for qdt, pool in types:
                 worst = max(worst, held(split_case(
@@ -724,7 +777,8 @@ def phase_kernels(torch, dev, bw, peak):
           "cases": "n_bt 64/160 at 32/8/128 (pos on, one short of, inside "
                    "the first split; all -1 slot; last split only), and "
                    "G in 1,2,4,6,8,16,48 x D in 16,64,128,256 at n_bt 64; "
-                   f"Hq/Hkv {arch_heads} at D 128, n_bt 64/160; q/pool "
+                   f"Hq/Hkv {[h[1:] for h in arch_heads]} at D 128, n_bt "
+                   "64/160; q/pool "
                    "bf16/bf16, bf16/int8, f32/f32, f32/int8",
           "tolerance": "as kernel_paged_attention"})
 
@@ -861,7 +915,7 @@ def phase_kernels(torch, dev, bw, peak):
     for extra in (attn_times(4, 512, "bf16"), attn_times(4, 512, "int8"),
                   attn_times(16, 2048, "bf16"), attn_times(16, 2048, "int8")):
         emit({"phase": "kernel_paged_attention_time", **extra})
-    for arch, (hq, hkv) in zip(ARCHS, arch_heads):
+    for arch, hq, hkv in arch_heads:
         for B, n_pos in ((4, 80), (4, 512), (16, 2048)):
             row = attn_times(B, n_pos, "bf16", hq, hkv)
             max_err["paged_attention"] = max(max_err["paged_attention"],
@@ -1002,9 +1056,17 @@ def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
 
 
 def _arch_heads():
-    """(Hq, Hkv) of each config in ARCHS, in order."""
+    """(arch, Hq, Hkv) of each config in ARCHS that decodes through kernel
+    3 (the paged ones; all at head_dim 128), in order."""
     from repro_torch.configs import get_config
-    return [(get_config(a).n_heads, get_config(a).n_kv_heads) for a in ARCHS]
+    out = []
+    for a in ARCHS:
+        cfg = get_config(a)
+        if cfg.paged_capable:
+            check(cfg.resolved_head_dim == 128, f"{a}: kernel 3's rows here "
+                                                f"are at head_dim 128")
+            out.append((a, cfg.n_heads, cfg.n_kv_heads))
+    return out
 
 
 def _codes_plan(K, N):
@@ -1062,12 +1124,21 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     serve_qwen3moe_psi8_horizon); the routing of its prefills is logged
     (capacities, slots kept, which must fall short of the slots routed:
     tokens drop), and one decode step's MoE time is split into the
-    expert dequantize and the expert GEMMs (moe_layer_split)."""
+    expert dequantize and the expert GEMMs (moe_layer_split).
+
+    qwen2-vl-2b (paged, M-RoPE's equal streams, 197 matmuls a forward)
+    and recurrentgemma-9b (the dense 2048-ring, 293 matmuls, no kernel 3;
+    one prefill forward a request where an admission's prompt lengths
+    differ) serve the psi8 trace and, like MoE, at horizon 8
+    (continuous); both time their tied head built once against a
+    transpose per call (tied_head), and the hybrid splits its rec blocks
+    into PSI and other time at decode and prefill (rec_layer_split)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     main = arch == MAIN_ARCH
     moe = get_config(arch).family == "moe"
+    hybrid = get_config(arch).family == "hybrid"
     if main and quant != "psi8":
         args = _serve_args(quant=quant, requests=4, max_new=8, min_new=4)
     elif moe:
@@ -1113,7 +1184,8 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     got = ops.launch_counts()                         # ... and ends here
     held = _check_prefill_rows(torch, rows, name, server.executor.params,
                                PREFILL_MS if main else ARCH_MS)
-    _check_bursts(name, {m: runs[m][1] for m in runs}, admitted)
+    _check_bursts(name, {m: runs[m][1] for m in runs}, admitted,
+                  exact=not server._pad_ok)
     (tc, sc, done_c), (ts, ss, _) = runs["continuous"], runs["static"]
     check(tc == ts, f"{name}: continuous and static modes emitted "
                     f"different tokens")
@@ -1129,9 +1201,9 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
           f"{name}: want one captured decode graph, got "
           f"{sc['decode_compiles']} / {ss['decode_compiles']}")
     for st in (sc, ss):
-        check(st["blocks_free_end"] == st["n_blocks"],
-              f"{name}: {st['n_blocks'] - st['blocks_free_end']} blocks "
-              f"leaked")
+        check("n_blocks" not in st or st["blocks_free_end"] == st["n_blocks"],
+              f"{name}: {st.get('n_blocks', 0) - st.get('blocks_free_end', 0)}"
+              f" blocks leaked")
     steps = sc["decode_steps"] + ss["decode_steps"]
     fwd = sc["prefill_forwards"] + ss["prefill_forwards"]
     want = {"psi_matmul_codes": 0, "psi_matmul_packed": 0,
@@ -1151,8 +1223,8 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     launches[key] = launches.get(key, 0) + got[key]
     launches["paged_attention"] = (launches.get("paged_attention", 0)
                                    + got["paged_attention"])
-    server8 = prefill = split = None
-    if main or moe:
+    server8 = prefill = split = tied = None
+    if main or arch in HORIZON_ARCHS:
         # the same params behind a horizon-8 server: its warmup captures
         # the one 8-step round graph
         server8 = serve.Server(cfg, ex.params, max_batch=args.max_batch,
@@ -1166,12 +1238,13 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     burst = _burst_window(torch, server) if main and quant == "psi8" \
         else None
     if not main:
-        # one prefill forward of ARCH_PREFILL_ROWS rows: a table that
-        # covers them, one slot, no decode graph
+        # one prefill forward of ARCH_PREFILL_ROWS rows: a table (or a
+        # slab) that covers them, one slot, no decode graph
         bs = cfg.cache_block_size
         nb = -(-(ARCH_PREFILL_ROWS + bs) // bs)
         pserver = serve.Server(cfg, ex.params, max_batch=1,
-                               max_seq=nb * bs, device=dev, n_blocks=nb)
+                               max_seq=nb * bs, device=dev,
+                               n_blocks=nb if server.paged else None)
         prefill = _prefill_window(torch, pserver, rows=(ARCH_PREFILL_ROWS,),
                                   calls=1 if moe else 3)
         if moe:
@@ -1187,6 +1260,10 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
                 undo_route()
             prefill["routing"] = _drops(log)
             split = _moe_split(torch, ex)
+        if hybrid:
+            split = _rec_split(torch, ex)
+        if cfg.tie_embeddings:
+            tied = _tied_head_times(torch, ex)
         del pserver
     keep = ("tok_per_s", "wall_s", "tokens", "p50_latency_s",
             "p99_latency_s", "p50_ttft_s", "p99_ttft_s", "p50_itl_s",
@@ -1203,18 +1280,19 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
           "step_weight_bytes": step_bytes,
           "step_bound_ms": step_bytes / card_rates(
               torch.cuda.get_device_name(0))[0] * 1e3,
-          "continuous": {k: sc[k] for k in keep},
-          "static": {k: ss[k] for k in keep},
+          "continuous": {k: sc[k] for k in keep if k in sc},
+          "static": {k: ss[k] for k in keep if k in ss},
           "tokens_identical": True, "launches": got,
           "launches_per_forward": per_fwd,
           "attention_per_decode_step": per_step,
           "admissions": admitted, "prefill_rows_held_here": held,
           "decode_window": window, "prefill_window": prefill,
           "burst_prefill_window": burst, "prefill_routing": drops,
-          "moe_layer_split": split,
+          ("rec_layer_split" if hybrid else "moe_layer_split"): split,
+          "tied_head": tied,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
           "phase_wall_s": time.perf_counter() - t_phase})
-    if moe:
+    if arch in HORIZON_ARCHS:
         phase_serve_horizon(torch, server8, args, cfg, tc, launches, keep,
                             f"{name}_horizon", ("continuous",))
     if main and quant == "psi8":
@@ -1228,14 +1306,19 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     _free(torch)
 
 
-def _check_bursts(name, stats, admitted):
+def _check_bursts(name, stats, admitted, exact=False):
     """Each admission event of a full-attention serve outside context
-    serving is one prefill forward, whatever its size: the burst rule."""
+    serving is one prefill forward, whatever its size: the burst rule.
+    ``exact`` (recurrent state, which pads would pollute): an event of
+    prompts of one length is one forward, of unequal lengths one forward
+    a request."""
     for mode, st in stats.items():
-        check(st["prefill_forwards"] == len(admitted[mode]),
+        want = sum(1 if not exact or len(set(ev)) == 1 else len(ev)
+                   for ev in admitted[mode])
+        check(st["prefill_forwards"] == want,
               f"{name} {mode}: {st['prefill_forwards']} prefill forwards "
-              f"for {len(admitted[mode])} admission events "
-              f"{admitted[mode]}")
+              f"for admission events (prompt lengths) {admitted[mode]}, "
+              f"want {want}")
 
 
 def _route_log():
@@ -1320,6 +1403,96 @@ def _moe_split(torch, ex):
             "dequantize_bound_ms": deq_bytes / bw * 1e3,
             "expert_gemm_bound_ms": gemm_bytes / bw * 1e3,
             "codes_read_once_ms": L * codes / bw * 1e3}
+
+
+def _rec_split(torch, ex, rows=ARCH_PREFILL_ROWS):
+    """The hybrid's rec blocks, device time from CUDA-graph replays over
+    every rec layer in turn (each layer's codes come from HBM), summed over
+    the rec layers: a decode step's block at the serve's shape (max_batch
+    tokens; ``rglru_decode_step``, the freeze of inactive rows and the
+    state's copy back, as ``apply_block_decode`` runs them) against its
+    five PSI matmuls alone, the difference being the conv, the gates, the
+    recurrence and the freeze; and one ``rows``-row prefill's block
+    (``rglru_block``) against its five matmuls alone, the difference being
+    the conv, the gates and the scan, and the scan alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import rglru, transformer
+    cfg = ex.model.cfg
+    kinds = transformer.layer_kinds(cfg)
+    recs = [p["rec"] for p, k in zip(ex.params["layers"], kinds)
+            if k == "rec"]
+    L, B, dev, dt = len(recs), ex.max_batch, ex.device, ex.model.dtype
+    d, dr = cfg.d_model, cfg.resolved_d_rnn
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(B, 1, d, generator=g, device=dev).to(dt)
+    xr = torch.randn(B, 1, dr, generator=g, device=dev).to(dt)
+    state = rglru.init_rglru_state(cfg, B, dev)
+    state["h"].normal_(generator=g)
+    out_state = {k: v.clone() for k, v in state.items()}
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[-1] = False
+
+    def step(i):
+        _, new = rglru.rglru_decode_step(recs[i], x, cfg, state)
+        for k, t in transformer._freeze_inactive_state(new, state,
+                                                       active).items():
+            out_state[k].copy_(t)
+
+    def matmuls(xa, xb):
+        def run(i):
+            p = recs[i]
+            for w, v in (("w_in_gate", xa), ("w_in_rec", xa),
+                         ("rglru_wa", xb), ("rglru_wx", xb), ("w_out", xb)):
+                ops.psi_matmul(v, p[w])
+        return run
+
+    xp = torch.randn(1, rows, d, generator=g, device=dev).to(dt)
+    xpr = torch.randn(1, rows, dr, generator=g, device=dev).to(dt)
+    a = torch.rand(1, rows, dr, generator=g, device=dev)
+    b = torch.randn(1, rows, dr, generator=g, device=dev)
+    h0 = torch.zeros(1, dr, device=dev)
+    with torch.inference_mode():
+        t_step = _graph_ms(torch, step, L, iters=L, reps=3) * L
+        t_mm = _graph_ms(torch, matmuls(x, xr), L, iters=L, reps=3) * L
+        t_pre = _graph_ms(torch, lambda i: rglru.rglru_block(recs[i], xp,
+                                                             cfg),
+                          L, iters=L, reps=3) * L
+        t_pre_mm = _graph_ms(torch, matmuls(xp, xpr), L, iters=L,
+                             reps=3) * L
+        t_scan = _graph_ms(torch, lambda i: rglru._scan(a, b, h0), 1,
+                           iters=L, reps=3) * L
+    return {"rec_layers": L, "decode_tokens": B,
+            "decode_rec_block_ms_per_step": t_step,
+            "decode_rec_psi_ms_per_step": t_mm,
+            "decode_rec_non_psi_ms_per_step": t_step - t_mm,
+            "prefill_rows": rows, "prefill_rec_block_ms": t_pre,
+            "prefill_rec_psi_ms": t_pre_mm,
+            "prefill_rec_non_psi_ms": t_pre - t_pre_mm,
+            "prefill_scan_ms": t_scan}
+
+
+def _tied_head_times(torch, ex):
+    """The tied lm-head at the decode shape (max_batch rows), device time
+    from CUDA-graph replays: through the head the executor built once, and
+    with the (V, D) table transposed again on every call (before that
+    head existed); the head's bytes; its logits equal the per-call
+    transpose's bit for bit."""
+    from repro_torch.quant import tied_logits
+    emb, head = ex.params["embed"], ex.params["tied_head"]
+    x = torch.randn(ex.max_batch, 1, ex.model.cfg.d_model,
+                    device=ex.device).to(ex.model.dtype)
+    with torch.inference_mode():
+        check(torch.equal(tied_logits(emb, x, head=head),
+                          tied_logits(emb, x)),
+              "tied head: logits differ from the per-call transpose's")
+        prebuilt = _graph_ms(torch, lambda i: tied_logits(emb, x, head=head),
+                             1, iters=10, reps=3)
+        per_call = _graph_ms(torch, lambda i: tied_logits(emb, x), 1,
+                             iters=2, reps=3)
+    return {"rows": ex.max_batch, "prebuilt_head_ms": prebuilt,
+            "per_call_transpose_ms": per_call,
+            "head_bytes": head.data.numel() * head.data.element_size()
+            + head.scale.numel() * 4}
 
 
 def _burst_window(torch, server, lens=(64, 72, 66, 80), calls=3):
@@ -1544,7 +1717,8 @@ def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
         launches[k] = launches.get(k, 0) + got[k]
     emit({"phase": name, "decode_horizon": HORIZON,
           "layers": cfg.n_layers, "requests": args.requests,
-          **{mode: {k: st[k] for k in keep + ("decode_rounds", "loop_iters")}
+          **{mode: {k: st[k] for k in keep + ("decode_rounds", "loop_iters")
+                    if k in st}
              for mode, (_, st) in runs.items()},
           "tokens_identical_to_horizon_1": True, "launches": got})
 
@@ -1724,17 +1898,17 @@ def _record_prefill_rows(ex):
 
 
 def _admissions(server):
-    """Wrap ``server._prefill_admits`` to record each admission event's
-    size (the requests one loop iteration admitted: one prefill forward
-    for the burst, unless it falls back to one by one); returns (sizes,
-    undo)."""
+    """Wrap ``server._prefill_admits`` to record each admission event (the
+    requests one loop iteration admitted: one prefill forward for the
+    burst, unless it falls back to one by one) as its prompt lengths;
+    returns (events, undo)."""
     sizes = []
     admit = server._prefill_admits
     depth = [0]
 
     def logged(cache, admits, *a, **kw):
         if not depth[0]:
-            sizes.append(len(admits))
+            sizes.append([len(r.prompt) for _, r in admits])
         depth[0] += 1
         try:
             return admit(cache, admits, *a, **kw)
@@ -1753,16 +1927,21 @@ def _check_prefill_rows(torch, rows, label, params, checked=PREFILL_MS):
     were held against their plain versions: phase_kernels held them at
     ``checked`` (PREFILL_MS at qwen3-8b's shapes, ARCH_MS at the other
     configs'); a burst's B x Sb rows past those (they follow the
-    admissions' timing) are held here on the served weights (layer 0's
-    matrices and the lm-head), bf16, within one bf16 ulp of the output.
-    Returns {rows: max abs err} of the rows held here."""
+    admissions' timing), and the hybrid's exact prompt lengths, are held
+    here on the served weights (the first attention layer's matrices and
+    the first rec layer's, the MLP's, the lm-head or the tied head), bf16,
+    within one bf16 ulp of the output.  Returns {rows: max abs err} of the
+    rows held here."""
     from repro_torch.kernels import ops, ref
     new = sorted(set(rows) - set(checked))
-    layer = params["layers"][0]
-    mlp = layer.get("mlp", {})              # an MoE layer's experts run none
-    leaves = ([layer["attn"][n] for n in ("wq", "wk", "wv", "wo")]
+    attn = next(p for p in params["layers"] if "attn" in p)
+    rec = next((p["rec"] for p in params["layers"] if "rec" in p), {})
+    mlp = attn.get("mlp", {})               # an MoE layer's experts run none
+    leaves = ([attn["attn"][n] for n in ("wq", "wk", "wv", "wo")]
+              + [rec[n] for n in ("w_in_gate", "w_in_rec", "rglru_wa",
+                                  "rglru_wx", "w_out") if n in rec]
               + [mlp[n] for n in sorted(mlp)]
-              + ([params["lm_head"]] if "lm_head" in params else []))
+              + [params[n] for n in ("lm_head", "tied_head") if n in params])
     dev = leaves[0].data.device
     gen = torch.Generator(device=dev).manual_seed(len(rows))
     held = {}
@@ -2189,7 +2368,7 @@ def _prefill_window(torch, server, rows=(32, 128, 288, 448), calls=3):
     import numpy as np
     ex = server.executor
     cache = ex.init_cache()
-    brow = np.full((ex.n_bt,), -1, np.int32)
+    brow = np.full((ex.n_bt,), -1, np.int32) if ex.paged else None
     out = {}
     for M in rows:
         toks = (np.arange(M, dtype=np.int32) % server.cfg.vocab_size)[None]
@@ -2223,7 +2402,8 @@ def _decode_window(torch, server, multi=None, steps=5):
         cache = executor.init_cache()
         if not executor.paged:
             for layer in cache.kv:
-                layer["k_pos"][:, :72] = torch.arange(72, device=dev)
+                if "k_pos" in layer:          # a rec layer's state stays 0
+                    layer["k_pos"][:, :72] = torch.arange(72, device=dev)
         return cache
 
     cache = slab(ex)
@@ -2375,32 +2555,91 @@ def phase_card_vs_cpu(torch, dev):
           f"prefill tokens {suffix['tokens_full']}")
     spec = _spec_card_vs_cpu(torch, dev, cfg, model)
     del params, model
-    archs = {arch: _arch_card_vs_cpu(torch, dev, arch) for arch in ARCHS}
+    archs = {arch: _arch_card_vs_cpu(torch, dev, arch,
+                                     CARD_VS_CPU_LAYERS.get(arch, 2))
+             for arch in ARCHS}
+    vision = _vision_card_vs_cpu(torch, dev)
     swa = _swa_card_vs_cpu(torch, dev, get_config(
         MAIN_ARCH, n_layers=2, dtype="float32", quant_mode="psi8",
         attn_type="swa", window=16))
     mixtral = _swa_card_vs_cpu(torch, dev, reduced_config(
         get_config("mixtral-8x22b"), quant_mode="psi8", window=16))
+    # the hybrid at 5 layers (one group and a tail of two rec layers) on
+    # its reduced 32-position ring: prompts of six lengths past the
+    # window, so every prefill is alone (exact lengths) and rolls the ring
+    hybrid = _swa_card_vs_cpu(torch, dev, reduced_config(
+        get_config("recurrentgemma-9b"), quant_mode="psi8", n_layers=5),
+        lens=(30, 34, 28, 27, 29, 26), static_forwards=6)
     emit({"phase": "card_vs_cpu", "layers": cfg.n_layers, "dtype": "float32",
           "steps": "prefill(16) + 8 decode", "max_abs_err": err,
           "max_abs_logit": amax, "tolerance": tol,
           "argmax_agree": f"{agree}/{len(card)}",
           "suffix_vs_full": suffix, "speculative": spec,
-          "archs": archs, "swa_ring": swa, "mixtral_reduced_swa_ring": mixtral,
-          "ok": True})
+          "archs": archs, "qwen2vl_vision_prefill": vision, "swa_ring": swa,
+          "mixtral_reduced_swa_ring": mixtral,
+          "recurrentgemma_reduced_5_layer_ring": hybrid, "ok": True})
 
 
-def _swa_card_vs_cpu(torch, dev, cfg):
+def _vision_card_vs_cpu(torch, dev, P=8, S=24):
+    """qwen2-vl-2b at full width cut to 2 layers, float32 psi8 (seed 1):
+    one prefill of S tokens whose first P embeddings are spliced vision
+    patches, with distinct (t, h, w) streams (the patches on a 2 x 4 grid
+    at t = 0, the text after them on all three), on the card and on the
+    CPU: logits within the phase's 1e-3 (scaled), the splice and the
+    streams moving them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime.executor import params_to
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-vl-2b", n_layers=2, dtype="float32",
+                     quant_mode="psi8")
+    model = build_model(cfg)
+    params = model.init(seed=1, device=dev, bits=8)
+    g = torch.Generator().manual_seed(8)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=g)
+    vis = torch.randn(1, P, cfg.d_model, generator=g) * 0.5
+    pos = torch.zeros(1, 3, S, dtype=torch.int32)
+    pos[0, 1, :P] = torch.arange(P) // 4
+    pos[0, 2, :P] = torch.arange(P) % 4
+    pos[0, :, P:] = torch.arange(S - P, dtype=torch.int32) + 4
+    out = {}
+    for device, p in (("cpu", params_to(params, "cpu")), ("cuda", params)):
+        with torch.inference_mode():
+            out[device] = [model.prefill(p, toks.to(device), **kw)[0]
+                           .float().cpu()
+                           for kw in ({"positions": pos.to(device),
+                                       "vision_embeds": vis.to(device)},
+                                      {})]
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    amax = float(out["cpu"][0].abs().max())
+    tol = 1e-3 * max(1.0, amax / 10.0)
+    check(err <= tol, f"qwen2-vl vision prefill card vs CPU logits differ "
+                      f"by {err} > {tol}")
+    check(not torch.equal(out["cuda"][0], out["cuda"][1]),
+          "qwen2-vl: the vision splice and streams left the logits as they "
+          "were")
+    del params, model
+    _free(torch)
+    return {"layers": cfg.n_layers, "patches": P, "tokens": S,
+            "max_abs_err": err, "max_abs_logit": amax, "tolerance": tol,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _swa_card_vs_cpu(torch, dev, cfg, lens=(20, 23, 18, 10, 14, 12),
+                     static_forwards=4):
     """An SWA config (qwen3-8b at full width cut to 2 layers under
-    attn_type="swa", or reduced mixtral-8x22b; float32 psi8, seed 1) with
-    a 16-position ring on the dense layout, served on the CPU and on the
+    attn_type="swa", reduced mixtral-8x22b, or the reduced hybrid; float32
+    psi8, seed 1) on the dense layout's ring, served on the CPU and on the
     card, continuous then static: 6 requests arriving at once on 3 slots,
-    first three prompts of 18-23 tokens (past the window: exact lengths
-    that differ, so their burst prefills one by one and each prompt rolls
-    the ring), then three of 10-14 (one bucket of 16: one burst forward),
-    7-9 new tokens each, so every ring wraps while decoding.  Tokens
-    identical on the card and the CPU; static runs 3 + 1 forwards; on the
-    card exact launch counts (none of kernel 3) and one decode graph."""
+    7-9 new tokens each, so every ring wraps while decoding.  At the
+    default ``lens`` and a 16-position ring: first three prompts of 18-23
+    tokens (past the window: exact lengths that differ, so their burst
+    prefills one by one and each prompt rolls the ring), then three of
+    10-14 (one bucket of 16: one burst forward), so static runs 3 + 1
+    forwards (``static_forwards``; the hybrid prefills every prompt of
+    its own length alone).  Tokens identical on the card and the CPU; on
+    the card exact launch counts (none of kernel 3) and one decode
+    graph."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.launch import scheduler, serve
@@ -2409,7 +2648,6 @@ def _swa_card_vs_cpu(torch, dev, cfg):
     t0 = time.perf_counter()
     n_layers, window = cfg.n_layers, cfg.window
     params = build_model(cfg).init(seed=1, device=dev, bits=8)
-    lens = (20, 23, 18, 10, 14, 12)
 
     def trace():
         rng = np.random.default_rng(6)
@@ -2444,10 +2682,10 @@ def _swa_card_vs_cpu(torch, dev, cfg):
                 check(stats["decode_compiles"] == 1,
                       f"swa card vs CPU {mode}: want one decode graph")
             if mode == "static":
-                check(stats["prefill_forwards"] == 4,
+                check(stats["prefill_forwards"] == static_forwards,
                       f"swa card vs CPU ({device}): static ran "
-                      f"{stats['prefill_forwards']} forwards, want 3 alone "
-                      f"(the pad_safe fallback) + 1 burst")
+                      f"{stats['prefill_forwards']} forwards, want "
+                      f"{static_forwards} (the pad_safe fallback)")
         del server, p
     for mode in ("continuous", "static"):
         check(toks[("cuda", mode)] == toks[("cpu", mode)],
@@ -2491,7 +2729,8 @@ def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
         ops.reset_launch_counts()
         done, stats = server.serve(trace(), warmup=False)
         got = ops.launch_counts()
-        check(stats["blocks_free_end"] == stats["n_blocks"],
+        check("n_blocks" not in stats
+              or stats["blocks_free_end"] == stats["n_blocks"],
               f"{arch} card vs CPU ({device}): a block leaked")
         toks[device] = {r.rid: r.tokens for r in done}
         out[device] = {"decode_steps": stats["decode_steps"],

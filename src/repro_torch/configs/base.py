@@ -1,14 +1,15 @@
 """Model configuration for the PyTorch port: the architecture record, the
 registry behind ``--arch`` and the reduced (CPU test) variant.
 
-Only the fields the dense and MoE families and their serving paths read
-are kept; the field names, defaults and reduced widths are those of the
+Only the fields the dense, MoE, VLM and hybrid families and their serving
+paths read are kept; the field names, defaults and reduced widths are those of the
 JAX package's configuration, so the same names build the same shapes in
 both packages.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -17,6 +18,8 @@ class ModelConfig:
     family: str                     # dense (qwen3-8b, phi3-medium-14b,
                                     # granite-34b, chatglm3-6b) | moe
                                     # (qwen3-moe-30b-a3b, mixtral-8x22b)
+                                    # | vlm (qwen2-vl-2b) | hybrid
+                                    # (recurrentgemma-9b)
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,7 +34,9 @@ class ModelConfig:
     window: int = 0                 # the swa window
     rope: str = "rope"              # rope (plain NeoX rotate-half) | rope2d
                                     # (rotate-half on the first half of the
-                                    # head dims, the rest passed through)
+                                    # head dims, the rest passed through) |
+                                    # mrope (three position streams t, h, w
+                                    # over the frequencies split 2:1:1)
     rope_theta: float = 10_000.0
     qk_norm: bool = False
     norm: str = "rmsnorm"
@@ -43,6 +48,18 @@ class ModelConfig:
     top_k: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+
+    # --- the recurrent block's short causal conv (width) ---
+    ssm_conv: int = 4
+
+    # --- hybrid (recurrentgemma): a repeating block pattern ---
+    block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
+    d_rnn: int = 0                  # 0 -> d_model
+    rglru_c: float = 8.0
+
+    # --- VLM (qwen2-vl backbone; the vision frontend is a stub: patch
+    # embeddings arrive precomputed and replace the leading tokens) ---
+    vision_patches: int = 0
 
     # --- numerics / technique ---
     norm_eps: float = 1e-6
@@ -67,11 +84,17 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     @property
+    def resolved_d_rnn(self) -> int:
+        return self.d_rnn or self.d_model
+
+    @property
     def paged_capable(self) -> bool:
         """True when every decode-cache leaf is full-attention KV, the only
-        state a block pool can hold: an SWA ring wraps past ``max_seq``,
-        which a bounded block table cannot."""
-        return self.family in ("dense", "moe") and self.attn_type == "full"
+        state a block pool can hold: recurrent state is fixed-size (no
+        paging to do) and an SWA ring wraps past ``max_seq``, which a
+        bounded block table cannot."""
+        return (self.family in ("dense", "moe", "vlm")
+                and self.attn_type == "full")
 
     @property
     def resolved_cache_layout(self) -> str:
@@ -126,8 +149,9 @@ def get_config(name: str, **overrides) -> ModelConfig:
 
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Tiny same-family config for CPU tests: the JAX package's reduced
-    widths (float32, 2 layers, d_model 64, 4 q heads, <= 2 kv heads,
-    head_dim 16, d_ff 128, vocab 256, a window of at most 32; for MoE at
+    widths (float32, 2 layers or one block pattern, d_model 64, 4 q heads,
+    <= 2 kv heads, head_dim 16, d_ff 128, vocab 256, a window of at most
+    32, d_rnn 64 for the hybrid, at most 8 vision patches; for MoE at
     most 8 experts, top-2, and a capacity factor of at least 8, so that no
     token drops unless the caller passes a lower one)."""
     moe = bool(cfg.n_experts)
@@ -137,7 +161,7 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
                          else cfg.capacity_factor),
         n_experts=min(cfg.n_experts, 8) if moe else 0,
         top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
-        n_layers=2,
+        n_layers=max(2, len(cfg.block_pattern)),
         d_model=64,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0,
@@ -145,6 +169,9 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
         d_ff=128,
         vocab_size=256,
         window=min(cfg.window, 32) if cfg.window else 0,
+        vision_patches=(min(cfg.vision_patches, 8) if cfg.vision_patches
+                        else 0),
+        d_rnn=64 if cfg.family == "hybrid" else 0,
     )
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

@@ -5,10 +5,11 @@ The input is a neutral numpy tree with the JAX package's structure::
     {"embed": leaf, "lm_head": leaf, "norm_f": {"scale": array},
      "stack": {"groups": {"b0_attn": {...}}, "tail": []}}
 
-where every array is a numpy array and every quantized weight is a dict
-``{"data", "scale", "bits", "packed"}``.  Leaves under ``stack/groups``
-carry a leading layer axis L (a quantized GEMM weight's scale is
-``(L, 1, N)``).  The port keeps one dict per layer instead, so layers are
+(the hybrid's groups are ``b0_rec``, ``b1_rec``, ``b2_attn`` and its tail
+a list of unstacked blocks) where every array is a numpy array and every
+quantized weight is a dict ``{"data", "scale", "bits", "packed"}``.
+Leaves under ``stack/groups`` carry a leading group axis (a quantized
+GEMM weight's scale is ``(L, 1, N)``).  The port keeps one dict per layer instead, so layers are
 unstacked here; nothing is re-quantized — codes, planes and scales are
 copied bit for bit.
 """
@@ -63,24 +64,29 @@ def _n_layers(groups) -> int:
 
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """The port's parameter structure (``embed``, ``layers`` — one dict per
-    layer with ``norm1``, ``attn``, ``norm2``, ``mlp`` or ``moe`` —
-    ``norm_f`` and, when untied, ``lm_head``) on ``device`` (CUDA unless
-    the caller names another).  A ``moe`` subtree's stacked expert leaves
-    ((L, E, d, f) codes, (L, E, bits, d/8, f) planes, (L, E, 1, f) scales)
-    unstack like any other."""
+    layer with ``norm1``, ``attn`` or ``rec``, ``norm2``, ``mlp`` or
+    ``moe`` — ``norm_f`` and, when untied, ``lm_head``) on ``device``
+    (CUDA unless the caller names another).  The JAX stack's scanned
+    groups (``b0_attn``, or the hybrid's ``b0_rec``, ``b1_rec``,
+    ``b2_attn``: each a leading axis of groups) unstack group by group,
+    each group's blocks in order, and its unrolled ``tail`` blocks follow:
+    the order of ``transformer.layer_kinds``.  A ``moe`` subtree's stacked
+    expert leaves ((L, E, d, f) codes, (L, E, bits, d/8, f) planes,
+    (L, E, 1, f) scales) unstack like any other."""
     device = resolve_device(device)
     stack = tree["stack"]
-    if stack.get("tail"):
-        raise ValueError("the port serves pure attention stacks; this tree "
-                         "has tail blocks")
     groups = stack["groups"]
-    if list(groups) != ["b0_attn"]:
-        raise ValueError(f"expected one 'b0_attn' group, got {list(groups)}")
-    g = groups["b0_attn"]
+    names = sorted(groups, key=lambda n: int(n.split("_")[0][1:]))
+    if [n.split("_")[0] for n in names] != [f"b{i}"
+                                           for i in range(len(names))]:
+        raise ValueError(f"expected groups b0_<kind>, b1_<kind>, ..., got "
+                         f"{list(groups)}")
+    n_groups = _n_layers(groups[names[0]])
     out = {
         "embed": _to_torch(tree["embed"], device),
-        "layers": [_to_torch(g, device, index=i)
-                   for i in range(_n_layers(g))],
+        "layers": ([_to_torch(groups[n], device, index=g)
+                    for g in range(n_groups) for n in names]
+                   + [_to_torch(t, device) for t in stack.get("tail", [])]),
         "norm_f": _to_torch(tree["norm_f"], device),
     }
     if "lm_head" in tree:

@@ -14,7 +14,10 @@ baseline).  For the dense family greedy tokens do not depend on the
 mode: a burst row's first token and KV are bit-identical to its prefill
 alone.  An MoE burst runs each row whole over the burst's padded length,
 as the JAX package does: pad tokens route and take expert capacity, so
-its rows can differ from their prefills alone, in both packages.
+its rows can differ from their prefills alone, in both packages.  The
+hybrid (recurrentgemma-9b) prefills at exact prompt lengths, since
+recurrent state absorbs pad tokens: a burst of unequal prompts prefills
+one request at a time.
 
 With ``--decode-horizon M`` (M > 1) each iteration runs a round of M
 steps with EOS and budget retirement on the device and one host sync per
@@ -67,6 +70,9 @@ dense read is plain PyTorch in both places.
       --reduced --quant psi8 --mode both --device cpu --cache-layout dense
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen3-moe-30b-a3b --reduced --quant psi8 --mode both \\
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch recurrentgemma-9b --reduced --quant psi8 --mode both \\
       --device cpu
 """
 from __future__ import annotations
@@ -192,9 +198,15 @@ class Server:
                                  speculative=self.spec)
         self._swa_window = cfg.window if cfg.attn_type == "swa" else 0
         self._ring_extent = attention.cache_extent(cfg, max_seq)
+        # recurrent state absorbs pad tokens: the hybrid (as the SSM and
+        # encoder-decoder families in the JAX package) prefills at exact
+        # prompt lengths, never in padded buckets
+        self._pad_ok = cfg.family not in ("ssm", "hybrid", "encdec")
 
     # -------------------------------------------------------------- plumbing
     def _bucket_len(self, n: int) -> int:
+        if not self._pad_ok:
+            return n
         sb = -(-n // PREFILL_BUCKET) * PREFILL_BUCKET
         # pad positions past an SWA ring's extent would roll real prompt
         # tokens out of the window: then the prompt prefills at its exact
@@ -252,9 +264,9 @@ class Server:
         MoE: each row attends over the whole padded burst, as in the
         reference, whose pad positions route to experts and take capacity
         (C from the padded length) from later slots' tokens.
-        Where right-padding is unsafe — an SWA ring that the longest
-        bucket overruns, with prompt lengths that differ — each request
-        prefills alone.
+        Where right-padding is unsafe — recurrent state (the hybrid), or
+        an SWA ring that the longest bucket overruns — and prompt lengths
+        differ, each request prefills alone.
 
         Paged: each admission's prompt blocks are allocated here (drawing
         down its reservation) and written into ``bt``; the insert scatters
@@ -275,7 +287,8 @@ class Server:
             return firsts, cache
         lens = [len(r.prompt) for _, r in admits]
         sb = self._bucket_len(max(lens))
-        pad_safe = not (self._swa_window and sb > self._ring_extent)
+        pad_safe = self._pad_ok and not (self._swa_window
+                                         and sb > self._ring_extent)
         if len(set(lens)) > 1 and not pad_safe:
             firsts = []
             for adm in admits:

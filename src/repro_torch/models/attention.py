@@ -1,6 +1,7 @@
-"""Attention for the dense family: GQA with qk-norm and RoPE, causal and
-sliding-window masks, plain prefill attention, and single-token decode
-against the paged block pool or the dense per-slot slab (a ring buffer of
+"""Attention for the attention layers of every ported family: GQA with
+qk-norm and RoPE (M-RoPE's (B, 3, S) streams included: its temporal
+stream drives cache slots and masks), causal and sliding-window masks,
+plain prefill attention, and single-token decode against the paged block pool or the dense per-slot slab (a ring buffer of
 ``window`` positions for SWA).
 
 Prefill attention and the dense decode read have no hand kernel (the JAX
@@ -124,6 +125,7 @@ def attention_block(p, x, cfg, positions, ctx=None, row_lens=None):
     see :func:`_rowwise_sdpa`; the projections still run over the whole
     burst."""
     q, k, v = _project_qkv(p, x, cfg, positions)
+    positions = layers.positions_1d(positions)
     if row_lens is not None:
         o = _rowwise_sdpa(q, k, v, positions, row_lens, _window(cfg))
         B, S = x.shape[:2]
@@ -180,6 +182,7 @@ def decode_attention_block(p, x, cfg, positions, cache, active=None):
     whole slab, masked by ``k_pos`` (and the window).  The slab is updated
     IN PLACE (the JAX package donated it); the same dict is returned."""
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    positions = layers.positions_1d(positions)
     B = x.shape[0]
     pos = positions[:, 0]
     slot = (pos % cache["k"].shape[1]).long()
@@ -218,7 +221,7 @@ def paged_decode_attention_block(p, x, cfg, positions, cache, block_tables,
     B = x.shape[0]
     N, bs = cache["k"].shape[0], cache["k"].shape[1]
     n_bt = block_tables.shape[1]
-    pos = positions[:, 0]
+    pos = layers.positions_1d(positions)[:, 0]
     li = pos // bs
     off = (pos % bs).long()
     # past the table's extent must NOT clamp into the last logical block

@@ -9,7 +9,9 @@
   (-1 = empty): the engine's per-slot slabs (C = ``max_seq``, or the
   window for SWA: a ring written at slot ``pos % C``), and also what a
   prefill returns, which ``Model.insert_cache`` copies into a slot's row
-  or scatters into the pool.
+  or scatters into the pool.  A hybrid's rec layer holds its recurrent
+  state there instead: ``{"h": (B, d_rnn), "conv": (B, cw-1, d_rnn)}``
+  f32, no position axis and no ``k_pos``.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ def table_width(max_seq: int, block_size: int) -> int:
 
 
 def cache_nbytes(cache: KVCache) -> int:
+    """Bytes of every leaf, KV and recurrent state alike."""
     return int(sum(t.numel() * t.element_size()
                    for layer in cache.kv for t in layer.values()
                    if isinstance(t, torch.Tensor)))

@@ -1,5 +1,5 @@
-"""Shared building blocks: RMSNorm, qk-norm, RoPE (plain and 2-D) and the
-MLPs (gated SwiGLU / GeGLU, 2-matrix GELU).
+"""Shared building blocks: RMSNorm, qk-norm, RoPE (plain, 2-D and the
+multimodal M-RoPE) and the MLPs (gated SwiGLU / GeGLU, 2-matrix GELU).
 
 Plain functions over explicit parameter dicts; every matmul routes through
 :func:`repro_torch.quant.linear` so PSI weights take the kernel path.
@@ -41,24 +41,40 @@ def _rotate(x, cos, sin):
 
 
 def apply_rope(x, positions, cfg):
-    """x (B, S, H, D); positions (B, S) int.
+    """x (B, S, H, D); positions (B, S) int, or (B, 3, S) for mrope.
 
     * "rope":   full-dim NeoX rotate-half.
     * "rope2d": the ChatGLM scheme as the JAX package writes it — rotate-half
       over the first D/2 head dims with the frequencies of a D/2-dim RoPE,
       the second half passed through unchanged.
+    * "mrope":  Qwen2-VL multimodal RoPE — the D/2 frequencies split 2:1:1
+      into the t, h and w sections, each rotated by its own position
+      stream; three equal streams are plain RoPE.
     """
-    if cfg.rope not in ("rope", "rope2d"):
+    if cfg.rope not in ("rope", "rope2d", "mrope"):
         raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet")
     D = x.shape[-1]
-    rot = D if cfg.rope == "rope" else D // 2
+    rot = D // 2 if cfg.rope == "rope2d" else D
     freqs = _rope_freqs(rot, cfg.rope_theta, x.device)
-    ang = positions[..., None].to(torch.float32) * freqs     # (B, S, rot/2)
+    if cfg.rope == "mrope":
+        nf = freqs.shape[0]
+        cuts = (0, nf // 2, nf // 2 + nf // 4, nf)
+        pos = positions.to(torch.float32)                     # (B, 3, S)
+        ang = torch.cat([pos[:, i, :, None] * freqs[cuts[i]:cuts[i + 1]]
+                         for i in range(3)], dim=-1)          # (B, S, nf)
+    else:
+        ang = positions[..., None].to(torch.float32) * freqs  # (B, S, rot/2)
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     if rot == D:
         return _rotate(x, cos, sin)
     return torch.cat([_rotate(x[..., :rot], cos, sin), x[..., rot:]], dim=-1)
+
+
+def positions_1d(positions):
+    """The stream that drives cache slots and the causal mask: positions
+    (B, S) as they are, or the temporal stream of mrope's (B, 3, S)."""
+    return positions[:, 0] if positions.ndim == 3 else positions
 
 
 def _gelu(x):

@@ -1,5 +1,6 @@
-"""Model facade for the dense and MoE families on both serving layouts
-(the paged block pool and the dense per-slot slab, a ring for SWA):
+"""Model facade for the dense, MoE, VLM and hybrid (RG-LRU) families on
+both serving layouts (the paged block pool and the dense per-slot slab, a
+ring for SWA; recurrent state always dense):
 
   * ``init(seed, device, bits=..., pack=..., policy=...,
     qat_precondition=...)`` -> params (random weights from a
@@ -11,7 +12,11 @@
                                                 with ``pos0``/``ctx_kv``
                                                 a suffix prefill over
                                                 context KV from the pool;
-                                                with ``row_lens`` a burst
+                                                with ``row_lens`` a burst;
+                                                with ``vision_embeds`` /
+                                                ``positions`` the VLM's
+                                                patch splice and M-RoPE
+                                                streams
   * ``gather_prefix_ctx(cache, ctx_ids)``     -> that context KV
   * ``decode_step(params, batch, cache)``     -> (logits, cache updated in
                                                 place)
@@ -32,11 +37,11 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import quantizer
+from repro_torch.core import psi, quantizer
 from repro_torch.models import (attention, kvcache as kvc, layers, moe,
-                                transformer)
+                                rglru, transformer)
 from repro_torch.models.kvcache import KVCache
-from repro_torch.quant import embed, linear, tied_logits
+from repro_torch.quant import embed, linear, tied_head, tied_logits
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,10 +53,10 @@ def _positions(B, S, device, offset=0):
 
 class Model:
     def __init__(self, cfg):
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense and moe "
-                f"only)")
+                f"family {cfg.family!r} is not ported yet (dense, moe, vlm "
+                f"and hybrid only)")
         self.cfg = cfg
 
     @property
@@ -60,23 +65,28 @@ class Model:
 
     # ------------------------------------------------------------------ init
     def param_specs(self):
-        """(path, shape, std) per leaf, in draw order; std None = ones."""
+        """(path, shape, init) per leaf, in draw order: a float init is a
+        normal draw times that std, None ones, ``("fill", v)`` the
+        constant v."""
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
         hq, hkv, ff, V = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
         specs = [("embed", (V, d), d ** -0.5)]
-        for i in range(cfg.n_layers):
+        for i, kind in enumerate(transformer.layer_kinds(cfg)):
             pre = f"layers/{i}"
-            specs += [
-                (f"{pre}/norm1/scale", (d,), None),
-                (f"{pre}/attn/wq", (d, hq * hd), d ** -0.5),
-                (f"{pre}/attn/wk", (d, hkv * hd), d ** -0.5),
-                (f"{pre}/attn/wv", (d, hkv * hd), d ** -0.5),
-                (f"{pre}/attn/wo", (hq * hd, d), (hq * hd) ** -0.5),
-            ]
-            if cfg.qk_norm:
-                specs += [(f"{pre}/attn/q_norm_scale", (hd,), None),
-                          (f"{pre}/attn/k_norm_scale", (hd,), None)]
+            specs.append((f"{pre}/norm1/scale", (d,), None))
+            if kind == "rec":
+                specs += rglru.param_specs(cfg, f"{pre}/rec")
+            else:
+                specs += [
+                    (f"{pre}/attn/wq", (d, hq * hd), d ** -0.5),
+                    (f"{pre}/attn/wk", (d, hkv * hd), d ** -0.5),
+                    (f"{pre}/attn/wv", (d, hkv * hd), d ** -0.5),
+                    (f"{pre}/attn/wo", (hq * hd, d), (hq * hd) ** -0.5),
+                ]
+                if cfg.qk_norm:
+                    specs += [(f"{pre}/attn/q_norm_scale", (hd,), None),
+                              (f"{pre}/attn/k_norm_scale", (hd,), None)]
             specs.append((f"{pre}/norm2/scale", (d,), None))
             if cfg.family == "moe":
                 specs += moe.param_specs(cfg, f"{pre}/moe")
@@ -113,6 +123,9 @@ class Model:
         for path, shape, std in self.param_specs():
             if std is None:
                 leaf = torch.ones(shape, dtype=torch.float32, device=device)
+            elif isinstance(std, tuple):
+                leaf = torch.full(shape, std[1], dtype=torch.float32,
+                                  device=device)
             else:
                 leaf = torch.randn(shape, generator=gen, dtype=torch.float32,
                                    device=device) * std
@@ -136,15 +149,36 @@ class Model:
         return quantizer.quantize_param_tree(params, bits, pack=pack,
                                              policy=policy)
 
+    def serving_params(self, params) -> dict:
+        """``params`` (a shallow copy) with ``tied_head``, the (D, V) codes
+        of a tied PSI table transposed once (:func:`tied_head`), so the
+        logits launch no transpose of the table per call; a copy of the
+        codes, bit-equal to ``codes.t()``.  Params that have it, or need
+        none, come back as they are."""
+        if not (self.cfg.tie_embeddings
+                and isinstance(params.get("embed"), psi.QuantizedTensor)
+                and "tied_head" not in params):
+            return params
+        return dict(params, tied_head=tied_head(params["embed"]))
+
     # --------------------------------------------------------------- forward
     def _logits(self, params, x):
         cfg = self.cfg
         if cfg.tie_embeddings:
-            return tied_logits(params["embed"], x, cfg.quant_mode)
+            return tied_logits(params["embed"], x, cfg.quant_mode,
+                               head=params.get("tied_head"))
         return linear(params["lm_head"], x, cfg.quant_mode)
 
+    def _stream_positions(self, pos):
+        """(B, S) positions as the config's rope reads them: M-RoPE's three
+        equal (t, h, w) streams (B, 3, S), a view on the device."""
+        if self.cfg.rope == "mrope":
+            return pos[:, None, :].expand(pos.shape[0], 3, pos.shape[1])
+        return pos
+
     def forward(self, params, tokens, pos0: int = 0, ctx_kv=None,
-                emit_logits: bool = True, row_lens=None):
+                emit_logits: bool = True, row_lens=None, positions=None,
+                vision_embeds=None):
         """tokens (B, S) -> (logits (B, S, V), per-layer prefill states).
 
         ``pos0`` / ``ctx_kv`` (suffix prefill): positions start at
@@ -152,10 +186,22 @@ class Model:
         ``[0, pos0)`` (:meth:`gather_prefix_ctx`).  ``emit_logits=False``
         (a chunk that emits nothing) skips the lm-head and returns None
         logits.  ``row_lens`` (a burst): row i's attention covers its
-        first ``row_lens[i]`` positions only."""
+        first ``row_lens[i]`` positions only.  ``positions``: M-RoPE's
+        (B, 3, S) streams (default three equal streams from ``pos0``, as
+        serving runs).  ``vision_embeds`` (B, P, d) (VLM only): the stub
+        vision frontend's patch embeddings, which replace the first P
+        token embeddings."""
         B, S = tokens.shape
         x = embed(params["embed"], tokens, self.dtype)
-        positions = _positions(B, S, tokens.device, offset=pos0)
+        if vision_embeds is not None:
+            if self.cfg.family != "vlm":
+                raise ValueError(f"vision_embeds are for the vlm family, "
+                                 f"not {self.cfg.family!r}")
+            P = vision_embeds.shape[1]
+            x = torch.cat([vision_embeds.to(self.dtype), x[:, P:]], dim=1)
+        if positions is None:
+            positions = self._stream_positions(
+                _positions(B, S, tokens.device, offset=pos0))
         x, states = transformer.apply_decoder_stack(
             params["layers"], x, self.cfg, positions, ctx_kv=ctx_kv,
             row_lens=row_lens)
@@ -166,7 +212,8 @@ class Model:
 
     def prefill(self, params, tokens, cache_len: Optional[int] = None,
                 true_lens=None, pos0: int = 0, ctx_kv=None,
-                emit_logits: bool = True, row_lens=None):
+                emit_logits: bool = True, row_lens=None, positions=None,
+                vision_embeds=None):
         """Forward the prompt; return (last-token logits (B, V), dense
         cache of extent ``cache_len`` (default S), or ``window`` for SWA
         if that is less: a ring holding the last positions at slots
@@ -180,11 +227,15 @@ class Model:
         suffix-relative (k_pos is absolute, so the pad mask is at
         ``true_lens + pos0``).  ``emit_logits=False`` returns None
         logits.  ``row_lens`` (a burst of right-padded prompts): each row's
-        attention at its own bucketed length (:meth:`forward`)."""
+        attention at its own bucketed length; ``positions`` /
+        ``vision_embeds``: the VLM's inputs (:meth:`forward`).  A rec
+        layer's state passes through as it is: recurrent state absorbs pad
+        tokens, so the engine prefills the hybrid at exact lengths."""
         S = tokens.shape[1]
         logits, states = self.forward(params, tokens, pos0=pos0,
                                       ctx_kv=ctx_kv, emit_logits=emit_logits,
-                                      row_lens=row_lens)
+                                      row_lens=row_lens, positions=positions,
+                                      vision_embeds=vision_embeds)
         kv = [_states_to_cache(self.cfg, st, S, cache_len or S)
               for st in states]
         if true_lens is None:
@@ -196,6 +247,8 @@ class Model:
             last = logits[torch.arange(B, device=tokens.device), tl - 1]
         end = tl[:, None] + pos0
         for st in kv:
+            if "k_pos" not in st:                     # recurrent state
+                continue
             kp = st["k_pos"]
             st["k_pos"] = torch.where((kp >= 0) & (kp < end), kp,
                                       torch.full_like(kp, -1))
@@ -218,14 +271,18 @@ class Model:
         names another), in ``layout`` (default the config's resolved
         one).  Paged: pools of ``n_blocks`` usable blocks (default
         ``batch * ceil(seq_len / block_size)``) plus ``batch`` scratch.
-        Dense: one ``(batch, C)`` slab per layer, C = ``seq_len`` or the
-        SWA window."""
+        Dense: one ``(batch, C)`` slab per attention layer, C =
+        ``seq_len`` or the SWA window, and a rec layer's state {"h":
+        (batch, d_rnn), "conv": (batch, cw-1, d_rnn)} f32."""
         device = resolve_device(device)
         layout = layout or self.cfg.resolved_cache_layout
         if layout == kvc.DENSE:
-            return KVCache([attention.init_kv_cache(self.cfg, batch, seq_len,
-                                                    self.dtype, device)
-                            for _ in range(self.cfg.n_layers)])
+            return KVCache([
+                rglru.init_rglru_state(self.cfg, batch, device)
+                if kind == "rec" else
+                attention.init_kv_cache(self.cfg, batch, seq_len, self.dtype,
+                                        device)
+                for kind in transformer.layer_kinds(self.cfg)])
         bs = block_size or self.cfg.cache_block_size
         nb = (n_blocks if n_blocks is not None
               else batch * kvc.blocks_for(seq_len, bs))
@@ -236,10 +293,12 @@ class Model:
 
     def decode_step(self, params, batch, cache: KVCache):
         """batch: {"token": (B, 1), "pos": (B, 1) int32, "active": (B,)
-        bool, "block_table": (B, n_bt) int32 (paged only)}.  Rows with
-        ``active`` False compute a throwaway logit and write only their
-        scratch block (paged) or nothing (dense).  The layout follows the
-        cache."""
+        bool, "block_table": (B, n_bt) int32 (paged only)}, and for
+        M-RoPE optionally "positions" (B, 3, 1) (default three equal
+        streams of ``pos``, built on the device).  Rows with ``active``
+        False compute a throwaway logit and write only their scratch block
+        (paged) or nothing (dense; their recurrent state stays frozen).
+        The layout follows the cache."""
         bt = None
         if cache.paged:
             bt = batch.get("block_table")
@@ -247,8 +306,11 @@ class Model:
                 raise ValueError('paged decode needs batch["block_table"] '
                                  "(B, n_bt) int32, -1 = unallocated")
         x = embed(params["embed"], batch["token"], self.dtype)
+        positions = batch.get("positions")
+        if positions is None:
+            positions = self._stream_positions(batch["pos"])
         x, _ = transformer.apply_decoder_stack_decode(
-            params["layers"], x, self.cfg, batch["pos"], cache.kv, bt,
+            params["layers"], x, self.cfg, positions, cache.kv, bt,
             active=batch.get("active"))
         x = layers.apply_norm(params["norm_f"], x, self.cfg)
         return self._logits(params, x)[:, 0], cache
@@ -356,7 +418,10 @@ def _ring_layout(a, S, C):
 def _states_to_cache(cfg, st, S, cache_len):
     """One layer's prefill state (B, S, ...) -> its dense cache: extent
     ``cache_len``, or the window for SWA if less (the ring layout), pad
-    rows empty (k_pos -1), int8-quantized under kv_quant="int8"."""
+    rows empty (k_pos -1), int8-quantized under kv_quant="int8".  A rec
+    layer's state is already its cache."""
+    if "k_pos" not in st:
+        return st
     C = attention.cache_extent(cfg, cache_len)
     kp = _ring_layout(torch.where(st["k_pos"] >= 0, st["k_pos"],
                                   torch.full_like(st["k_pos"], -1)), S, C)

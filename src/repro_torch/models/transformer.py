@@ -1,13 +1,25 @@
-"""The decoder stack of the dense and MoE families: a Python loop over
-per-layer parameter dicts (the JAX package scans over stacked layers; eager
-PyTorch needs no scan).  A layer's FFN half is its ``mlp`` or, for MoE,
-its ``moe`` experts; the MoE auxiliary loss is dropped at serving.
+"""The decoder stack: a Python loop over per-layer parameter dicts (the JAX
+package scans over stacked layers and groups; eager PyTorch needs no
+scan).  A layer is an attention block or, in the hybrid's pattern, an
+RG-LRU ``rec`` block (:func:`layer_kinds`); its FFN half is its ``mlp``
+or, for MoE, its ``moe`` experts (the MoE auxiliary loss is dropped at
+serving).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, rglru
+
+
+def layer_kinds(cfg):
+    """Per-layer block kind: the hybrid's pattern repeated (every scanned
+    group's b0, b1, ... in order, then the tail the JAX package unrolls),
+    "attn" for every other family."""
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern
+        return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+    return ["attn"] * cfg.n_layers
 
 
 def _ffn(p, x, cfg):
@@ -17,25 +29,49 @@ def _ffn(p, x, cfg):
     return layers.apply_mlp(p["mlp"], x, cfg)
 
 
-def apply_block(p, x, cfg, positions, ctx=None, row_lens=None):
+def apply_block(p, x, cfg, kind, positions, ctx=None, row_lens=None):
     """Prefill block (``ctx``: the layer's context KV; ``row_lens``: a
     burst's per-row attention extents; see
-    :func:`attention.attention_block`).  Returns (x, {"k", "v", "k_pos"})."""
+    :func:`attention.attention_block`).  Returns (x, state): {"k", "v",
+    "k_pos"} of an attention block, {"h", "conv"} of a rec block (a rec
+    burst's rows all have one length: the engine never pads them)."""
     h = layers.apply_norm(p["norm1"], x, cfg)
-    y, (k, v, k_pos) = attention.attention_block(p["attn"], h, cfg,
-                                                 positions, ctx=ctx,
-                                                 row_lens=row_lens)
+    if kind == "rec":
+        y, state = rglru.rglru_block(p["rec"], h, cfg)
+    else:
+        y, (k, v, k_pos) = attention.attention_block(
+            p["attn"], h, cfg, positions, ctx=ctx, row_lens=row_lens)
+        state = {"k": k, "v": v, "k_pos": k_pos}
     x = x + y
     h2 = layers.apply_norm(p["norm2"], x, cfg)
-    return x + _ffn(p, h2, cfg), {"k": k, "v": v, "k_pos": k_pos}
+    return x + _ffn(p, h2, cfg), state
 
 
-def apply_block_decode(p, x, cfg, positions, cache, block_tables=None,
+def _freeze_inactive_state(new_state, old_state, active):
+    """Recurrent state rows kept as they were where ``active`` is False:
+    the masked-decode contract for continuous batching.  State leaves carry
+    batch on axis 0.  ``torch.where`` on the device, so a decode graph
+    captures it."""
+    if active is None:
+        return new_state
+    out = {}
+    for name, n in new_state.items():
+        mask = active.reshape(active.shape[0], *([1] * (n.ndim - 1)))
+        out[name] = torch.where(mask, n, old_state[name])
+    return out
+
+
+def apply_block_decode(p, x, cfg, kind, positions, cache, block_tables=None,
                        active=None):
-    """One-token decode block against the layer's pool, or its dense slab
-    when ``block_tables`` is None (updated in place)."""
+    """One-token decode block against the layer's pool, its dense slab
+    when ``block_tables`` is None, or (``kind`` "rec") its recurrent state;
+    the cache is updated in place."""
     h = layers.apply_norm(p["norm1"], x, cfg)
-    if block_tables is None:
+    if kind == "rec":
+        y, new = rglru.rglru_decode_step(p["rec"], h, cfg, cache)
+        for name, t in _freeze_inactive_state(new, cache, active).items():
+            cache[name].copy_(t)
+    elif block_tables is None:
         y, cache = attention.decode_attention_block(
             p["attn"], h, cfg, positions, cache, active=active)
     else:
@@ -66,8 +102,8 @@ def apply_decoder_stack(layer_params, x, cfg, positions, ctx_kv=None,
     layer (:func:`gather_paged_ctx`), or None; ``row_lens``: a burst's
     per-row attention extents, or None."""
     states = []
-    for i, p in enumerate(layer_params):
-        x, st = apply_block(p, x, cfg, positions,
+    for i, (p, kind) in enumerate(zip(layer_params, layer_kinds(cfg))):
+        x, st = apply_block(p, x, cfg, kind, positions,
                             ctx=None if ctx_kv is None else ctx_kv[i],
                             row_lens=row_lens)
         states.append(st)
@@ -76,11 +112,12 @@ def apply_decoder_stack(layer_params, x, cfg, positions, ctx_kv=None,
 
 def apply_decoder_stack_decode(layer_params, x, cfg, positions, pools,
                                block_tables=None, active=None):
-    """Every layer indexes its own pool through the same block table, or
-    (``block_tables`` None) reads and writes its own dense slab."""
-    for p, pool in zip(layer_params, pools):
-        x, _ = apply_block_decode(p, x, cfg, positions, pool, block_tables,
-                                  active=active)
+    """Every attention layer indexes its own pool through the same block
+    table, or (``block_tables`` None) reads and writes its own dense slab;
+    a rec layer updates its own state."""
+    for p, kind, pool in zip(layer_params, layer_kinds(cfg), pools):
+        x, _ = apply_block_decode(p, x, cfg, kind, positions, pool,
+                                  block_tables, active=active)
     return x, pools
 
 
@@ -124,14 +161,15 @@ def gather_paged_ctx(pools, ctx_ids, dtype):
 
 def slice_stack_cache(kv, row):
     """Batch row ``row`` of a batched dense cache as a batch-1 cache (views,
-    no copy)."""
+    no copy); every leaf, KV or recurrent state, has batch on axis 0."""
     return [{name: t[row:row + 1] for name, t in layer.items()}
             for layer in kv]
 
 
 def insert_stack_cache(kv, seq_kv, slot):
     """Write a batch-1 dense cache into row ``slot`` of the engine's dense
-    slabs, in place: every leaf (``k_pos`` included) of the slot's row."""
+    slabs, in place: every leaf (``k_pos`` and recurrent state included)
+    of the slot's row."""
     for big, small in zip(kv, seq_kv):
         for name, buf in big.items():
             buf[slot] = small[name][0].to(buf.dtype)

@@ -1,3 +1,3 @@
-from repro_torch.quant.linear import embed, linear, tied_logits
+from repro_torch.quant.linear import embed, linear, tied_head, tied_logits
 
-__all__ = ["embed", "linear", "tied_logits"]
+__all__ = ["embed", "linear", "tied_head", "tied_logits"]

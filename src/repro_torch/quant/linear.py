@@ -35,12 +35,21 @@ def embed(wleaf, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return wleaf[ids.long()].to(dtype)
 
 
-def tied_logits(wleaf, x: torch.Tensor, quant_mode: str = "none"
-                ) -> torch.Tensor:
-    """logits = x @ embed_table.T with per-row (= per-vocab) scales; a
-    packed table unpacks whole, as in the JAX package."""
+def tied_head(wleaf: psi.QuantizedTensor) -> psi.QuantizedTensor:
+    """The (D, V) lm-head of a tied (V, D) PSI table: its codes transposed
+    into a contiguous copy (a packed table unpacks whole, as in the JAX
+    package), with the per-row (= per-vocab) scales as the head's
+    per-channel scales."""
+    return psi.QuantizedTensor(wleaf.codes.t().contiguous(),
+                               wleaf.scale.reshape(-1), wleaf.fmt)
+
+
+def tied_logits(wleaf, x: torch.Tensor, quant_mode: str = "none",
+                head=None) -> torch.Tensor:
+    """logits = x @ embed_table.T.  A PSI table goes through ``head``, its
+    :func:`tied_head` built once (``Model.serving_params``), or one built
+    for this call when there is none."""
     if isinstance(wleaf, psi.QuantizedTensor):
-        codes_t = wleaf.codes.t().contiguous()          # (D, V)
-        return ops.psi_matmul(x, psi.QuantizedTensor(
-            codes_t, wleaf.scale.reshape(-1), wleaf.fmt))
+        return ops.psi_matmul(x, head if head is not None
+                              else tied_head(wleaf))
     return torch.matmul(x, _float_weight(wleaf, x, quant_mode).t())

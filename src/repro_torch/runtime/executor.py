@@ -14,7 +14,10 @@ in place), one block-table buffer (paged), and the static token / pos /
 active / remaining / EOS inputs and token outputs (the drafts and verdicts
 included).  On the CPU the same bodies run eagerly; that is
 the plain version the parity tests compare.  The cache is updated in place
-where the JAX package donated it.
+where the JAX package donated it, a hybrid's recurrent state included (an
+inactive slot's state is frozen by a ``torch.where`` inside the graph).
+M-RoPE's three equal position streams are views of the fixed pos row,
+built by the model inside the graph.
 """
 from __future__ import annotations
 
@@ -191,6 +194,9 @@ class Executor:
             if not self.paged:
                 raise ValueError("speculative decoding needs the paged "
                                  "cache layout (cfg.resolved_cache_layout)")
+            if cfg.rope == "mrope":
+                raise ValueError("speculative verify does not support "
+                                 "mrope position encoding")
             if not 1 <= k <= self.block_size:
                 raise ValueError(
                     f"speculative k={k} must be in [1, block_size="
@@ -208,7 +214,9 @@ class Executor:
                     "multi-token unit with its own acceptance; pick one "
                     "(drop --speculative or set the horizon to 1)")
             self.spec_bits, self.spec_k = int(bits), int(k)
-        self.params = params_to(params, self.device)
+        # a tied PSI table's head is transposed here, once, on the device
+        self.params = self.model.serving_params(params_to(params,
+                                                          self.device))
         # derived on the device from the placed codes: one copy, no host trip
         self.draft_params = (
             quantizer.draft_param_tree(self.params, self.spec_bits)

@@ -28,12 +28,14 @@ SHAPES = [(1, 64, 32), (3, 40, 36), (5, 40, 37), (2, 64, 33),
 
 
 def _matmuls_per_forward(cfg):
-    """PSI-matmul launches of one forward: wq, wk, wv, wo and the MLP's
-    matrices (3 gated, 2 for the GELU MLP; none for MoE experts, which are
+    """PSI-matmul launches of one forward: wq, wk, wv, wo (a rec layer's
+    w_in_gate, w_in_rec, rglru_wa, rglru_wx, w_out) and the MLP's matrices
+    (3 gated, 2 for the GELU MLP; none for MoE experts, which are
     dequantized blocks in a plain batched product) per layer, plus the
     lm-head."""
+    from repro_torch.models.transformer import layer_kinds
     mlp = 0 if cfg.family == "moe" else (2 if cfg.act == "gelu" else 3)
-    return (4 + mlp) * cfg.n_layers + 1
+    return sum((5 if k == "rec" else 4) + mlp for k in layer_kinds(cfg)) + 1
 
 
 @pytest.fixture
@@ -1335,3 +1337,211 @@ def test_moe_burst_routes_pads_as_whole_rows(cuda):
     finally:
         moe.route = real
     assert not all(bool(k.all()) for _, k in burst_routes)   # drops
+
+
+# ---------------------------------------------------------------------------
+# The VLM (qwen2-vl-2b) and the RG-LRU hybrid (recurrentgemma-9b): kernels 1
+# and 2 at their new full-width weight shapes, kernel 3 at qwen2-vl's 12/2
+# (G = 6: a head block of 8 with 2 dead heads), the rec block on the card
+# against the CPU at one full-width layer, the hybrid's decode and round
+# graphs against eager steps with an idle slot, and reduced serves against
+# the CPU.
+# ---------------------------------------------------------------------------
+VLM, HYBRID = "qwen2-vl-2b", "recurrentgemma-9b"
+# qwen2-vl's wq/wo, wk/wv, w_gate/w_up, w_down, tied head; recurrentgemma's
+# tied head (its other shapes are qwen3-8b's and granite's wk/wv, above)
+VLM_HYB_KN = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536),
+              (1536, 151936), (4096, 256000)]
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 64])
+@pytest.mark.parametrize("K,N", VLM_HYB_KN)
+def test_psi_matmul_codes_vlm_hybrid_shapes_tight(cuda, K, N, M):
+    _check_tight(cuda, K, N, 8, M)
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 64])
+@pytest.mark.parametrize("K,N", VLM_HYB_KN)
+def test_psi_matmul_packed_vlm_hybrid_shapes_tight(cuda, K, N, M):
+    _check_tight(cuda, K, N, 5, M)
+
+
+@pytest.mark.parametrize("bits", [8, 5])
+@pytest.mark.parametrize("K,N", VLM_HYB_KN)
+def test_psi_matmul_vlm_hybrid_shapes_batch_invariant(cuda, K, N, bits):
+    _check_batch_invariant(K, N, bits)
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_paged_attention_12_2_serve_table(cuda, mode):
+    """12/2 (G = 6) at the serve's table, against the plain version."""
+    test_paged_attention_arch_heads_serve_table(cuda, 12, 2, mode)
+
+
+@pytest.mark.parametrize("q_mul", [1.0, 4.0])
+@pytest.mark.parametrize("n_bt", [32, 128])
+def test_paged_attention_12_2_bf16_split(cuda, n_bt, q_mul):
+    """bf16 12/2 over split tables of 512 and 2048 positions a slot: the
+    split path per element and the tight bound (4 x 80 is one split: the
+    serve-table case above)."""
+    test_paged_attention_arch_heads_bf16_split(cuda, 12, 2, n_bt, q_mul)
+
+
+def _rec_layer(cfg, seed=0):
+    """One full-width rec block's leaves on the card, PSI leaves at psi8."""
+    from repro_torch.core import quantizer
+    from repro_torch.models import rglru
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = {}
+    for path, shape, init in rglru.param_specs(cfg, "rec"):
+        if isinstance(init, tuple):
+            w = torch.full(shape, init[1], device="cuda")
+        else:
+            w = torch.randn(shape, generator=gen, device="cuda") * init
+        if quantizer.is_quantizable(path, w):
+            w = quantizer.quantize_leaf(path, w, 8)
+        p[path.split("/")[-1]] = w
+    return p
+
+
+def test_rglru_card_matches_cpu_full_width(cuda):
+    """rglru_block over 2 x 80 tokens (and from a carried h), then three
+    decode steps, float32, on the card against the CPU on the same leaves:
+    outputs and state h, conv within 1e-4 (f32 sums of K = 4096 in other
+    orders)."""
+    from repro_torch.models import rglru
+    cfg = get_config(HYBRID, dtype="float32", quant_mode="psi8")
+    p = _rec_layer(cfg)
+    pc = {k: v.to("cpu") for k, v in p.items()}
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 80, cfg.d_model, generator=g)
+    h0 = torch.randn(2, cfg.resolved_d_rnn, generator=g)
+    tol = dict(rtol=0, atol=1e-4)
+    for state in (None, {"h": h0}):
+        with torch.inference_mode():
+            got, gs = rglru.rglru_block(
+                p, x.to(cuda), cfg,
+                None if state is None else {"h": h0.to(cuda)})
+        want, ws = rglru.rglru_block(pc, x, cfg, state)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+        for k in ("h", "conv"):
+            torch.testing.assert_close(gs[k].cpu(), ws[k], **tol)
+    for i in range(3):
+        xt = torch.randn(2, 1, cfg.d_model, generator=g)
+        with torch.inference_mode():
+            got, gs = rglru.rglru_decode_step(p, xt.to(cuda), cfg, gs)
+        want, ws = rglru.rglru_decode_step(pc, xt, cfg, ws)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+        for k in ("h", "conv"):
+            torch.testing.assert_close(gs[k].cpu(), ws[k], **tol)
+
+
+def _hybrid_executor(dtype, horizon):
+    """Full-width recurrentgemma-9b cut to 3 layers (rec, rec, attn) on the
+    card, psi8, with slots 0 and 1 prefilled (20 and 13 tokens) and slot 2
+    idle: (executor, cache, inputs)."""
+    from repro_torch.runtime import Executor
+    cfg = get_config(HYBRID, n_layers=3, quant_mode="psi8", dtype=dtype)
+    params = build_model(cfg).init(seed=0, device="cuda", bits=8)
+    ex = Executor(cfg, params, max_batch=3, max_seq=64, device="cuda",
+                  decode_horizon=horizon)
+    cache = ex.init_cache()
+    rng = np.random.default_rng(0)
+    for slot, n in enumerate((20, 13)):
+        prompt = rng.integers(0, cfg.vocab_size, size=(1, n)).astype(
+            np.int32)
+        ex.prefill_insert(prompt, np.array([n], np.int32), cache, slot)
+    inputs = dict(token=np.array([[5], [7], [0]], np.int32),
+                  pos=np.array([[20], [13], [0]], np.int32),
+                  active=np.array([True, True, False]),
+                  remaining=np.array([20, 3, 0], np.int32))
+    return ex, cache, inputs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_decode_graph_equals_eager_with_an_idle_slot(cuda, dtype):
+    """Three horizon-1 graph replays against eager decode_steps on a copy
+    of the cache: tokens, slabs and rec state bit for bit; the idle slot's
+    state frozen (still zero) in both; one step's PSI launches per replay
+    (8 a rec layer, 7 an attention layer, the head) and no kernel-3
+    launch."""
+    ex, cache, inp = _hybrid_executor(dtype, 1)
+    ref_cache = _pool_copy(cache)
+    per = _matmuls_per_forward(ex.model.cfg)
+    assert per == 2 * 8 + 7 + 1
+    for step in range(3):
+        with torch.inference_mode():
+            logits, _ = ex.model.decode_step(ex.params, _dense_batch(inp),
+                                             ref_cache)
+        want = torch.argmax(logits, -1).to(torch.int32)
+        before = ops.launch_counts()
+        got, _ = ex.decode(inp["token"], inp["pos"], inp["active"], cache)
+        after = ops.launch_counts()
+        assert torch.equal(got, want), step
+        if step:
+            assert after["psi_matmul_codes"] - before["psi_matmul_codes"] \
+                == per
+        assert after["paged_attention"] == before["paged_attention"]
+        inp["token"] = got.cpu().numpy()[:, None]
+        inp["pos"] = inp["pos"] + 1
+    _assert_slabs_equal(cache, ref_cache)
+    for layer in cache.kv[:2]:                     # the two rec layers
+        assert not layer["h"][2].any() and not layer["conv"][2].any()
+        assert layer["h"][0].any()
+
+
+def test_hybrid_round_graph_equals_eager_steps(cuda):
+    """One horizon-4 round graph against Model.decode_scan eagerly on a
+    copy (slot 1's budget of 3 ends inside the round, slot 2 idle):
+    tokens, carry, slabs and rec state bit for bit."""
+    ex, cache, inp = _hybrid_executor("float32", 4)
+    ref_cache = _pool_copy(cache)
+    with torch.inference_mode():
+        want, wcarry, _ = ex.model.decode_scan(
+            ex.params, _dense_batch(inp, True), ref_cache, 4)
+    toks, carry, _ = ex.decode_multi(inp["token"], inp["pos"],
+                                     inp["active"], inp["remaining"], cache)
+    np.testing.assert_array_equal(np.asarray(toks), want.cpu().numpy())
+    for k in ("token", "pos", "remaining"):
+        assert torch.equal(carry[k], wcarry[k].to(torch.int32)), k
+    assert carry["active"].tolist() == wcarry["active"].int().tolist() \
+        == [1, 0, 0]
+    _assert_slabs_equal(cache, ref_cache)
+    assert not cache.kv[0]["h"][2].any()
+
+
+@pytest.mark.parametrize("arch", [VLM, HYBRID])
+def test_vlm_hybrid_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced arch at psi8 (float32), prompts of unequal lengths:
+    the same greedy tokens on the card and the CPU, continuous and static,
+    with exact launch counts on the card (kernel 3 only for the paged
+    VLM) and one prefill forward a request for the hybrid in static
+    mode."""
+    cfg = reduced_config(get_config(arch), quant_mode="psi8")
+    params = build_model(cfg).init(seed=0, device="cpu", bits=8)
+    trace = lambda: scheduler.poisson_trace(
+        4, rate_rps=1e9, prompt_len=26, max_new=10, vocab_size=256, seed=3,
+        prompt_jitter=4)
+    done = {}
+    for dev in ("cpu", "cuda"):
+        server = serve.Server(cfg, params, max_batch=2, max_seq=64,
+                              device=dev)
+        server.warmup(trace())
+        for continuous in (True, False):
+            ops.reset_launch_counts()
+            reqs, stats = server.serve(trace(), continuous=continuous,
+                                       warmup=False)
+            done[(dev, continuous)] = {r.rid: r.tokens for r in reqs}
+            counts = ops.launch_counts()
+            if dev == "cuda":
+                paged = server.paged
+                assert counts == {
+                    "psi_matmul_codes": _matmuls_per_forward(cfg) * (
+                        stats["decode_steps"] + stats["prefill_forwards"]),
+                    "psi_matmul_packed": 0,
+                    "paged_attention": (cfg.n_layers * stats["decode_steps"]
+                                        if paged else 0)}
+            if arch == HYBRID and not continuous:
+                assert stats["prefill_forwards"] == stats["n_requests"]
+    for continuous in (True, False):
+        assert done[("cuda", continuous)] == done[("cpu", continuous)]
