@@ -6,9 +6,9 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
 (sm_90a), holds each against its plain PyTorch version on the card, serves
 full-width qwen3-8b (on the paged pool and on the dense slab),
-phi3-medium-14b, granite-34b, chatglm3-6b, qwen3-moe-30b-a3b, qwen2-vl-2b
-and recurrentgemma-9b from PSI codes through them, and compares the card
-with the CPU.  Phases, each
+phi3-medium-14b, granite-34b, chatglm3-6b, qwen3-moe-30b-a3b, qwen2-vl-2b,
+recurrentgemma-9b, falcon-mamba-7b and whisper-base from PSI codes through
+them, and compares the card with the CPU.  Phases, each
 printing one JSON line; any failure exits non-zero before the result line:
 
   1. card and build    — nvidia-smi name and power limit, kernel build time;
@@ -22,11 +22,16 @@ printing one JSON line; any failure exits non-zero before the result line:
                          plain version's, one library call's (yardstick
                          only) and the memory bound; kernels 1 and 2 also
                          at the five weight shapes of each other dense
-                         config (kernel_shape_arch, kernel_step_arch) and
-                         kernel 3 at their head layouts (4 x 80, 4 x 512,
-                         16 x 2048), qwen3-moe's 32/4 and qwen2-vl's
-                         12/2 (G = 6) included (recurrentgemma decodes
-                         on the dense ring: no kernel 3);
+                         config (kernel_shape_arch, kernel_step_arch;
+                         falcon-mamba's x_proj / dt_proj_w also on the
+                         f32 route its prefill takes, M 1-288, batch
+                         invariant; whisper's 512-wide matrices at its
+                         encoder's and cross K/V's B x 1500 rows, and its
+                         odd 512 x 51865 head) and kernel 3 at their head
+                         layouts (4 x 80, 4 x 512, 16 x 2048), qwen3-moe's
+                         32/4 and qwen2-vl's 12/2 (G = 6) included
+                         (recurrentgemma, falcon-mamba and whisper decode
+                         on the dense slab: no kernel 3);
   3. serve psi8        — Server.serve of qwen3-8b, all 36 layers, in
                          continuous and static modes: identical tokens, and
                          253 PSI-matmul (kernel 1) + 36 attention launches
@@ -111,6 +116,20 @@ printing one JSON line; any failure exits non-zero before the result line:
                          a transpose per call; for the hybrid the rec
                          blocks' non-PSI time at decode and prefill (the
                          scan's share) split out (rec_layer_split);
+  4f. SSM and encoder-decoder (serve_falconmamba_psi8, serve_whisper_psi8
+                         and their _horizon phases) — full width and
+                         depth (64 mamba layers; 6 + 6 layers over 1500
+                         stub frames), dense, the psi8 trace at horizons 1
+                         and 8, tokens identical; 257 matmuls a forward
+                         and step for falcon-mamba, 61 a step and 97 a
+                         prefill forward for whisper (its encoder), no
+                         kernel 3; exact-length prefills; one decode and
+                         one round graph; a decode window (eager, graph),
+                         one 288-row prefill; the mamba blocks' non-PSI
+                         time at decode, the prefill's scan and its peak
+                         memory (mamba_layer_split); whisper's cross K/V
+                         projection a step and its encoder's share of a
+                         prefill (xattn_split), its tied head;
   5. card vs CPU       — prefill + 8 greedy decode steps of a 2-layer
                          float32 psi8 model on the card and on the CPU, on
                          the card a suffix prefill (the prompt split at a
@@ -126,9 +145,12 @@ printing one JSON line; any failure exits non-zero before the result line:
                          prefills one by one), a 2-layer qwen2-vl serve,
                          a 3-layer (one group) recurrentgemma serve, a
                          2-layer qwen2-vl prefill with 8 spliced patches
-                         and distinct M-RoPE streams (logits), and the
-                         reduced 5-layer hybrid on its 32-ring, tokens
-                         identical on the card and the CPU;
+                         and distinct M-RoPE streams (logits), the
+                         reduced 5-layer hybrid on its 32-ring, a 2-layer
+                         falcon-mamba serve, a whisper serve of 2 + 2
+                         layers over 1500 frames and the reduced SSM on
+                         prompts of 1 and 2 tokens, tokens identical on
+                         the card and the CPU;
   6. summary           — {"kernels": [...]}, the card line, then the result
                          {"ok": true, "device": {...}} as the last line.
 
@@ -157,9 +179,14 @@ ARCHS = {"phi3-medium-14b": ("phi3", "psi8"),
          "chatglm3-6b": ("chatglm3", "psi8"),
          "qwen3-moe-30b-a3b": ("qwen3moe", "psi8"),
          "qwen2-vl-2b": ("qwen2vl", "psi8"),
-         "recurrentgemma-9b": ("recurrentgemma", "psi8")}
+         "recurrentgemma-9b": ("recurrentgemma", "psi8"),
+         "falcon-mamba-7b": ("falconmamba", "psi8"),
+         "whisper-base": ("whisper", "psi8")}
 # configs whose phase also serves the trace at horizon 8 (continuous)
-HORIZON_ARCHS = ("qwen3-moe-30b-a3b", "qwen2-vl-2b", "recurrentgemma-9b")
+HORIZON_ARCHS = ("qwen3-moe-30b-a3b", "qwen2-vl-2b", "recurrentgemma-9b",
+                 "falcon-mamba-7b", "whisper-base")
+# whisper's card-vs-CPU serve also cuts its encoder (its 1500 frames kept)
+CARD_VS_CPU_ENC_LAYERS = 2
 # the card-vs-CPU serve's depth by config (2 layers; the hybrid one
 # (rec, rec, attn) group)
 CARD_VS_CPU_LAYERS = {"recurrentgemma-9b": 3}
@@ -201,6 +228,7 @@ PREFILL_M = 64                   # one admission's bucketed prompt
 CTX_LONG_SEQ = 448 + 24 + 8 + 16
 PREFILL_MS = tuple(range(16, CTX_LONG_SEQ + 1, 16))
 L2_BYTES = 50e6                  # H100 L2: rotate weight copies past it
+F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 
 
 def emit(obj):
@@ -218,37 +246,66 @@ def check(cond, msg):
 
 
 def counts_per_step(cfg):
-    """(PSI-matmul launches per forward, attention calls per decode step):
-    wq, wk, wv, wo (a rec layer's w_in_gate, w_in_rec, rglru_wa, rglru_wx,
-    w_out) and the MLP's matrices (3 gated, 2 for the GELU MLP, none for
+    """(PSI-matmul launches per decode step, attention calls per decode
+    step): wq, wk, wv, wo (a rec layer's w_in_gate, w_in_rec, rglru_wa,
+    rglru_wx, w_out; a mamba layer's in_proj, x_proj, dt_proj_w,
+    out_proj and no MLP; an xattn layer's four and its cross attention's
+    four) and the MLP's matrices (3 gated, 2 for the GELU MLP, none for
     MoE: its experts are dequantized blocks in a plain batched product)
     per layer plus the lm-head; one paged attention read per attention
-    layer (none on the dense slab: its read is plain)."""
+    layer (none on the dense slab: its read is plain).  A prefill forward
+    launches :func:`encoder_launches` more."""
     from repro_torch.models.transformer import layer_kinds
     kinds = layer_kinds(cfg)
     mlp = 0 if cfg.family == "moe" else (2 if cfg.act == "gelu" else 3)
-    per_fwd = sum((5 if k == "rec" else 4) + mlp for k in kinds) + 1
+    own = {"rec": 5 + mlp, "mamba": 4, "xattn": 8 + mlp}
+    per_fwd = sum(own.get(k, 4 + mlp) for k in kinds) + 1
     paged = cfg.resolved_cache_layout == "paged"
     return per_fwd, kinds.count("attn") if paged else 0
 
 
+def encoder_launches(cfg):
+    """PSI-matmul launches of whisper's encoder, which runs in a prefill
+    forward only: wq, wk, wv, wo, w_up and w_down a layer (0 for every
+    other family)."""
+    return 6 * cfg.n_enc_layers if cfg.family == "encdec" else 0
+
+
+def matmul_launches(cfg, steps, forwards):
+    """The PSI-matmul launches of ``steps`` decode steps and ``forwards``
+    prefill forwards."""
+    per_step = counts_per_step(cfg)[0]
+    return per_step * (steps + forwards) + encoder_launches(cfg) * forwards
+
+
 def weight_shapes(cfg):
-    """{label: ((K, N), launches per forward)} of a config's PSI matmuls
-    (wq and wo apart where n_heads x head_dim != d_model; no MLP for MoE;
-    the rec layers' five; labels of one shape merged)."""
+    """{label: ((K, N), launches per decode step)} of a config's PSI
+    matmuls (wq and wo apart where n_heads x head_dim != d_model; no MLP
+    for MoE or the SSM; the rec layers' five, the mamba layers' four,
+    whisper's cross attention's four; labels of one shape merged)."""
     from repro_torch.models.transformer import layer_kinds
     kinds = layer_kinds(cfg)
     d, hd, L = cfg.d_model, cfg.resolved_head_dim, len(kinds)
-    La, Lr, dr = kinds.count("attn"), kinds.count("rec"), cfg.resolved_d_rnn
+    La = kinds.count("attn") + 2 * kinds.count("xattn")
+    Lr, dr = kinds.count("rec"), cfg.resolved_d_rnn
+    Lm, di = kinds.count("mamba"), cfg.d_inner
     q = cfg.n_heads * hd
-    rows = ([("wq/wo", (d, d), 2 * La)] if q == d
-            else [("wq", (d, q), La), ("wo", (q, d), La)])
-    rows.append(("wk/wv", (d, cfg.n_kv_heads * hd), 2 * La))
+    rows = []
+    if La:
+        rows = ([("wq/wo", (d, d), 2 * La)] if q == d
+                else [("wq", (d, q), La), ("wo", (q, d), La)])
+        rows.append(("wk/wv", (d, cfg.n_kv_heads * hd), 2 * La))
     if Lr:
         rows += [("w_in_gate/w_in_rec", (d, dr), 2 * Lr),
                  ("rglru_wa/rglru_wx", (dr, dr), 2 * Lr),
                  ("w_out", (dr, d), Lr)]
-    if cfg.family == "moe":
+    if Lm:
+        r, N = cfg.resolved_dt_rank, cfg.ssm_state
+        rows += [("in_proj", (d, 2 * di), Lm),
+                 ("x_proj", (di, r + 2 * N), Lm),
+                 ("dt_proj_w", (r, di), Lm),
+                 ("out_proj", (di, d), Lm)]
+    if cfg.family in ("moe", "ssm"):
         pass
     elif cfg.act == "gelu":
         rows += [("w_up", (d, cfg.d_ff), L), ("w_down", (cfg.d_ff, d), L)]
@@ -274,7 +331,9 @@ def check_full(cfg, arch):
     keys = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
             "vocab_size", "head_dim", "act", "rope", "n_experts", "top_k",
             "capacity_factor", "block_pattern", "d_rnn", "rglru_c",
-            "window", "vision_patches", "tie_embeddings")
+            "window", "vision_patches", "tie_embeddings", "norm",
+            "ssm_state", "ssm_expand", "ssm_conv", "ssm_dt_rank",
+            "n_enc_layers", "enc_frames")
     check(all(getattr(cfg, k) == getattr(want, k) for k in keys),
           f"{arch}: not full width and depth")
 
@@ -986,13 +1045,64 @@ def _decode_times(torch, qt, gen, dev, bw, peak, host=True):
     return t, kern, datas
 
 
+def _extra_ms(cfg, label):
+    """(bf16 rows, f32 rows) past ARCH_MS at which a served config runs a
+    weight: the SSM's x_proj and dt_proj_w take f32 rows at prefill (the
+    conv's f32 taps make x f32 there) at every prompt length up to the
+    prefill window's ARCH_PREFILL_ROWS; whisper's encoder and cross K/V
+    run its 512-wide matrices over B x enc_frames rows (a prefill of B
+    rows, and every decode step's cross K/V over all DECODE_M slots)."""
+    if cfg.family == "ssm" and label in ("x_proj", "dt_proj_w"):
+        return (), ARCH_MS
+    if cfg.family == "encdec" and label != "lm_head":
+        return tuple(b * cfg.enc_frames for b in range(1, DECODE_M + 1)), ()
+    return (), ()
+
+
+def _rows_times(torch, qt, M, dtype, gen, dev, bw, peak):
+    """Kernel 1 or 2 on ``qt`` at M rows of ``dtype`` x: device time from
+    CUDA-graph replays, the plain version's eager time, one torch.matmul
+    in x's dtype on the dequantized weight (yardstick), and the bound."""
+    from repro_torch.kernels import ops, ref
+    K, N = qt.shape
+    x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+    kern = lambda i: ops.psi_matmul_2d(x, qt)
+    if qt.packed:
+        plain = lambda i: ref.psi_matmul_packed_ref(x, qt.data, qt.scale,
+                                                    qt.fmt.bits)
+    else:
+        plain = lambda i: ref.psi_matmul_codes_ref(x, qt.data, qt.scale)
+    w = qt.dequantize(dtype)
+    lib = lambda i: torch.matmul(x, w)
+    t = {"M": M, "dtype": str(dtype).split(".")[-1],
+         "device_ms": _graph_ms(torch, kern, 1, iters=10, reps=3),
+         "plain_ms": _median_ms(torch, plain, 1, iters=3, reps=3),
+         "library_device_ms": _graph_ms(torch, lib, 1, iters=10, reps=3)}
+    esz = x.element_size()
+    t["bytes"] = (qt.data.numel() * qt.data.element_size() + 4 * N
+                  + esz * M * (K + N))
+    t["flops"] = 2.0 * M * K * N
+    # f32 x runs on CUDA cores: its bound takes the f32 (non-tensor) rate
+    rate = peak if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t["bound_ms"] = max(t["bytes"] / bw, t["flops"] / rate) * 1e3
+    t["bound_by"] = ("bytes" if t["bytes"] / bw >= t["flops"] / rate
+                     else "operations")
+    t["device_roofline_share"] = t["bound_ms"] / t["device_ms"]
+    del w
+    return t
+
+
 def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
-    """Kernels 1 (psi8) and 2 (psi5) at the five weight shapes of each other
-    dense config: held against their plain versions at ARCH_MS rows in bf16
-    (and 4, 16 in f32, the card-vs-CPU serve's rows), then timed alone at
-    M = DECODE_M with the weights cold (eager, graph replay, plain version,
-    bf16 torch.matmul) and at M = 64 (graph replay).  One row per shape,
-    then one per config and width with the sums over a decode step."""
+    """Kernels 1 (psi8) and 2 (psi5) at the weight shapes of each other
+    config: held against their plain versions at ARCH_MS rows in bf16
+    (and 4, 16 in f32, the card-vs-CPU serve's rows), and at the rows of
+    :func:`_extra_ms` (the SSM's f32 prefill route, also batch invariant
+    bit for bit: 288 rows against 256 + 32; whisper's B x 1500 encoder
+    and cross K/V rows), then timed alone at M = DECODE_M with the
+    weights cold (eager, graph replay, plain version, bf16 torch.matmul)
+    and at M = 64 (graph replay), and at psi8 at the largest extra row
+    count.  One row per shape, then one per config and width with the
+    sums over a decode step."""
     from repro_torch.configs import get_config
     from repro_torch.core import psi
     from repro_torch.kernels import ops, ref
@@ -1026,6 +1136,36 @@ def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
                                             (4, 16), torch.float32, gen, dev)
                 check(ratio <= 1.0, f"{key} {arch} {wl} f32 err {err32} "
                                     f"over tolerance")
+                extra = {}
+                xb, xf = _extra_ms(cfg, wl)
+                if xb:
+                    e, ratio = _gemm_errors(torch, ops, ref, qt, plain, xb,
+                                            bf16, gen, dev)
+                    check(ratio <= 1.0, f"{key} {arch} {wl} bf16 err {e} at "
+                                        f"rows {xb} over one bf16 ulp")
+                    err = max(err, e)
+                    extra["bf16_rows_M"], extra["bf16_rows_err"] = xb, e
+                if xf:
+                    e, ratio = _gemm_errors(torch, ops, ref, qt, plain, xf,
+                                            torch.float32, gen, dev)
+                    check(ratio <= 1.0, f"{key} {arch} {wl} f32 err {e} at "
+                                        f"rows {xf} over tolerance")
+                    err32 = max(err32, e)
+                    extra["f32_rows_M"], extra["f32_rows_err"] = xf, e
+                    x = torch.randn(ARCH_PREFILL_ROWS, K, generator=gen,
+                                    device=dev)
+                    whole = ops.psi_matmul_2d(x, qt)
+                    parts = torch.cat([ops.psi_matmul_2d(x[:256], qt),
+                                       ops.psi_matmul_2d(x[256:], qt)])
+                    check(torch.equal(whole, parts),
+                          f"{key} {arch} {wl}: the f32 route's rows depend "
+                          f"on the batch ({ARCH_PREFILL_ROWS} vs 256 + "
+                          f"{ARCH_PREFILL_ROWS - 256})")
+                    extra["f32_batch_invariant"] = True
+                if bits == 8 and (xb or xf):
+                    extra["rows_time"] = _rows_times(
+                        torch, qt, max(xb) if xb else ARCH_PREFILL_ROWS,
+                        bf16 if xb else torch.float32, gen, dev, bw, peak)
                 max_err[key] = max(max_err[key], err)
                 t, kern, datas = _decode_times(torch, qt, gen, dev, bw, peak,
                                                host=False)
@@ -1039,7 +1179,7 @@ def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
                     plan = dict(zip(("chunk", "n_split"), _packed_plan(K, N)))
                 row[f"psi{bits}"] = {"max_abs_err": err,
                                      "f32_max_abs_err": err32, **t,
-                                     "plan": plan}
+                                     "plan": plan, **extra}
                 for f in step[bits]:
                     step[bits][f] += per_step * t[f]
             emit(row)
@@ -1132,13 +1272,18 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     differ) serve the psi8 trace and, like MoE, at horizon 8
     (continuous); both time their tied head built once against a
     transpose per call (tied_head), and the hybrid splits its rec blocks
-    into PSI and other time at decode and prefill (rec_layer_split)."""
+    into PSI and other time at decode and prefill (rec_layer_split).
+    falcon-mamba-7b (dense, 257 matmuls a forward and step) and
+    whisper-base (dense, 61 a step, 97 a prefill forward: its encoder)
+    serve the same way, exact-length prefills both; falcon-mamba splits
+    its mamba blocks (mamba_layer_split), whisper its cross K/V
+    projection and encoder (xattn_split)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     main = arch == MAIN_ARCH
-    moe = get_config(arch).family == "moe"
-    hybrid = get_config(arch).family == "hybrid"
+    family = get_config(arch).family
+    moe = family == "moe"
     if main and quant != "psi8":
         args = _serve_args(quant=quant, requests=4, max_new=8, min_new=4)
     elif moe:
@@ -1208,10 +1353,11 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     fwd = sc["prefill_forwards"] + ss["prefill_forwards"]
     want = {"psi_matmul_codes": 0, "psi_matmul_packed": 0,
             "paged_attention": per_step * steps}
-    want[key] = per_fwd * (steps + fwd)
+    want[key] = matmul_launches(cfg, steps, fwd)
     check(got == want, f"{name} launch counts {got} != expected {want} "
-                       f"({per_fwd} per forward, {per_step} attention per "
-                       f"decode step)")
+                       f"({per_fwd} per decode step, "
+                       f"{per_fwd + encoder_launches(cfg)} per prefill "
+                       f"forward, {per_step} attention per decode step)")
     ex = server.executor
     r0 = done_c[0]
     with torch.inference_mode():
@@ -1237,6 +1383,8 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
               else _decode_window(torch, server, server8))
     burst = _burst_window(torch, server) if main and quant == "psi8" \
         else None
+    # the serve's peak, before a split resets the counter to read its own
+    peak = torch.cuda.max_memory_allocated()
     if not main:
         # one prefill forward of ARCH_PREFILL_ROWS rows: a table (or a
         # slab) that covers them, one slot, no decode graph
@@ -1260,8 +1408,12 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
                 undo_route()
             prefill["routing"] = _drops(log)
             split = _moe_split(torch, ex)
-        if hybrid:
+        if family == "hybrid":
             split = _rec_split(torch, ex)
+        if family == "ssm":
+            split = _mamba_split(torch, ex, pserver)
+        if family == "encdec":
+            split = _xattn_split(torch, ex, pserver)
         if cfg.tie_embeddings:
             tied = _tied_head_times(torch, ex)
         del pserver
@@ -1285,12 +1437,13 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
           "tokens_identical": True, "launches": got,
           "launches_per_forward": per_fwd,
           "attention_per_decode_step": per_step,
+          "launches_per_prefill_forward": per_fwd + encoder_launches(cfg),
           "admissions": admitted, "prefill_rows_held_here": held,
           "decode_window": window, "prefill_window": prefill,
           "burst_prefill_window": burst, "prefill_routing": drops,
-          ("rec_layer_split" if hybrid else "moe_layer_split"): split,
+          SPLIT_KEYS.get(family, "moe_layer_split"): split,
           "tied_head": tied,
-          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "peak_mem_bytes": max(peak, torch.cuda.max_memory_allocated()),
           "phase_wall_s": time.perf_counter() - t_phase})
     if arch in HORIZON_ARCHS:
         phase_serve_horizon(torch, server8, args, cfg, tc, launches, keep,
@@ -1304,6 +1457,11 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
                           keep, window)
     del server, server8, ex, runs, done_c
     _free(torch)
+
+
+# the phase line's key of each family's layer split
+SPLIT_KEYS = {"moe": "moe_layer_split", "hybrid": "rec_layer_split",
+              "ssm": "mamba_layer_split", "encdec": "xattn_split"}
 
 
 def _check_bursts(name, stats, admitted, exact=False):
@@ -1469,6 +1627,135 @@ def _rec_split(torch, ex, rows=ARCH_PREFILL_ROWS):
             "prefill_rec_psi_ms": t_pre_mm,
             "prefill_rec_non_psi_ms": t_pre - t_pre_mm,
             "prefill_scan_ms": t_scan}
+
+
+def _mamba_split(torch, ex, pserver, rows=ARCH_PREFILL_ROWS):
+    """The SSM's mamba blocks, device time from CUDA-graph replays over
+    every layer in turn (each layer's codes come from HBM), summed over
+    the layers: a decode step's block at the serve's shape (max_batch
+    tokens; ``mamba_decode_step``, the freeze of inactive rows and the
+    state's copy back, as ``apply_block_decode`` runs them) against its
+    four PSI matmuls alone (bf16 rows), the difference being the conv,
+    the discretization, the update and the freeze; one ``rows``-row
+    prefill's block (``mamba_block``) against its four matmuls alone
+    (x_proj and dt_proj_w on f32 rows, as the prefill runs them), and the
+    chunked selective scan alone (discretization, doubling scan, C
+    contraction); and the peak memory one ``rows``-row prefill forward
+    (``pserver``'s) adds over what was allocated before it."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm, transformer
+    cfg = ex.model.cfg
+    mambas = [p["mamba"] for p in ex.params["layers"]]
+    L, B, dev, dt = len(mambas), ex.max_batch, ex.device, ex.model.dtype
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    r = cfg.resolved_dt_rank
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(B, 1, d, generator=g, device=dev).to(dt)
+    state = ssm.init_mamba_state(cfg, B, dev)
+    state["ssm"].normal_(generator=g)
+    state["conv"].normal_(generator=g)
+    out_state = {k: v.clone() for k, v in state.items()}
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    active[-1] = False
+
+    def step(i):
+        _, new = ssm.mamba_decode_step(mambas[i], x, cfg, state)
+        for k, t in transformer._freeze_inactive_state(new, state,
+                                                       active).items():
+            out_state[k].copy_(t)
+
+    def matmuls(M, xdt):
+        xa = torch.randn(M, d, generator=g, device=dev).to(dt)
+        xc = torch.randn(M, di, generator=g, device=dev).to(xdt)
+        xr = torch.randn(M, r, generator=g, device=dev).to(xdt)
+        xy = torch.randn(M, di, generator=g, device=dev).to(dt)
+
+        def run(i):
+            p = mambas[i]
+            for w, v in (("in_proj", xa), ("x_proj", xc), ("dt_proj_w", xr),
+                         ("out_proj", xy)):
+                ops.psi_matmul(v, p[w])
+        return run
+
+    xp = torch.randn(1, rows, d, generator=g, device=dev).to(dt)
+    dts = torch.rand(1, rows, di, generator=g, device=dev) * 0.1
+    xcs = torch.randn(1, rows, di, generator=g, device=dev)
+    bms = torch.randn(1, rows, N, generator=g, device=dev)
+    cms = torch.randn(1, rows, N, generator=g, device=dev)
+    h0 = torch.zeros(1, di, N, device=dev)
+    with torch.inference_mode():
+        t_step = _graph_ms(torch, step, L, iters=L, reps=3) * L
+        t_mm = _graph_ms(torch, matmuls(B, dt), L, iters=L, reps=3) * L
+        t_pre = _graph_ms(torch, lambda i: ssm.mamba_block(mambas[i], xp,
+                                                           cfg),
+                          L, iters=L, reps=3) * L
+        t_pre_mm = _graph_ms(torch, matmuls(rows, torch.float32), L,
+                             iters=L, reps=3) * L
+        t_scan = _graph_ms(torch, lambda i: ssm._selective_scan(
+            mambas[i], dts, xcs, bms, cms, h0), L, iters=L, reps=3) * L
+    # one prefill forward of ``rows`` tokens, its peak over what it found
+    import numpy as np
+    pex = pserver.executor
+    cache = pex.init_cache()
+    toks = (np.arange(rows, dtype=np.int32) % cfg.vocab_size)[None]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pex.prefill_insert(toks, np.asarray([rows], np.int32), cache, 0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    chunk = min(rows, ssm.CHUNK)
+    return {"mamba_layers": L, "decode_tokens": B,
+            "decode_mamba_block_ms_per_step": t_step,
+            "decode_mamba_psi_ms_per_step": t_mm,
+            "decode_mamba_non_psi_ms_per_step": t_step - t_mm,
+            "prefill_rows": rows, "prefill_mamba_block_ms": t_pre,
+            "prefill_mamba_psi_ms": t_pre_mm,
+            "prefill_mamba_non_psi_ms": t_pre - t_pre_mm,
+            "prefill_scan_ms": t_scan,
+            "prefill_peak_extra_bytes": peak,
+            "scan_chunk_tensor_bytes": 4 * chunk * di * N,
+            "prefill_forward_bytes_before": base}
+
+
+def _xattn_split(torch, ex, pserver, rows=ARCH_PREFILL_ROWS):
+    """whisper's cross attention and encoder, device time from CUDA-graph
+    replays: per decode step (max_batch slots), the cross K/V projection
+    of every slot's whole ``enc_out`` in each decoder layer (two PSI
+    matmuls at max_batch x enc_frames rows a layer) and the whole cross
+    half (norm_x, that projection, the cross attention read, wq and wo),
+    summed over the layers; and a prefill's encoder (frames plus their
+    sinusoidal table, the encoder stack, enc_norm_f) over one row of zero
+    frames, against one ``rows``-token prefill forward of ``pserver``'s
+    whole, timed the same way."""
+    from repro_torch.models import attention, transformer
+    cfg = ex.model.cfg
+    xl = ex.params["layers"]
+    L, B, dev, dt = len(xl), ex.max_batch, ex.device, ex.model.dtype
+    g = torch.Generator(device=dev).manual_seed(7)
+    enc = torch.randn(B, cfg.enc_frames, cfg.d_model, generator=g,
+                      device=dev).to(dt)
+    x = torch.randn(B, 1, cfg.d_model, generator=g, device=dev).to(dt)
+    frames = torch.zeros(1, cfg.enc_frames, cfg.d_model, dtype=dt,
+                         device=dev)
+    toks = (torch.arange(rows, device=dev) % cfg.vocab_size)[None]
+    model, params = ex.model, ex.params
+    with torch.inference_mode():
+        t_kv = _graph_ms(torch, lambda i: attention.project_enc_kv(
+            xl[i]["xattn"], enc, cfg), L, iters=L, reps=3) * L
+        t_cross = _graph_ms(torch, lambda i: transformer._cross(
+            xl[i], x, cfg, enc), L, iters=L, reps=3) * L
+        t_enc = _graph_ms(torch, lambda i: model._encode(params, frames), 1,
+                          iters=3, reps=3)
+        t_fwd = _graph_ms(torch, lambda i: model.forward(params, toks), 1,
+                          iters=3, reps=3)
+    return {"decoder_layers": L, "decode_slots": B,
+            "cross_kv_rows": B * cfg.enc_frames,
+            "cross_kv_ms_per_step": t_kv,
+            "cross_half_ms_per_step": t_cross,
+            "encoder_frames": cfg.enc_frames, "encoder_ms": t_enc,
+            "prefill_rows": rows, "prefill_forward_ms": t_fwd,
+            "encoder_share_of_prefill": t_enc / t_fwd}
 
 
 def _tied_head_times(torch, ex):
@@ -1703,7 +1990,7 @@ def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
     fwd = sum(st["prefill_forwards"] for st in stats)
     check(steps == HORIZON * rounds, "decode steps != horizon x rounds")
     per_fwd, per_step = counts_per_step(cfg)
-    want = {"psi_matmul_codes": per_fwd * (steps + fwd),
+    want = {"psi_matmul_codes": matmul_launches(cfg, steps, fwd),
             "psi_matmul_packed": 0, "paged_attention": per_step * steps}
     check(got == want, f"horizon {HORIZON} launch counts {got} != expected "
                        f"{want} ({per_fwd} per forward, {per_step} "
@@ -1927,27 +2214,36 @@ def _check_prefill_rows(torch, rows, label, params, checked=PREFILL_MS):
     were held against their plain versions: phase_kernels held them at
     ``checked`` (PREFILL_MS at qwen3-8b's shapes, ARCH_MS at the other
     configs'); a burst's B x Sb rows past those (they follow the
-    admissions' timing), and the hybrid's exact prompt lengths, are held
-    here on the served weights (the first attention layer's matrices and
-    the first rec layer's, the MLP's, the lm-head or the tied head), bf16,
-    within one bf16 ulp of the output.  Returns {rows: max abs err} of the
-    rows held here."""
+    admissions' timing), and the recurrent configs' exact prompt lengths,
+    are held here on the served weights (the PSI matrices of the first
+    layer of each kind: attention, cross attention, rec, mamba and MLP;
+    the lm-head or the tied head), in the dtype the prefill runs them in
+    (bf16, within one bf16 ulp of the output; the SSM's x_proj and
+    dt_proj_w f32, within 1e-5 relative).  Whisper's encoder and cross
+    K/V rows (B x 1500) are the kernel phase's (_extra_ms).  Returns
+    {rows: max abs err} of the rows held here."""
+    from repro_torch.core.psi import QuantizedTensor
     from repro_torch.kernels import ops, ref
     new = sorted(set(rows) - set(checked))
-    attn = next(p for p in params["layers"] if "attn" in p)
-    rec = next((p["rec"] for p in params["layers"] if "rec" in p), {})
-    mlp = attn.get("mlp", {})               # an MoE layer's experts run none
-    leaves = ([attn["attn"][n] for n in ("wq", "wk", "wv", "wo")]
-              + [rec[n] for n in ("w_in_gate", "w_in_rec", "rglru_wa",
-                                  "rglru_wx", "w_out") if n in rec]
-              + [mlp[n] for n in sorted(mlp)]
-              + [params[n] for n in ("lm_head", "tied_head") if n in params])
-    dev = leaves[0].data.device
+    f32 = ("x_proj", "dt_proj_w")           # the SSM's f32 prefill route
+    firsts = {}
+    for p in params["layers"]:
+        for sub, leaf in p.items():
+            # an MoE layer's experts are dequantized blocks, no PSI matmul
+            if sub != "moe" and isinstance(leaf, dict):
+                firsts.setdefault(sub, leaf)
+    leaves = [(qt, torch.float32 if n in f32 else torch.bfloat16)
+              for sub in sorted(firsts)
+              for n, qt in sorted(firsts[sub].items())
+              if isinstance(qt, QuantizedTensor)]
+    leaves += [(params[n], torch.bfloat16) for n in ("lm_head", "tied_head")
+               if n in params]
+    dev = leaves[0][0].data.device
     gen = torch.Generator(device=dev).manual_seed(len(rows))
     held = {}
     for M in new:
         worst = 0.0
-        for qt in leaves:
+        for qt, dtype in leaves:
             if qt.packed:
                 plain = lambda x, q=qt: ref.psi_matmul_packed_ref(
                     x, q.data, q.scale, q.fmt.bits)
@@ -1955,10 +2251,10 @@ def _check_prefill_rows(torch, rows, label, params, checked=PREFILL_MS):
                 plain = lambda x, q=qt: ref.psi_matmul_codes_ref(
                     x, q.data, q.scale)
             err, ratio = _gemm_errors(torch, ops, ref, qt, plain, (M,),
-                                      torch.bfloat16, gen, dev)
+                                      dtype, gen, dev)
             check(ratio <= 1.0, f"{label}: a PSI kernel at a prefill's {M} "
-                                f"rows is {err} off its plain version "
-                                f"(over one bf16 ulp of the output)")
+                                f"rows ({dtype}) is {err} off its plain "
+                                f"version (over its tolerance)")
             worst = max(worst, err)
         held[M] = worst
     return held
@@ -2475,7 +2771,8 @@ def _window(torch, fn, per_call, calls):
 
 def _step_weight_bytes(params):
     """Bytes of the weights one decode step streams: every PSI matmul
-    weight's codes or planes and scales (the embedding is a row gather)."""
+    weight's codes or planes and scales (the embedding is a row gather;
+    whisper's encoder runs at prefill only)."""
     from repro_torch.core.psi import QuantizedTensor
     total = 0
 
@@ -2487,7 +2784,8 @@ def _step_weight_bytes(params):
                           + node.scale.numel() * 4)
         elif isinstance(node, dict):
             for k, v in node.items():
-                walk(v, k)
+                if k != "encoder":
+                    walk(v, k)
         elif isinstance(node, list):
             for v in node:
                 walk(v, name)
@@ -2570,6 +2868,12 @@ def phase_card_vs_cpu(torch, dev):
     hybrid = _swa_card_vs_cpu(torch, dev, reduced_config(
         get_config("recurrentgemma-9b"), quant_mode="psi8", n_layers=5),
         lens=(30, 34, 28, 27, 29, 26), static_forwards=6)
+    # the reduced SSM on prompts of 1 and 2 tokens, shorter than the conv's
+    # cw - 1 = 3 rows of state (the tail padded with zeros in front); two
+    # admission events of unequal lengths: six forwards in static mode
+    mamba_short = _swa_card_vs_cpu(torch, dev, reduced_config(
+        get_config("falcon-mamba-7b"), quant_mode="psi8"),
+        lens=(1, 2, 2, 1, 2, 1), static_forwards=6)
     emit({"phase": "card_vs_cpu", "layers": cfg.n_layers, "dtype": "float32",
           "steps": "prefill(16) + 8 decode", "max_abs_err": err,
           "max_abs_logit": amax, "tolerance": tol,
@@ -2577,7 +2881,8 @@ def phase_card_vs_cpu(torch, dev):
           "suffix_vs_full": suffix, "speculative": spec,
           "archs": archs, "qwen2vl_vision_prefill": vision, "swa_ring": swa,
           "mixtral_reduced_swa_ring": mixtral,
-          "recurrentgemma_reduced_5_layer_ring": hybrid, "ok": True})
+          "recurrentgemma_reduced_5_layer_ring": hybrid,
+          "falconmamba_reduced_short_prompts": mamba_short, "ok": True})
 
 
 def _vision_card_vs_cpu(torch, dev, P=8, S=24):
@@ -2629,8 +2934,8 @@ def _swa_card_vs_cpu(torch, dev, cfg, lens=(20, 23, 18, 10, 14, 12),
                      static_forwards=4):
     """An SWA config (qwen3-8b at full width cut to 2 layers under
     attn_type="swa", reduced mixtral-8x22b, or the reduced hybrid; float32
-    psi8, seed 1) on the dense layout's ring, served on the CPU and on the
-    card, continuous then static: 6 requests arriving at once on 3 slots,
+    psi8, seed 1) on the dense layout's ring, or the reduced SSM (no ring:
+    its state), served on the CPU and on the card, continuous then static: 6 requests arriving at once on 3 slots,
     7-9 new tokens each, so every ring wraps while decoding.  At the
     default ``lens`` and a 16-position ring: first three prompts of 18-23
     tokens (past the window: exact lengths that differ, so their burst
@@ -2699,9 +3004,10 @@ def _swa_card_vs_cpu(torch, dev, cfg, lens=(20, 23, 18, 10, 14, 12),
 
 
 def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
-    """A serve of ``arch`` at full width, cut to ``n_layers`` layers,
-    float32 psi8 (random weights, seed 1), on the CPU and on the card: 2
-    requests, 16-token prompts, 6 new tokens each, 2 slots.  Tokens must
+    """A serve of ``arch`` at full width, cut to ``n_layers`` layers (and
+    whisper to CARD_VS_CPU_ENC_LAYERS encoder layers over its 1500
+    frames), float32 psi8 (random weights, seed 1), on the CPU and on the
+    card: 2 requests, 16-token prompts, 6 new tokens each, 2 slots.  Tokens must
     be identical; on the card exact launch counts and one decode graph;
     no leaked block on either.  An MoE config also cuts its experts to
     MOE_CARD_VS_CPU_EXPERTS (the cut is on the line) and adds a
@@ -2713,8 +3019,10 @@ def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
     from repro_torch.models import build_model
     from repro_torch.runtime.executor import params_to
     t0 = time.perf_counter()
-    cut = ({"n_experts": MOE_CARD_VS_CPU_EXPERTS}
-           if get_config(arch).family == "moe" else {})
+    family = get_config(arch).family
+    cut = ({"n_experts": MOE_CARD_VS_CPU_EXPERTS} if family == "moe"
+           else {"n_enc_layers": CARD_VS_CPU_ENC_LAYERS}
+           if family == "encdec" else {})
     cfg = get_config(arch, n_layers=n_layers, dtype="float32",
                      quant_mode="psi8", **cut)
     params = build_model(cfg).init(seed=1, device=dev, bits=8)
@@ -2738,8 +3046,8 @@ def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
                        "decode_compiles": stats["decode_compiles"]}
         del server, p
     per_fwd, per_step = counts_per_step(cfg)
-    want = {"psi_matmul_codes": per_fwd * (stats["decode_steps"]
-                                           + stats["prefill_forwards"]),
+    want = {"psi_matmul_codes": matmul_launches(cfg, stats["decode_steps"],
+                                                stats["prefill_forwards"]),
             "psi_matmul_packed": 0,
             "paged_attention": per_step * stats["decode_steps"]}
     check(got == want, f"{arch} card vs CPU: card launch counts {got} != "
@@ -2751,7 +3059,7 @@ def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
           f"{toks['cpu']}")
     del params
     spec = None
-    if cut:
+    if family == "moe":
         spec = _spec_card_vs_cpu(torch, dev, cfg, build_model(cfg),
                                  k=MOE_SPEC_K)
         check(spec["cpu_routing"]["verify"]["slots_kept"]

@@ -1,8 +1,8 @@
 """Model configuration for the PyTorch port: the architecture record, the
 registry behind ``--arch`` and the reduced (CPU test) variant.
 
-Only the fields the dense, MoE, VLM and hybrid families and their serving
-paths read are kept; the field names, defaults and reduced widths are those of the
+Only the fields the six families (dense, MoE, VLM, hybrid, SSM and
+encoder-decoder) and their serving paths read are kept; the field names, defaults and reduced widths are those of the
 JAX package's configuration, so the same names build the same shapes in
 both packages.
 """
@@ -19,7 +19,9 @@ class ModelConfig:
                                     # granite-34b, chatglm3-6b) | moe
                                     # (qwen3-moe-30b-a3b, mixtral-8x22b)
                                     # | vlm (qwen2-vl-2b) | hybrid
-                                    # (recurrentgemma-9b)
+                                    # (recurrentgemma-9b) | ssm
+                                    # (falcon-mamba-7b) | encdec
+                                    # (whisper-base)
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,10 +38,12 @@ class ModelConfig:
                                     # (rotate-half on the first half of the
                                     # head dims, the rest passed through) |
                                     # mrope (three position streams t, h, w
-                                    # over the frequencies split 2:1:1)
+                                    # over the frequencies split 2:1:1) |
+                                    # sinusoidal (added to the embeddings)
+                                    # | none
     rope_theta: float = 10_000.0
     qk_norm: bool = False
-    norm: str = "rmsnorm"
+    norm: str = "rmsnorm"           # rmsnorm | layernorm (with a bias)
     act: str = "swiglu"             # swiglu | geglu (gated, 3 matrices) |
                                     # gelu (w_down(gelu(w_up x)), 2 matrices)
 
@@ -49,13 +53,21 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
 
-    # --- the recurrent block's short causal conv (width) ---
+    # --- SSM (mamba-1); ssm_conv is also the rec block's conv width ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
     ssm_conv: int = 4
+    ssm_dt_rank: int = 0            # 0 -> d_model // 16
 
     # --- hybrid (recurrentgemma): a repeating block pattern ---
     block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
     d_rnn: int = 0                  # 0 -> d_model
     rglru_c: float = 8.0
+
+    # --- encoder-decoder (whisper backbone; the conv frontend is a stub:
+    # frame embeddings arrive precomputed, zeros at serving) ---
+    n_enc_layers: int = 0
+    enc_frames: int = 1500
 
     # --- VLM (qwen2-vl backbone; the vision frontend is a stub: patch
     # embeddings arrive precomputed and replace the leading tokens) ---
@@ -84,15 +96,28 @@ class ModelConfig:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
     @property
+    def resolved_dt_rank(self) -> int:
+        return self.ssm_dt_rank or max(self.d_model // 16, 1)
+
+    @property
     def resolved_d_rnn(self) -> int:
         return self.d_rnn or self.d_model
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def paged_capable(self) -> bool:
         """True when every decode-cache leaf is full-attention KV, the only
-        state a block pool can hold: recurrent state is fixed-size (no
-        paging to do) and an SWA ring wraps past ``max_seq``, which a
-        bounded block table cannot."""
+        state a block pool can hold: recurrent and SSM state is fixed-size
+        (no paging to do), an SWA ring wraps past ``max_seq``, which a
+        bounded block table cannot, and whisper's decoder carries
+        ``enc_out``."""
         return (self.family in ("dense", "moe", "vlm")
                 and self.attn_type == "full")
 
@@ -151,9 +176,10 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Tiny same-family config for CPU tests: the JAX package's reduced
     widths (float32, 2 layers or one block pattern, d_model 64, 4 q heads,
     <= 2 kv heads, head_dim 16, d_ff 128, vocab 256, a window of at most
-    32, d_rnn 64 for the hybrid, at most 8 vision patches; for MoE at
-    most 8 experts, top-2, and a capacity factor of at least 8, so that no
-    token drops unless the caller passes a lower one)."""
+    32, d_rnn 64 for the hybrid, at most 8 vision patches, an SSM state
+    of at most 8 and dt_rank 8, 2 encoder layers over 16 frames; for MoE
+    at most 8 experts, top-2, and a capacity factor of at least 8, so that
+    no token drops unless the caller passes a lower one)."""
     moe = bool(cfg.n_experts)
     small = dict(
         dtype="float32",
@@ -172,6 +198,10 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
         vision_patches=(min(cfg.vision_patches, 8) if cfg.vision_patches
                         else 0),
         d_rnn=64 if cfg.family == "hybrid" else 0,
+        ssm_state=min(cfg.ssm_state, 8) if cfg.ssm_state else 0,
+        ssm_dt_rank=8 if cfg.family == "ssm" else 0,
+        n_enc_layers=2 if cfg.n_enc_layers else 0,
+        enc_frames=16 if cfg.n_enc_layers else 1500,
     )
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

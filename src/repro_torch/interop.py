@@ -6,7 +6,10 @@ The input is a neutral numpy tree with the JAX package's structure::
      "stack": {"groups": {"b0_attn": {...}}, "tail": []}}
 
 (the hybrid's groups are ``b0_rec``, ``b1_rec``, ``b2_attn`` and its tail
-a list of unstacked blocks) where every array is a numpy array and every
+a list of unstacked blocks; the SSM's one group is ``b0_mamba``,
+whisper's ``b0_xattn``, and whisper adds ``"encoder"``, one stacked dict of
+blocks with a leading axis of ``n_enc_layers``, and ``"enc_norm_f"``)
+where every array is a numpy array and every
 quantized weight is a dict ``{"data", "scale", "bits", "packed"}``.
 Leaves under ``stack/groups`` carry a leading group axis (a quantized
 GEMM weight's scale is ``(L, 1, N)``).  The port keeps one dict per layer instead, so layers are
@@ -64,15 +67,19 @@ def _n_layers(groups) -> int:
 
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """The port's parameter structure (``embed``, ``layers`` — one dict per
-    layer with ``norm1``, ``attn`` or ``rec``, ``norm2``, ``mlp`` or
-    ``moe`` — ``norm_f`` and, when untied, ``lm_head``) on ``device``
+    layer with ``norm1``, ``attn``, ``rec`` or ``mamba``, ``norm_x`` and
+    ``xattn`` (whisper), ``norm2``, ``mlp`` or ``moe`` — ``norm_f``, when
+    untied ``lm_head``, and whisper's ``encoder`` (one dict per layer) and
+    ``enc_norm_f``) on ``device``
     (CUDA unless the caller names another).  The JAX stack's scanned
     groups (``b0_attn``, or the hybrid's ``b0_rec``, ``b1_rec``,
     ``b2_attn``: each a leading axis of groups) unstack group by group,
     each group's blocks in order, and its unrolled ``tail`` blocks follow:
     the order of ``transformer.layer_kinds``.  A ``moe`` subtree's stacked
     expert leaves ((L, E, d, f) codes, (L, E, bits, d/8, f) planes,
-    (L, E, 1, f) scales) unstack like any other."""
+    (L, E, 1, f) scales) unstack like any other.  Float leaves (norm
+    scales and biases, the mamba block's ``conv1d_*``, ``dt_proj_b``,
+    ``a_log`` and ``d_skip``) are copied as they are."""
     device = resolve_device(device)
     stack = tree["stack"]
     groups = stack["groups"]
@@ -91,4 +98,9 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     }
     if "lm_head" in tree:
         out["lm_head"] = _to_torch(tree["lm_head"], device)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = [_to_torch(enc, device, index=i)
+                          for i in range(_n_layers(enc))]
+        out["enc_norm_f"] = _to_torch(tree["enc_norm_f"], device)
     return out

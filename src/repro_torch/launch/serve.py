@@ -17,7 +17,10 @@ as the JAX package does: pad tokens route and take expert capacity, so
 its rows can differ from their prefills alone, in both packages.  The
 hybrid (recurrentgemma-9b) prefills at exact prompt lengths, since
 recurrent state absorbs pad tokens: a burst of unequal prompts prefills
-one request at a time.
+one request at a time.  So does the SSM (falcon-mamba-7b), whose SSM
+state lives on the dense layout, and the encoder-decoder (whisper-base),
+whose encoder runs over zero stub frames at every prefill and whose
+cross attention reads the cached encoder output at every decode step.
 
 With ``--decode-horizon M`` (M > 1) each iteration runs a round of M
 steps with EOS and budget retirement on the device and one host sync per
@@ -74,6 +77,11 @@ dense read is plain PyTorch in both places.
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-9b --reduced --quant psi8 --mode both \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch falcon-mamba-7b --reduced --quant psi8 --mode both \\
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-base --reduced --quant psi8 --mode both --device cpu
 """
 from __future__ import annotations
 
@@ -198,8 +206,8 @@ class Server:
                                  speculative=self.spec)
         self._swa_window = cfg.window if cfg.attn_type == "swa" else 0
         self._ring_extent = attention.cache_extent(cfg, max_seq)
-        # recurrent state absorbs pad tokens: the hybrid (as the SSM and
-        # encoder-decoder families in the JAX package) prefills at exact
+        # recurrent state absorbs pad tokens: the hybrid and the SSM (and,
+        # as in the JAX package, the encoder-decoder) prefill at exact
         # prompt lengths, never in padded buckets
         self._pad_ok = cfg.family not in ("ssm", "hybrid", "encdec")
 
@@ -302,10 +310,11 @@ class Server:
                 for j in range(kvc.blocks_for(
                         self._bucket_len(len(req.prompt)), self.block_size)):
                     bt[slot, j] = sched.blocks.alloc(req.rid)
-        if not self._swa_window:
+        if not (self._swa_window or self.cfg.is_attention_free):
             # a longer prefill, or a decode past max_seq, would wrap the
             # full-attention slab and evict prompt tokens the causal mask
-            # still expects (an SWA ring rolls by definition)
+            # still expects (an SWA ring rolls by definition; an SSM's
+            # state has no extent)
             need = max(sb, *(len(r.prompt) + r.max_new + self._spec_overhang
                              for _, r in admits))
             if need > self.max_seq:
@@ -494,9 +503,10 @@ class Server:
         clock = time.perf_counter
         ex = self.executor
         # fail fast, before any request is served (an SWA ring rolls by
-        # definition, so its extent needs no check)
+        # definition and an SSM's state has no extent, so neither needs
+        # the check)
         bad = [r.rid for r in requests
-               if not self._swa_window
+               if not (self._swa_window or self.cfg.is_attention_free)
                and self._worst_extent(r) > self.max_seq]
         if bad:
             raise ValueError(

@@ -1,8 +1,9 @@
 """Attention for the attention layers of every ported family: GQA with
 qk-norm and RoPE (M-RoPE's (B, 3, S) streams included: its temporal
 stream drives cache slots and masks), causal and sliding-window masks,
-plain prefill attention, and single-token decode against the paged block pool or the dense per-slot slab (a ring buffer of
-``window`` positions for SWA).
+plain prefill attention, single-token decode against the paged block
+pool or the dense per-slot slab (a ring buffer of ``window`` positions
+for SWA), and whisper's cross attention over the encoder output.
 
 Prefill attention and the dense decode read have no hand kernel (the JAX
 package leaves both to XLA): they are plain PyTorch here, processed in
@@ -145,6 +146,46 @@ def attention_block(p, x, cfg, positions, ctx=None, row_lens=None):
     B, S = x.shape[:2]
     y = linear(p["wo"], o.reshape(B, S, -1), cfg.quant_mode)
     return y, (k, v, positions)
+
+
+def rowwise_sdpa(q, k, v, causal):
+    """Plain attention of each batch row alone over all its keys
+    (positions 0, ..., S-1 of q and k): a prefill row's outputs then do
+    not depend on the batch it runs in (a burst or alone)."""
+    qp = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)[None]
+    kp = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)[None]
+    outs = [sdpa(q[i:i + 1], k[i:i + 1], v[i:i + 1], qp, kp, causal=causal)
+            for i in range(q.shape[0])]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 0)
+
+
+def project_enc_kv(p, enc_out, cfg):
+    """Cross attention's K and V, (B, F, Hkv, D) each, from the encoder
+    output (B, F, d): two PSI matmuls over all B x F rows."""
+    B, S, _ = enc_out.shape
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    k = linear(p["wk"], enc_out, cfg.quant_mode).reshape(B, S, hkv, hd)
+    v = linear(p["wv"], enc_out, cfg.quant_mode).reshape(B, S, hkv, hd)
+    return k, v
+
+
+def cross_attention_block(p, x, cfg, enc_kv):
+    """Encoder-decoder cross attention (whisper): queries from x (B, S, d)
+    over ``enc_kv`` = (k, v) of :func:`project_enc_kv`, with no rotation
+    and no mask (every frame visible; no qk-norm).  A prefill (S > 1)
+    attends row by row, a decode step over the whole batch."""
+    B, S, _ = x.shape
+    hd, hq = cfg.resolved_head_dim, cfg.n_heads
+    q = linear(p["wq"], x, cfg.quant_mode).reshape(B, S, hq, hd)
+    k, v = enc_kv
+    if S > 1:
+        o = rowwise_sdpa(q, k, v, causal=False)
+    else:
+        o = sdpa(q, k, v, torch.zeros((B, S), dtype=torch.int32,
+                                      device=x.device),
+                 torch.zeros((B, k.shape[1]), dtype=torch.int32,
+                             device=x.device), causal=False)
+    return linear(p["wo"], o.reshape(B, S, -1), cfg.quant_mode)
 
 
 def _kv_quantize(t):

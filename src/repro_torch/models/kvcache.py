@@ -11,12 +11,15 @@
   prefill returns, which ``Model.insert_cache`` copies into a slot's row
   or scatters into the pool.  A hybrid's rec layer holds its recurrent
   state there instead: ``{"h": (B, d_rnn), "conv": (B, cw-1, d_rnn)}``
-  f32, no position axis and no ``k_pos``.
+  f32, no position axis and no ``k_pos``; a mamba layer its SSM state
+  ``{"ssm": (B, d_inner, N), "conv": (B, cw-1, d_inner)}`` f32.
+  whisper's cache also carries ``enc_out`` (B, enc_frames, d), the
+  encoder output its cross attention reads at every decode step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List
+from typing import Any, List, Optional
 
 import torch
 
@@ -30,6 +33,7 @@ class KVCache:
     layout: str = DENSE
     block_size: int = 0
     n_blocks: int = 0              # usable pool blocks (scratch excluded)
+    enc_out: Optional[torch.Tensor] = None    # encoder-decoder, dense only
 
     @property
     def paged(self) -> bool:
@@ -52,7 +56,9 @@ def table_width(max_seq: int, block_size: int) -> int:
 
 
 def cache_nbytes(cache: KVCache) -> int:
-    """Bytes of every leaf, KV and recurrent state alike."""
+    """Bytes of every leaf, KV, recurrent state and ``enc_out`` alike."""
+    enc = cache.enc_out
     return int(sum(t.numel() * t.element_size()
                    for layer in cache.kv for t in layer.values()
-                   if isinstance(t, torch.Tensor)))
+                   if isinstance(t, torch.Tensor))
+               + (0 if enc is None else enc.numel() * enc.element_size()))

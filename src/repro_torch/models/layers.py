@@ -1,10 +1,13 @@
-"""Shared building blocks: RMSNorm, qk-norm, RoPE (plain, 2-D and the
-multimodal M-RoPE) and the MLPs (gated SwiGLU / GeGLU, 2-matrix GELU).
+"""Shared building blocks: RMSNorm and LayerNorm, qk-norm, RoPE (plain, 2-D
+and the multimodal M-RoPE), sinusoidal positions and the MLPs (gated
+SwiGLU / GeGLU, 2-matrix GELU).
 
 Plain functions over explicit parameter dicts; every matmul routes through
 :func:`repro_torch.quant.linear` so PSI weights take the kernel path.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -13,9 +16,18 @@ from repro_torch.quant import linear
 
 
 def apply_norm(p, x, cfg):
-    """RMSNorm: f32 statistics, activation-dtype application."""
+    """RMSNorm, or LayerNorm with a bias: f32 statistics, activation-dtype
+    application (LayerNorm rounds ``x - mu`` and the product by ``inv`` in
+    the activation dtype, then ``* scale + bias``)."""
+    if cfg.norm == "layernorm":
+        xf = x.to(torch.float32)
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + cfg.norm_eps)
+        y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+        return y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
     if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
     ms = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
     inv = torch.rsqrt(ms + cfg.norm_eps).to(x.dtype)
     return x * inv * p["scale"].to(x.dtype)
@@ -50,9 +62,13 @@ def apply_rope(x, positions, cfg):
     * "mrope":  Qwen2-VL multimodal RoPE — the D/2 frequencies split 2:1:1
       into the t, h and w sections, each rotated by its own position
       stream; three equal streams are plain RoPE.
+    * "sinusoidal" / "none": positions enter at the embedding (or not at
+      all): the identity here.
     """
+    if cfg.rope in ("sinusoidal", "none"):
+        return x
     if cfg.rope not in ("rope", "rope2d", "mrope"):
-        raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet")
+        raise NotImplementedError(f"rope {cfg.rope!r} is not ported")
     D = x.shape[-1]
     rot = D // 2 if cfg.rope == "rope2d" else D
     freqs = _rope_freqs(rot, cfg.rope_theta, x.device)
@@ -69,6 +85,24 @@ def apply_rope(x, positions, cfg):
     if rot == D:
         return _rotate(x, cos, sin)
     return torch.cat([_rotate(x[..., :rot], cos, sin), x[..., rot:]], dim=-1)
+
+
+def sinusoidal_from_positions(positions, D, dtype=torch.float32):
+    """positions (B, S) -> (B, S, D): ``[sin, cos]`` of the position times
+    ``exp(-ln(1e4) * i / max(D/2 - 1, 1))``, i < D/2, in f32 and cast last
+    (whisper's prefill and, at the token's absolute position, its
+    decode)."""
+    i = torch.arange(D // 2, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(10000.0) * i / max(D // 2 - 1, 1))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def sinusoidal_embedding(S, D, offset=0, dtype=torch.float32, device=None):
+    """The (S, D) table of positions ``[offset, offset + S)``."""
+    pos = torch.arange(offset, offset + S, dtype=torch.int32,
+                       device=device)[None]
+    return sinusoidal_from_positions(pos, D, dtype)[0]
 
 
 def positions_1d(positions):

@@ -1,6 +1,7 @@
-"""Model facade for the dense, MoE, VLM and hybrid (RG-LRU) families on
-both serving layouts (the paged block pool and the dense per-slot slab, a
-ring for SWA; recurrent state always dense):
+"""Model facade for every family — dense, MoE, VLM, the hybrid (RG-LRU),
+the SSM (Mamba-1) and the encoder-decoder (whisper) — on both serving
+layouts (the paged block pool and the dense per-slot slab, a ring for
+SWA; recurrent state, SSM state and the encoder output always dense):
 
   * ``init(seed, device, bits=..., pack=..., policy=...,
     qat_precondition=...)`` -> params (random weights from a
@@ -16,7 +17,8 @@ ring for SWA; recurrent state always dense):
                                                 with ``vision_embeds`` /
                                                 ``positions`` the VLM's
                                                 patch splice and M-RoPE
-                                                streams
+                                                streams; with ``frames``
+                                                whisper's encoder input
   * ``gather_prefix_ctx(cache, ctx_ids)``     -> that context KV
   * ``decode_step(params, batch, cache)``     -> (logits, cache updated in
                                                 place)
@@ -39,7 +41,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import psi, quantizer
 from repro_torch.models import (attention, kvcache as kvc, layers, moe,
-                                rglru, transformer)
+                                rglru, ssm, transformer)
 from repro_torch.models.kvcache import KVCache
 from repro_torch.quant import embed, linear, tied_head, tied_logits
 
@@ -53,10 +55,9 @@ def _positions(B, S, device, offset=0):
 
 class Model:
     def __init__(self, cfg):
-        if cfg.family not in ("dense", "moe", "vlm", "hybrid"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense, moe, vlm "
-                f"and hybrid only)")
+        if cfg.family not in ("dense", "moe", "vlm", "hybrid", "ssm",
+                              "encdec"):
+            raise NotImplementedError(f"family {cfg.family!r} is not ported")
         self.cfg = cfg
 
     @property
@@ -67,37 +68,60 @@ class Model:
     def param_specs(self):
         """(path, shape, init) per leaf, in draw order: a float init is a
         normal draw times that std, None ones, ``("fill", v)`` the
-        constant v."""
+        constant v; the mamba block's own inits are in
+        :func:`ssm.param_specs`."""
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
         hq, hkv, ff, V = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
+
+        def norm(pre):
+            out = [(f"{pre}/scale", (d,), None)]
+            if cfg.norm == "layernorm":
+                out.append((f"{pre}/bias", (d,), ("fill", 0.0)))
+            return out
+
+        def attn(pre, cross=False):
+            out = [(f"{pre}/wq", (d, hq * hd), d ** -0.5),
+                   (f"{pre}/wk", (d, hkv * hd), d ** -0.5),
+                   (f"{pre}/wv", (d, hkv * hd), d ** -0.5),
+                   (f"{pre}/wo", (hq * hd, d), (hq * hd) ** -0.5)]
+            if cfg.qk_norm and not cross:
+                out += [(f"{pre}/q_norm_scale", (hd,), None),
+                        (f"{pre}/k_norm_scale", (hd,), None)]
+            return out
+
+        def mlp(pre):
+            out = []
+            if cfg.act != "gelu":                     # gated: 3 matrices
+                out.append((f"{pre}/w_gate", (d, ff), d ** -0.5))
+            return out + [(f"{pre}/w_up", (d, ff), d ** -0.5),
+                          (f"{pre}/w_down", (ff, d), ff ** -0.5)]
+
         specs = [("embed", (V, d), d ** -0.5)]
         for i, kind in enumerate(transformer.layer_kinds(cfg)):
             pre = f"layers/{i}"
-            specs.append((f"{pre}/norm1/scale", (d,), None))
+            specs += norm(f"{pre}/norm1")
+            if kind == "mamba":                       # no FFN half
+                specs += ssm.param_specs(cfg, f"{pre}/mamba")
+                continue
             if kind == "rec":
                 specs += rglru.param_specs(cfg, f"{pre}/rec")
             else:
-                specs += [
-                    (f"{pre}/attn/wq", (d, hq * hd), d ** -0.5),
-                    (f"{pre}/attn/wk", (d, hkv * hd), d ** -0.5),
-                    (f"{pre}/attn/wv", (d, hkv * hd), d ** -0.5),
-                    (f"{pre}/attn/wo", (hq * hd, d), (hq * hd) ** -0.5),
-                ]
-                if cfg.qk_norm:
-                    specs += [(f"{pre}/attn/q_norm_scale", (hd,), None),
-                              (f"{pre}/attn/k_norm_scale", (hd,), None)]
-            specs.append((f"{pre}/norm2/scale", (d,), None))
+                specs += attn(f"{pre}/attn")
+            if kind == "xattn":
+                specs += norm(f"{pre}/norm_x") + attn(f"{pre}/xattn", True)
+            specs += norm(f"{pre}/norm2")
             if cfg.family == "moe":
                 specs += moe.param_specs(cfg, f"{pre}/moe")
-                continue
-            if cfg.act != "gelu":                     # gated: 3 matrices
-                specs.append((f"{pre}/mlp/w_gate", (d, ff), d ** -0.5))
-            specs += [
-                (f"{pre}/mlp/w_up", (d, ff), d ** -0.5),
-                (f"{pre}/mlp/w_down", (ff, d), ff ** -0.5),
-            ]
-        specs.append(("norm_f/scale", (d,), None))
+            else:
+                specs += mlp(f"{pre}/mlp")
+        for i in range(cfg.n_enc_layers if cfg.family == "encdec" else 0):
+            pre = f"encoder/{i}"
+            specs += (norm(f"{pre}/norm1") + attn(f"{pre}/attn")
+                      + norm(f"{pre}/norm2") + mlp(f"{pre}/mlp"))
+        specs += norm("norm_f")
+        if cfg.family == "encdec":
+            specs += norm("enc_norm_f")
         if not cfg.tie_embeddings:
             specs.append(("lm_head", (d, V), d ** -0.5))
         return specs
@@ -120,12 +144,16 @@ class Model:
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
         params = {"layers": [{} for _ in range(self.cfg.n_layers)]}
+        if self.cfg.family == "encdec":
+            params["encoder"] = [{} for _ in range(self.cfg.n_enc_layers)]
         for path, shape, std in self.param_specs():
             if std is None:
                 leaf = torch.ones(shape, dtype=torch.float32, device=device)
-            elif isinstance(std, tuple):
+            elif isinstance(std, tuple) and std[0] == "fill":
                 leaf = torch.full(shape, std[1], dtype=torch.float32,
                                   device=device)
+            elif isinstance(std, tuple):
+                leaf = ssm.init_leaf(std, shape, gen, device)
             else:
                 leaf = torch.randn(shape, generator=gen, dtype=torch.float32,
                                    device=device) * std
@@ -176,10 +204,21 @@ class Model:
             return pos[:, None, :].expand(pos.shape[0], 3, pos.shape[1])
         return pos
 
+    def _encode(self, params, frames):
+        """whisper's encoder over the stub frontend's frame embeddings
+        (B, F, d): plus the sinusoidal table of positions [0, F), the
+        encoder stack, then ``enc_norm_f``."""
+        x = frames.to(self.dtype) + layers.sinusoidal_embedding(
+            frames.shape[1], self.cfg.d_model, dtype=self.dtype,
+            device=frames.device)[None]
+        x = transformer.apply_encoder_stack(params["encoder"], x, self.cfg)
+        return layers.apply_norm(params["enc_norm_f"], x, self.cfg)
+
     def forward(self, params, tokens, pos0: int = 0, ctx_kv=None,
                 emit_logits: bool = True, row_lens=None, positions=None,
-                vision_embeds=None):
-        """tokens (B, S) -> (logits (B, S, V), per-layer prefill states).
+                vision_embeds=None, frames=None, return_enc=False):
+        """tokens (B, S) -> (logits (B, S, V), per-layer prefill states)
+        (and the encoder output, with ``return_enc``).
 
         ``pos0`` / ``ctx_kv`` (suffix prefill): positions start at
         ``pos0`` and attention also reads the per-layer context KV of
@@ -190,8 +229,21 @@ class Model:
         (B, 3, S) streams (default three equal streams from ``pos0``, as
         serving runs).  ``vision_embeds`` (B, P, d) (VLM only): the stub
         vision frontend's patch embeddings, which replace the first P
-        token embeddings."""
+        token embeddings.  ``frames`` (B, enc_frames, d) (encoder-decoder
+        only): the encoder's input, zeros (the stub frontend's serving
+        input) when None; the decoder's token embeddings get the
+        sinusoidal rows of their positions."""
         B, S = tokens.shape
+        cfg = self.cfg
+        enc_out = None
+        if cfg.family == "encdec":
+            if frames is None:
+                frames = torch.zeros((B, cfg.enc_frames, cfg.d_model),
+                                     dtype=self.dtype, device=tokens.device)
+            enc_out = self._encode(params, frames)
+        elif frames is not None:
+            raise ValueError(f"frames are for the encdec family, not "
+                             f"{cfg.family!r}")
         x = embed(params["embed"], tokens, self.dtype)
         if vision_embeds is not None:
             if self.cfg.family != "vlm":
@@ -202,18 +254,22 @@ class Model:
         if positions is None:
             positions = self._stream_positions(
                 _positions(B, S, tokens.device, offset=pos0))
+        if cfg.rope == "sinusoidal":
+            x = x + layers.sinusoidal_from_positions(positions, cfg.d_model,
+                                                     self.dtype)
         x, states = transformer.apply_decoder_stack(
-            params["layers"], x, self.cfg, positions, ctx_kv=ctx_kv,
-            row_lens=row_lens)
-        if not emit_logits:
-            return None, states
-        x = layers.apply_norm(params["norm_f"], x, self.cfg)
-        return self._logits(params, x), states
+            params["layers"], x, cfg, positions, ctx_kv=ctx_kv,
+            row_lens=row_lens, enc_out=enc_out)
+        logits = None
+        if emit_logits:
+            x = layers.apply_norm(params["norm_f"], x, cfg)
+            logits = self._logits(params, x)
+        return (logits, states, enc_out) if return_enc else (logits, states)
 
     def prefill(self, params, tokens, cache_len: Optional[int] = None,
                 true_lens=None, pos0: int = 0, ctx_kv=None,
                 emit_logits: bool = True, row_lens=None, positions=None,
-                vision_embeds=None):
+                vision_embeds=None, frames=None):
         """Forward the prompt; return (last-token logits (B, V), dense
         cache of extent ``cache_len`` (default S), or ``window`` for SWA
         if that is less: a ring holding the last positions at slots
@@ -228,18 +284,21 @@ class Model:
         ``true_lens + pos0``).  ``emit_logits=False`` returns None
         logits.  ``row_lens`` (a burst of right-padded prompts): each row's
         attention at its own bucketed length; ``positions`` /
-        ``vision_embeds``: the VLM's inputs (:meth:`forward`).  A rec
-        layer's state passes through as it is: recurrent state absorbs pad
-        tokens, so the engine prefills the hybrid at exact lengths."""
+        ``vision_embeds``: the VLM's inputs; ``frames``: whisper's
+        encoder input (:meth:`forward`), whose output the cache carries as
+        ``enc_out``.  A rec or mamba layer's state passes through as it is:
+        recurrent state absorbs pad tokens, so the engine prefills the
+        hybrid and the SSM at exact lengths."""
         S = tokens.shape[1]
-        logits, states = self.forward(params, tokens, pos0=pos0,
-                                      ctx_kv=ctx_kv, emit_logits=emit_logits,
-                                      row_lens=row_lens, positions=positions,
-                                      vision_embeds=vision_embeds)
+        logits, states, enc_out = self.forward(
+            params, tokens, pos0=pos0, ctx_kv=ctx_kv,
+            emit_logits=emit_logits, row_lens=row_lens, positions=positions,
+            vision_embeds=vision_embeds, frames=frames, return_enc=True)
         kv = [_states_to_cache(self.cfg, st, S, cache_len or S)
               for st in states]
         if true_lens is None:
-            return (logits[:, -1] if emit_logits else None), KVCache(kv)
+            return ((logits[:, -1] if emit_logits else None),
+                    KVCache(kv, enc_out=enc_out))
         B = tokens.shape[0]
         tl = true_lens.to(device=tokens.device, dtype=torch.int64)
         last = None
@@ -252,7 +311,7 @@ class Model:
             kp = st["k_pos"]
             st["k_pos"] = torch.where((kp >= 0) & (kp < end), kp,
                                       torch.full_like(kp, -1))
-        return last, KVCache(kv)
+        return last, KVCache(kv, enc_out=enc_out)
 
     def gather_prefix_ctx(self, cache: KVCache, ctx_ids):
         """Per-layer context KV of the pool blocks ``ctx_ids`` in the
@@ -272,17 +331,27 @@ class Model:
         one).  Paged: pools of ``n_blocks`` usable blocks (default
         ``batch * ceil(seq_len / block_size)``) plus ``batch`` scratch.
         Dense: one ``(batch, C)`` slab per attention layer, C =
-        ``seq_len`` or the SWA window, and a rec layer's state {"h":
-        (batch, d_rnn), "conv": (batch, cw-1, d_rnn)} f32."""
+        ``seq_len`` or the SWA window, a rec layer's state {"h":
+        (batch, d_rnn), "conv": (batch, cw-1, d_rnn)} f32, a mamba layer's
+        {"ssm": (batch, d_inner, N), "conv": (batch, cw-1, d_inner)} f32,
+        and whisper's ``enc_out`` (batch, enc_frames, d), zeros."""
         device = resolve_device(device)
-        layout = layout or self.cfg.resolved_cache_layout
+        cfg = self.cfg
+        layout = layout or cfg.resolved_cache_layout
         if layout == kvc.DENSE:
-            return KVCache([
-                rglru.init_rglru_state(self.cfg, batch, device)
-                if kind == "rec" else
-                attention.init_kv_cache(self.cfg, batch, seq_len, self.dtype,
-                                        device)
-                for kind in transformer.layer_kinds(self.cfg)])
+            def one(kind):
+                if kind == "rec":
+                    return rglru.init_rglru_state(cfg, batch, device)
+                if kind == "mamba":
+                    return ssm.init_mamba_state(cfg, batch, device)
+                return attention.init_kv_cache(cfg, batch, seq_len,
+                                               self.dtype, device)
+            enc_out = None
+            if cfg.family == "encdec":
+                enc_out = torch.zeros((batch, cfg.enc_frames, cfg.d_model),
+                                      dtype=self.dtype, device=device)
+            return KVCache([one(k) for k in transformer.layer_kinds(cfg)],
+                           enc_out=enc_out)
         bs = block_size or self.cfg.cache_block_size
         nb = (n_blocks if n_blocks is not None
               else batch * kvc.blocks_for(seq_len, bs))
@@ -298,7 +367,9 @@ class Model:
         streams of ``pos``, built on the device).  Rows with ``active``
         False compute a throwaway logit and write only their scratch block
         (paged) or nothing (dense; their recurrent state stays frozen).
-        The layout follows the cache."""
+        The layout follows the cache.  Sinusoidal positions (whisper) are
+        built on the device from ``pos``, and the cross attention reads
+        ``cache.enc_out``."""
         bt = None
         if cache.paged:
             bt = batch.get("block_table")
@@ -309,9 +380,12 @@ class Model:
         positions = batch.get("positions")
         if positions is None:
             positions = self._stream_positions(batch["pos"])
+        if self.cfg.rope == "sinusoidal":
+            x = x + layers.sinusoidal_from_positions(
+                batch["pos"], self.cfg.d_model, self.dtype)
         x, _ = transformer.apply_decoder_stack_decode(
             params["layers"], x, self.cfg, positions, cache.kv, bt,
-            active=batch.get("active"))
+            active=batch.get("active"), enc_out=cache.enc_out)
         x = layers.apply_norm(params["norm_f"], x, self.cfg)
         return self._logits(params, x)[:, 0], cache
 
@@ -384,7 +458,10 @@ class Model:
         if cache.paged:
             raise ValueError("slice_cache slices per-slot rows; a paged "
                              "cache has no slot rows to slice")
-        return KVCache(transformer.slice_stack_cache(cache.kv, int(row)))
+        row = int(row)
+        enc = cache.enc_out
+        return KVCache(transformer.slice_stack_cache(cache.kv, row),
+                       enc_out=None if enc is None else enc[row:row + 1])
 
     def insert_cache(self, cache: KVCache, seq_cache: KVCache, slot: int,
                      block_row=None) -> KVCache:
@@ -400,6 +477,9 @@ class Model:
                                                  cache.n_blocks + int(slot))
             return cache
         transformer.insert_stack_cache(cache.kv, seq_cache.kv, int(slot))
+        if cache.enc_out is not None:
+            cache.enc_out[int(slot)] = seq_cache.enc_out[0].to(
+                cache.enc_out.dtype)
         return cache
 
 
@@ -419,7 +499,7 @@ def _states_to_cache(cfg, st, S, cache_len):
     """One layer's prefill state (B, S, ...) -> its dense cache: extent
     ``cache_len``, or the window for SWA if less (the ring layout), pad
     rows empty (k_pos -1), int8-quantized under kv_quant="int8".  A rec
-    layer's state is already its cache."""
+    layer's (or a mamba layer's) state is already its cache."""
     if "k_pos" not in st:
         return st
     C = attention.cache_extent(cfg, cache_len)

@@ -1,24 +1,32 @@
 """The decoder stack: a Python loop over per-layer parameter dicts (the JAX
 package scans over stacked layers and groups; eager PyTorch needs no
-scan).  A layer is an attention block or, in the hybrid's pattern, an
-RG-LRU ``rec`` block (:func:`layer_kinds`); its FFN half is its ``mlp``
-or, for MoE, its ``moe`` experts (the MoE auxiliary loss is dropped at
-serving).
+scan), and whisper's encoder stack.  A layer is an attention block, an
+RG-LRU ``rec`` block (the hybrid's pattern), a ``mamba`` block (the SSM:
+a norm and the mixer, no FFN half) or an ``xattn`` block (whisper's
+decoder: self attention, then cross attention over the encoder output);
+see :func:`layer_kinds`.  The FFN half is the ``mlp`` or, for MoE, the
+``moe`` experts (the MoE auxiliary loss is dropped at serving).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, layers, moe, rglru
+from repro_torch.models import attention, layers, moe, rglru, ssm
+from repro_torch.quant import linear
 
 
 def layer_kinds(cfg):
     """Per-layer block kind: the hybrid's pattern repeated (every scanned
     group's b0, b1, ... in order, then the tail the JAX package unrolls),
-    "attn" for every other family."""
+    "mamba" for the SSM, "xattn" for the encoder-decoder, "attn" for every
+    other family."""
     if cfg.family == "hybrid":
         pat = cfg.block_pattern
         return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+    if cfg.family == "ssm":
+        return ["mamba"] * cfg.n_layers
+    if cfg.family == "encdec":
+        return ["xattn"] * cfg.n_layers
     return ["attn"] * cfg.n_layers
 
 
@@ -29,13 +37,27 @@ def _ffn(p, x, cfg):
     return layers.apply_mlp(p["mlp"], x, cfg)
 
 
-def apply_block(p, x, cfg, kind, positions, ctx=None, row_lens=None):
+def _cross(p, x, cfg, enc_out):
+    """An xattn block's cross-attention half: x + cross attention of its
+    normed input over K/V projected from ``enc_out``."""
+    hx = layers.apply_norm(p["norm_x"], x, cfg)
+    ekv = attention.project_enc_kv(p["xattn"], enc_out, cfg)
+    return x + attention.cross_attention_block(p["xattn"], hx, cfg, ekv)
+
+
+def apply_block(p, x, cfg, kind, positions, ctx=None, row_lens=None,
+                enc_out=None):
     """Prefill block (``ctx``: the layer's context KV; ``row_lens``: a
     burst's per-row attention extents; see
-    :func:`attention.attention_block`).  Returns (x, state): {"k", "v",
-    "k_pos"} of an attention block, {"h", "conv"} of a rec block (a rec
-    burst's rows all have one length: the engine never pads them)."""
+    :func:`attention.attention_block`; ``enc_out``: the encoder output an
+    xattn block attends over).  Returns (x, state): {"k", "v", "k_pos"}
+    of an attention or xattn block, {"h", "conv"} of a rec block and
+    {"ssm", "conv"} of a mamba block (recurrent bursts' rows all have one
+    length: the engine never pads them)."""
     h = layers.apply_norm(p["norm1"], x, cfg)
+    if kind == "mamba":
+        y, state = ssm.mamba_block(p["mamba"], h, cfg)
+        return x + y, state
     if kind == "rec":
         y, state = rglru.rglru_block(p["rec"], h, cfg)
     else:
@@ -43,6 +65,8 @@ def apply_block(p, x, cfg, kind, positions, ctx=None, row_lens=None):
             p["attn"], h, cfg, positions, ctx=ctx, row_lens=row_lens)
         state = {"k": k, "v": v, "k_pos": k_pos}
     x = x + y
+    if kind == "xattn":
+        x = _cross(p, x, cfg, enc_out)
     h2 = layers.apply_norm(p["norm2"], x, cfg)
     return x + _ffn(p, h2, cfg), state
 
@@ -62,15 +86,21 @@ def _freeze_inactive_state(new_state, old_state, active):
 
 
 def apply_block_decode(p, x, cfg, kind, positions, cache, block_tables=None,
-                       active=None):
+                       active=None, enc_out=None):
     """One-token decode block against the layer's pool, its dense slab
-    when ``block_tables`` is None, or (``kind`` "rec") its recurrent state;
-    the cache is updated in place."""
+    when ``block_tables`` is None, or (``kind`` "rec" / "mamba") its
+    recurrent state; the cache is updated in place.  An xattn block
+    re-projects K/V from the whole ``enc_out`` at every step, as the
+    reference does."""
     h = layers.apply_norm(p["norm1"], x, cfg)
-    if kind == "rec":
-        y, new = rglru.rglru_decode_step(p["rec"], h, cfg, cache)
+    if kind in ("rec", "mamba"):
+        step = (rglru.rglru_decode_step if kind == "rec"
+                else ssm.mamba_decode_step)
+        y, new = step(p[kind], h, cfg, cache)
         for name, t in _freeze_inactive_state(new, cache, active).items():
             cache[name].copy_(t)
+        if kind == "mamba":
+            return x + y, cache
     elif block_tables is None:
         y, cache = attention.decode_attention_block(
             p["attn"], h, cfg, positions, cache, active=active)
@@ -78,6 +108,8 @@ def apply_block_decode(p, x, cfg, kind, positions, cache, block_tables=None,
         y, cache = attention.paged_decode_attention_block(
             p["attn"], h, cfg, positions, cache, block_tables, active=active)
     x = x + y
+    if kind == "xattn":
+        x = _cross(p, x, cfg, enc_out)
     h2 = layers.apply_norm(p["norm2"], x, cfg)
     return x + _ffn(p, h2, cfg), cache
 
@@ -97,27 +129,30 @@ def apply_block_verify(p, x, cfg, positions, cache, block_tables,
 
 
 def apply_decoder_stack(layer_params, x, cfg, positions, ctx_kv=None,
-                        row_lens=None):
+                        row_lens=None, enc_out=None):
     """Returns (x, per-layer states).  ``ctx_kv``: one context dict per
     layer (:func:`gather_paged_ctx`), or None; ``row_lens``: a burst's
-    per-row attention extents, or None."""
+    per-row attention extents, or None; ``enc_out``: the encoder output
+    (encoder-decoder only)."""
     states = []
     for i, (p, kind) in enumerate(zip(layer_params, layer_kinds(cfg))):
         x, st = apply_block(p, x, cfg, kind, positions,
                             ctx=None if ctx_kv is None else ctx_kv[i],
-                            row_lens=row_lens)
+                            row_lens=row_lens, enc_out=enc_out)
         states.append(st)
     return x, states
 
 
 def apply_decoder_stack_decode(layer_params, x, cfg, positions, pools,
-                               block_tables=None, active=None):
+                               block_tables=None, active=None, enc_out=None):
     """Every attention layer indexes its own pool through the same block
     table, or (``block_tables`` None) reads and writes its own dense slab;
-    a rec layer updates its own state."""
+    a rec or mamba layer updates its own state; an xattn layer also
+    attends over ``enc_out``."""
     for p, kind, pool in zip(layer_params, layer_kinds(cfg), pools):
         x, _ = apply_block_decode(p, x, cfg, kind, positions, pool,
-                                  block_tables, active=active)
+                                  block_tables, active=active,
+                                  enc_out=enc_out)
     return x, pools
 
 
@@ -129,6 +164,26 @@ def apply_decoder_stack_verify(layer_params, x, cfg, positions, pools,
         x, _ = apply_block_verify(p, x, cfg, positions, pool, block_tables,
                                   active=active)
     return x, pools
+
+
+def apply_encoder_stack(enc_layers, x, cfg):
+    """whisper's encoder over frame embeddings x (B, F, d): per layer,
+    non-causal self attention (each row alone: see
+    :func:`attention.rowwise_sdpa`) and the GELU MLP, both pre-norm with
+    residuals.  ``enc_layers``: one dict per layer."""
+    B, S, _ = x.shape
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    qm = cfg.quant_mode
+    for bp in enc_layers:
+        h = layers.apply_norm(bp["norm1"], x, cfg)
+        q = linear(bp["attn"]["wq"], h, qm).reshape(B, S, hq, hd)
+        k = linear(bp["attn"]["wk"], h, qm).reshape(B, S, hkv, hd)
+        v = linear(bp["attn"]["wv"], h, qm).reshape(B, S, hkv, hd)
+        o = attention.rowwise_sdpa(q, k, v, causal=False)
+        x = x + linear(bp["attn"]["wo"], o.reshape(B, S, -1), qm)
+        h2 = layers.apply_norm(bp["norm2"], x, cfg)
+        x = x + layers.apply_mlp(bp["mlp"], h2, cfg)
+    return x
 
 
 def gather_paged_ctx(pools, ctx_ids, dtype):

@@ -14,10 +14,12 @@ in place), one block-table buffer (paged), and the static token / pos /
 active / remaining / EOS inputs and token outputs (the drafts and verdicts
 included).  On the CPU the same bodies run eagerly; that is
 the plain version the parity tests compare.  The cache is updated in place
-where the JAX package donated it, a hybrid's recurrent state included (an
-inactive slot's state is frozen by a ``torch.where`` inside the graph).
-M-RoPE's three equal position streams are views of the fixed pos row,
-built by the model inside the graph.
+where the JAX package donated it, a hybrid's recurrent state and an SSM's
+state included (an inactive slot's state is frozen by a ``torch.where``
+inside the graph).  M-RoPE's three equal position streams are views of
+the fixed pos row, and whisper's sinusoidal rows are computed from it,
+both by the model inside the graph; whisper's ``enc_out`` is a cache
+tensor with a fixed address, written at insert and read in place.
 """
 from __future__ import annotations
 
@@ -261,8 +263,9 @@ class Executor:
     def init_cache(self) -> kvc.KVCache:
         """The executor's cache (the paged pool or the dense slab):
         allocated at the first call, reset in place at every later one
-        (zeros, and every dense ``k_pos`` -1).  The decode graphs are
-        captured against its tensors, so it never moves."""
+        (zeros, every dense ``k_pos`` -1, and whisper's ``enc_out``
+        zeros).  The decode graphs are captured against its tensors, so
+        it never moves."""
         if self._cache is None:
             self._cache = self.model.init_cache(
                 self.max_batch, self.max_seq, device=self.device,
@@ -276,6 +279,8 @@ class Executor:
                         t.fill_(-1)
                     else:
                         t.zero_()
+            if self._cache.enc_out is not None:
+                self._cache.enc_out.zero_()
         return self._cache
 
     def make_block_table(self) -> DeviceBlockTable:
@@ -438,9 +443,11 @@ class Executor:
         tensor, or None with ``emit=False``; dense per-sequence cache at
         the bucketed extent (paged) or at ``max_seq`` (dense: a slot's
         extent)).  ``pos0`` / ``ctx_kv``: a suffix prefill; ``row_lens``: a
-        burst's per-row attention extents (``Model.prefill``).  Counts one
-        model forward, and one forward without the lm-head when ``emit``
-        is False."""
+        burst's per-row attention extents (``Model.prefill``).  An
+        encoder-decoder's encoder runs over the model's default input,
+        zero frames (the stub frontend), one set a row.  Counts one model
+        forward, and one forward without the lm-head when ``emit`` is
+        False."""
         self.prefill_calls += 1
         self.prefill_headless += int(not emit)
         logits, cache = self.model.prefill(

@@ -27,15 +27,19 @@ SHAPES = [(1, 64, 32), (3, 40, 36), (5, 40, 37), (2, 64, 33),
           (7, 72, 100), (16, 64, 256), (4, 4096, 1024)]
 
 
-def _matmuls_per_forward(cfg):
-    """PSI-matmul launches of one forward: wq, wk, wv, wo (a rec layer's
-    w_in_gate, w_in_rec, rglru_wa, rglru_wx, w_out) and the MLP's matrices
+def _matmuls_per_forward(cfg, prefill=False):
+    """PSI-matmul launches of one decode step: wq, wk, wv, wo (a rec
+    layer's w_in_gate, w_in_rec, rglru_wa, rglru_wx, w_out; a mamba
+    layer's in_proj, x_proj, dt_proj_w, out_proj and no MLP; an xattn
+    layer's four and its cross attention's four) and the MLP's matrices
     (3 gated, 2 for the GELU MLP; none for MoE experts, which are
     dequantized blocks in a plain batched product) per layer, plus the
-    lm-head."""
+    lm-head; a ``prefill`` forward adds whisper's encoder (6 a layer)."""
     from repro_torch.models.transformer import layer_kinds
     mlp = 0 if cfg.family == "moe" else (2 if cfg.act == "gelu" else 3)
-    return sum((5 if k == "rec" else 4) + mlp for k in layer_kinds(cfg)) + 1
+    own = {"rec": 5 + mlp, "mamba": 4, "xattn": 8 + mlp}
+    enc = 6 * cfg.n_enc_layers if prefill and cfg.family == "encdec" else 0
+    return sum(own.get(k, 4 + mlp) for k in layer_kinds(cfg)) + 1 + enc
 
 
 @pytest.fixture
@@ -413,7 +417,8 @@ def _pool_copy(cache):
     from repro_torch.models.kvcache import KVCache
     return KVCache([{k: t.clone() for k, t in layer.items()}
                     for layer in cache.kv], cache.layout, cache.block_size,
-                   cache.n_blocks)
+                   cache.n_blocks,
+                   None if cache.enc_out is None else cache.enc_out.clone())
 
 
 def _eager_batch(inputs, bt, with_round=False):
@@ -1542,6 +1547,312 @@ def test_vlm_hybrid_serving_on_the_card_matches_the_cpu(cuda, arch):
                     "paged_attention": (cfg.n_layers * stats["decode_steps"]
                                         if paged else 0)}
             if arch == HYBRID and not continuous:
+                assert stats["prefill_forwards"] == stats["n_requests"]
+    for continuous in (True, False):
+        assert done[("cuda", continuous)] == done[("cpu", continuous)]
+
+
+# ---------------------------------------------------------------------------
+# The SSM (falcon-mamba-7b) and the encoder-decoder (whisper-base): kernels
+# 1 and 2 at their weight shapes (the SSM's x_proj / dt_proj_w also on the
+# f32 route its prefill takes, at M 1-288, batch invariant; whisper's
+# 512-wide matrices at the encoder's and cross K/V's 1500 and 6000 rows; its
+# odd 51865-wide tied head), the mamba block and a whisper decoder layer on
+# the card against the CPU at full width, the mamba decode graph and the
+# whisper round graph against eager steps with an idle slot, and reduced
+# serves against the CPU.
+# ---------------------------------------------------------------------------
+SSM, ENCDEC = "falcon-mamba-7b", "whisper-base"
+# falcon-mamba's in_proj, x_proj, dt_proj_w, out_proj, lm-head; whisper's
+# wq/wk/wv/wo (self and cross), w_up, w_down, tied head
+SSM_KN = [(4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
+          (4096, 65024)]
+ENCDEC_KN = [(512, 512), (512, 2048), (2048, 512), (512, 51865)]
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 64, 288])
+@pytest.mark.parametrize("K,N", SSM_KN + ENCDEC_KN)
+def test_psi_matmul_codes_ssm_encdec_shapes_tight(cuda, K, N, M):
+    _check_tight(cuda, K, N, 8, M)
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 64])
+@pytest.mark.parametrize("K,N", SSM_KN + ENCDEC_KN)
+def test_psi_matmul_packed_ssm_encdec_shapes_tight(cuda, K, N, M):
+    _check_tight(cuda, K, N, 5, M)
+
+
+@pytest.mark.parametrize("M", [1500, 6000])
+@pytest.mark.parametrize("K,N", ENCDEC_KN[:3])
+def test_psi_matmul_codes_encoder_rows_tight(cuda, K, N, M):
+    """The encoder's 1500 rows a request and the cross K/V's 4 x 1500 rows
+    a decode step."""
+    _check_tight(cuda, K, N, 8, M)
+
+
+@pytest.mark.parametrize("bits", [8, 5])
+@pytest.mark.parametrize("K,N", SSM_KN + ENCDEC_KN)
+def test_psi_matmul_ssm_encdec_shapes_batch_invariant(cuda, K, N, bits):
+    _check_batch_invariant(K, N, bits)
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 16, 59, 64, 256, 288])
+@pytest.mark.parametrize("bits", [8, 5])
+@pytest.mark.parametrize("K,N", SSM_KN[1:3])
+def test_psi_matmul_f32_route_ssm_prefill_rows(cuda, K, N, bits, M):
+    """x_proj and dt_proj_w on f32 rows (the SSM prefill's dtype): the
+    CUDA-core route against the plain version within 1e-5 of the largest
+    output (f32 sums in another order)."""
+    data, scale = _packed_weight(K, N, bits)
+    qt = psi.QuantizedTensor(data, scale, psi.get_format(bits), bits < 8)
+    g = torch.Generator(device="cuda").manual_seed(M + K)
+    x = torch.randn(M, K, generator=g, device="cuda")
+    got = ops.psi_matmul_2d(x, qt)
+    assert got.dtype == torch.float32
+    codes = psi.unpack_codes(data, bits) if bits < 8 else data
+    want = ref.psi_matmul_codes_ref(x, codes, scale)
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("bits", [8, 5])
+@pytest.mark.parametrize("K,N", SSM_KN[1:3])
+def test_psi_matmul_f32_route_batch_invariant(cuda, K, N, bits):
+    """The f32 route's rows do not depend on the batch: 288 rows at once,
+    as 256 + 32, and one by one (a prefill of 288 tokens, or chunks of
+    it), bit for bit."""
+    data, scale = _packed_weight(K, N, bits)
+    qt = psi.QuantizedTensor(data, scale, psi.get_format(bits), bits < 8)
+    g = torch.Generator(device="cuda").manual_seed(K + N)
+    x = torch.randn(288, K, generator=g, device="cuda")
+    whole = ops.psi_matmul_2d(x, qt)
+    parts = torch.cat([ops.psi_matmul_2d(x[:256], qt),
+                       ops.psi_matmul_2d(x[256:], qt)])
+    assert torch.equal(whole, parts)
+    for i in range(0, 288, 37):
+        assert torch.equal(ops.psi_matmul_2d(x[i:i + 1], qt)[0], whole[i])
+
+
+def _layer_leaves(specs, seed=0):
+    """A layer's leaves from ``param_specs`` on the card, PSI leaves at
+    psi8 (mamba's own inits through ``ssm.init_leaf``)."""
+    from repro_torch.core import quantizer
+    from repro_torch.models import ssm
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = {}
+    for path, shape, init in specs:
+        if init is None:
+            w = torch.ones(shape, device="cuda")
+        elif isinstance(init, tuple) and init[0] == "fill":
+            w = torch.full(shape, init[1], device="cuda")
+        elif isinstance(init, tuple):
+            w = ssm.init_leaf(init, shape, gen, "cuda")
+        else:
+            w = torch.randn(shape, generator=gen, device="cuda") * init
+        if quantizer.is_quantizable(path, w):
+            w = quantizer.quantize_leaf(path, w, 8)
+        node = p
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = w
+    return p
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.to("cpu")
+
+
+def test_mamba_card_matches_cpu_full_width(cuda):
+    """mamba_block over 2 x 80 tokens, then three decode steps, float32,
+    on the card against the CPU on the same leaves: outputs and the ssm /
+    conv state within 1e-4 (f32 sums of K up to 8192 in other orders)."""
+    from repro_torch.models import ssm
+    cfg = get_config(SSM, dtype="float32", quant_mode="psi8")
+    p = _layer_leaves(ssm.param_specs(cfg, "m"))["m"]
+    pc = _to_cpu(p)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 80, cfg.d_model, generator=g)
+    tol = dict(rtol=0, atol=1e-4)
+    with torch.inference_mode():
+        got, gs = ssm.mamba_block(p, x.to(cuda), cfg)
+    want, ws = ssm.mamba_block(pc, x, cfg)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    for k in ("ssm", "conv"):
+        torch.testing.assert_close(gs[k].cpu(), ws[k], **tol)
+    for _ in range(3):
+        xt = torch.randn(2, 1, cfg.d_model, generator=g)
+        with torch.inference_mode():
+            got, gs = ssm.mamba_decode_step(p, xt.to(cuda), cfg, gs)
+        want, ws = ssm.mamba_decode_step(pc, xt, cfg, ws)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+        for k in ("ssm", "conv"):
+            torch.testing.assert_close(gs[k].cpu(), ws[k], **tol)
+
+
+def test_whisper_decoder_layer_card_matches_cpu_full_width(cuda):
+    """One full-width xattn layer, float32: a 2 x 24-token prefill over a
+    random 2 x 1500-frame encoder output, then three decode steps on the
+    dense slab, on the card against the CPU: outputs within 1e-4."""
+    from repro_torch.models import attention, transformer
+    cfg = get_config(ENCDEC, n_layers=1, dtype="float32",
+                     quant_mode="psi8")
+    model = build_model(cfg)
+    specs = [(path.split("/", 2)[2], shape, init)
+             for path, shape, init in model.param_specs()
+             if path.startswith("layers/0/")]
+    p = _layer_leaves(specs)
+    pc = _to_cpu(p)
+    g = torch.Generator().manual_seed(2)
+    enc = torch.randn(2, cfg.enc_frames, cfg.d_model, generator=g)
+    x = torch.randn(2, 24, cfg.d_model, generator=g)
+    pos = torch.arange(24, dtype=torch.int32)[None].expand(2, 24)
+    tol = dict(rtol=0, atol=1e-4)
+    with torch.inference_mode():
+        got, gst = transformer.apply_block(p, x.to(cuda), cfg, "xattn",
+                                           pos.to(cuda), enc_out=enc.to(cuda))
+    want, wst = transformer.apply_block(pc, x, cfg, "xattn", pos,
+                                        enc_out=enc)
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    caches = {}
+    for dev, st in (("cuda", gst), ("cpu", wst)):
+        c = attention.init_kv_cache(cfg, 2, 32, torch.float32, dev)
+        c["k"][:, :24], c["v"][:, :24] = st["k"], st["v"]
+        c["k_pos"][:, :24] = st["k_pos"]
+        caches[dev] = c
+    for i in range(3):
+        xt = torch.randn(2, 1, cfg.d_model, generator=g)
+        pt = torch.full((2, 1), 24 + i, dtype=torch.int32)
+        with torch.inference_mode():
+            got, _ = transformer.apply_block_decode(
+                p, xt.to(cuda), cfg, "xattn", pt.to(cuda), caches["cuda"],
+                enc_out=enc.to(cuda))
+        want, _ = transformer.apply_block_decode(
+            pc, xt, cfg, "xattn", pt, caches["cpu"], enc_out=enc)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+def _slice_executor(arch, dtype, horizon):
+    """Full-width ``arch`` cut to 2 layers (whisper: 2 encoder layers over
+    its 1500 frames) on the card, psi8, with slots 0 and 1 prefilled (20
+    and 13 tokens) and slot 2 idle: (executor, cache, inputs)."""
+    from repro_torch.runtime import Executor
+    over = {"n_enc_layers": 2} if arch == ENCDEC else {}
+    cfg = get_config(arch, n_layers=2, quant_mode="psi8", dtype=dtype,
+                     **over)
+    params = build_model(cfg).init(seed=0, device="cuda", bits=8)
+    ex = Executor(cfg, params, max_batch=3, max_seq=64, device="cuda",
+                  decode_horizon=horizon)
+    cache = ex.init_cache()
+    rng = np.random.default_rng(0)
+    for slot, n in enumerate((20, 13)):
+        prompt = rng.integers(0, cfg.vocab_size, size=(1, n)).astype(
+            np.int32)
+        ex.prefill_insert(prompt, np.array([n], np.int32), cache, slot)
+    inputs = dict(token=np.array([[5], [7], [0]], np.int32),
+                  pos=np.array([[20], [13], [0]], np.int32),
+                  active=np.array([True, True, False]),
+                  remaining=np.array([20, 3, 0], np.int32))
+    return ex, cache, inputs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_decode_graph_equals_eager_with_an_idle_slot(cuda, dtype):
+    """Three horizon-1 graph replays against eager decode_steps on a copy
+    of the cache: tokens and mamba state bit for bit; the idle slot's
+    state frozen (still zero) in both; 4 PSI launches a layer and the head
+    per replay, no kernel-3 launch."""
+    ex, cache, inp = _slice_executor(SSM, dtype, 1)
+    ref_cache = _pool_copy(cache)
+    per = _matmuls_per_forward(ex.model.cfg)
+    assert per == 2 * 4 + 1
+    for step in range(3):
+        with torch.inference_mode():
+            logits, _ = ex.model.decode_step(ex.params, _dense_batch(inp),
+                                             ref_cache)
+        want = torch.argmax(logits, -1).to(torch.int32)
+        before = ops.launch_counts()
+        got, _ = ex.decode(inp["token"], inp["pos"], inp["active"], cache)
+        after = ops.launch_counts()
+        assert torch.equal(got, want), step
+        if step:
+            assert after["psi_matmul_codes"] - before["psi_matmul_codes"] \
+                == per
+        assert after["paged_attention"] == before["paged_attention"]
+        inp["token"] = got.cpu().numpy()[:, None]
+        inp["pos"] = inp["pos"] + 1
+    _assert_slabs_equal(cache, ref_cache)
+    for layer in cache.kv:
+        assert not layer["ssm"][2].any() and not layer["conv"][2].any()
+        assert layer["ssm"][0].any()
+
+
+def test_whisper_round_graph_equals_eager_steps(cuda):
+    """One horizon-4 round graph against Model.decode_scan eagerly on a
+    copy (slot 1's budget of 3 ends inside the round, slot 2 idle):
+    tokens, carry and slabs bit for bit; the idle slot's slab rows and
+    every ``enc_out`` row untouched (slot 2's still zero)."""
+    ex, cache, inp = _slice_executor(ENCDEC, "float32", 4)
+    assert _matmuls_per_forward(ex.model.cfg) == 2 * 10 + 1
+    assert _matmuls_per_forward(ex.model.cfg, prefill=True) == 33
+    ref_cache = _pool_copy(cache)
+    enc = cache.enc_out.clone()
+    assert enc[0].any() and enc[1].any() and not enc[2].any()
+    with torch.inference_mode():
+        want, wcarry, _ = ex.model.decode_scan(
+            ex.params, _dense_batch(inp, True), ref_cache, 4)
+    toks, carry, _ = ex.decode_multi(inp["token"], inp["pos"],
+                                     inp["active"], inp["remaining"], cache)
+    np.testing.assert_array_equal(np.asarray(toks), want.cpu().numpy())
+    for k in ("token", "pos", "remaining"):
+        assert torch.equal(carry[k], wcarry[k].to(torch.int32)), k
+    assert carry["active"].tolist() == wcarry["active"].int().tolist() \
+        == [1, 0, 0]
+    _assert_slabs_equal(cache, ref_cache)
+    assert torch.equal(cache.enc_out, enc)
+    assert (cache.kv[0]["k_pos"][2] == -1).all()
+
+
+@pytest.mark.parametrize("arch", [SSM, ENCDEC])
+def test_ssm_encdec_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """The reduced arch at psi8 (float32), prompts of unequal lengths (and
+    of 1 and 2 tokens for the SSM): the same greedy tokens on the card and
+    the CPU, continuous and static, with exact launch counts on the card
+    (no kernel 3; whisper's encoder at every prefill forward) and one
+    prefill forward a request in static mode."""
+    cfg = reduced_config(get_config(arch), quant_mode="psi8")
+    params = build_model(cfg).init(seed=0, device="cpu", bits=8)
+
+    def trace():
+        reqs = scheduler.poisson_trace(
+            4, rate_rps=1e9, prompt_len=26, max_new=10, vocab_size=256,
+            seed=3, prompt_jitter=4)
+        if arch == SSM:
+            reqs[1].prompt, reqs[2].prompt = reqs[1].prompt[:1], \
+                reqs[2].prompt[:2]
+        return reqs
+    done = {}
+    for dev in ("cpu", "cuda"):
+        server = serve.Server(cfg, params, max_batch=2, max_seq=64,
+                              device=dev)
+        server.warmup(trace())
+        for continuous in (True, False):
+            ops.reset_launch_counts()
+            reqs, stats = server.serve(trace(), continuous=continuous,
+                                       warmup=False)
+            done[(dev, continuous)] = {r.rid: r.tokens for r in reqs}
+            counts = ops.launch_counts()
+            if dev == "cuda":
+                fwd = stats["prefill_forwards"]
+                assert counts == {
+                    "psi_matmul_codes": _matmuls_per_forward(cfg) * (
+                        stats["decode_steps"] + fwd)
+                    + (_matmuls_per_forward(cfg, prefill=True)
+                       - _matmuls_per_forward(cfg)) * fwd,
+                    "psi_matmul_packed": 0, "paged_attention": 0}
+            if not continuous:
                 assert stats["prefill_forwards"] == stats["n_requests"]
     for continuous in (True, False):
         assert done[("cuda", continuous)] == done[("cpu", continuous)]

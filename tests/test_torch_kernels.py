@@ -183,11 +183,17 @@ def test_head_groups(G, groups):
 # Kernel 2's tensor-core route: the host-side tile and split-K plan.
 # ---------------------------------------------------------------------------
 def _weight_shapes():
-    """(K, N) of every PSI-quantized matmul of the registered configs."""
+    """(K, N) of every PSI-quantized matmul of the registered configs (the
+    SSM has no attention or MLP matrices, but its four projections)."""
     from repro_torch.configs.base import _REGISTRY
     shapes = set()
     for cfg in _REGISTRY.values():
         d, hd = cfg.d_model, cfg.resolved_head_dim
+        if cfg.family == "ssm":
+            di, r, n = cfg.d_inner, cfg.resolved_dt_rank, cfg.ssm_state
+            shapes |= {(d, 2 * di), (di, r + 2 * n), (r, di), (di, d),
+                       (d, cfg.vocab_size)}
+            continue
         shapes |= {(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
                    (cfg.n_heads * hd, d), (d, cfg.d_ff), (cfg.d_ff, d),
                    (d, cfg.vocab_size)}
