@@ -76,7 +76,9 @@ class ModelConfig:
     # --- numerics / technique ---
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    quant_mode: str = "none"        # none | psiN (serving format label)
+    quant_mode: str = "none"        # none | qatN (training: fake-quant
+                                    # with the straight-through gradient)
+                                    # | psiN (serving format label)
     dtype: str = "bfloat16"
 
     # --- decode cache ---

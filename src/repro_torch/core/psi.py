@@ -247,13 +247,17 @@ class QuantizedTensor:
 
 
 def compute_scale(w: torch.Tensor, bits: FormatLike, axis) -> torch.Tensor:
-    """Symmetric per-channel scale: max|w| along ``axis`` maps to qmax."""
+    """Symmetric per-channel scale: max|w| along ``axis`` maps to qmax.
+    The divisor is a tensor on w's device: CUDA divides a tensor by a
+    Python scalar as a product with its reciprocal, which can round
+    differently from the division the CPU (and the JAX package) does."""
     a = w.abs()
     if axis is None:
         amax = a.amax().reshape([1] * w.dim())
     else:
         amax = a.amax(dim=tuple(axis), keepdim=True)
-    return torch.clamp_min(amax, 1e-8) / get_format(bits).qmax
+    return (torch.clamp_min(amax, 1e-8)
+            / amax.new_full((), get_format(bits).qmax))
 
 
 def quantize_weights(w: torch.Tensor, bits: FormatLike,
@@ -265,6 +269,25 @@ def quantize_weights(w: torch.Tensor, bits: FormatLike,
     q = torch.clamp(torch.round(w / scale), fmt.w_min, fmt.w_max)
     q = psi_project_int(q.to(torch.int32), fmt)
     return QuantizedTensor(q.to(torch.int8), scale.to(torch.float32), fmt)
+
+
+class _FakeQuantSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, bits, axis):
+        return quantize_weights(w, bits, axis).dequantize(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def fake_quant_ste(w: torch.Tensor, bits: FormatLike, axis=None
+                   ) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient (the QAT op):
+    the forward is ``quantize_weights(w, bits, axis).dequantize(w.dtype)``,
+    the backward passes the incoming gradient unchanged (no clip mask, no
+    gradient through the scale), as the JAX package's ``custom_vjp``."""
+    return _FakeQuantSTE.apply(w, bits, axis)
 
 
 # ---------------------------------------------------------------------------

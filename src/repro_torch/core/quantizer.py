@@ -138,11 +138,27 @@ def _walk(tree, fn, prefix=""):
 
 
 def tree_leaves(tree):
+    """The leaves of a nested dict / list tree, in tree order."""
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, list):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of the
+    trees in ``rest`` (nested dicts and lists of the same structure);
+    ``is_leaf`` stops the descent at a node it accepts."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def quantize_param_tree(params: Dict, bits: Optional[int] = None,
@@ -212,14 +228,16 @@ def fake_quant_leaf(path: str, leaf: torch.Tensor, bits: int
 
 def fake_quant_param_tree(params: Dict, bits: int,
                           exclude: Optional[tuple] = None) -> Dict:
-    """Snap every quantizable leaf to the psi``bits`` grid (forward only;
-    the straight-through gradient arrives with the training port)."""
+    """QAT forward transform: quantize-dequantize every quantizable leaf
+    with a straight-through gradient (:func:`psi.fake_quant_ste`), so the
+    gradient of a loss taken through the result flows to the float
+    leaves unchanged."""
     exclude = DEFAULT_EXCLUDE if exclude is None else exclude
 
     def convert(path, leaf):
         if not is_quantizable(path, leaf, exclude):
             return leaf
-        return fake_quant_leaf(path, leaf, bits)
+        return psi.fake_quant_ste(leaf, bits, _scale_axis(path, leaf))
 
     return _walk(params, convert)
 

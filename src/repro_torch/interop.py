@@ -25,6 +25,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import psi
+from repro_torch.optim.adamw import AdamWState
 
 
 def _is_qleaf(x) -> bool:
@@ -104,3 +105,24 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
                           for i in range(_n_layers(enc))]
         out["enc_norm_f"] = _to_torch(tree["enc_norm_f"], device)
     return out
+
+
+def opt_state_from_numpy(tree: Dict[str, Any], device=None) -> AdamWState:
+    """An AdamW state in the JAX package's layout — {"step", "m", "v"},
+    the moments trees of the params' structure (stacked groups) — as the
+    port's :class:`~repro_torch.optim.AdamWState`: the moments unstack as
+    :func:`params_from_numpy` unstacks the params, so each moment leaf
+    sits beside its parameter."""
+    # a 0-d array is written with shape (1,) (np.ascontiguousarray)
+    return AdamWState(step=int(np.asarray(tree["step"]).reshape(-1)[0]),
+                      m=params_from_numpy(tree["m"], device),
+                      v=params_from_numpy(tree["v"], device))
+
+
+def cnn_params_from_numpy(tree: Dict[str, Any], device=None
+                          ) -> Dict[str, Any]:
+    """A CNN's params (``models.cnn``: the same tree in both packages,
+    ``convk`` HWIO and ``w`` (in, out)) on ``device`` (CUDA unless the
+    caller names another), copied as they are; quantized leaves
+    (``{"data", "scale", "bits", "packed"}``) become QuantizedTensors."""
+    return _to_torch(tree, resolve_device(device))

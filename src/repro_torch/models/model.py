@@ -9,6 +9,12 @@ SWA; recurrent state, SSM state and the encoder output always dense):
     as it is drawn, so peak memory stays near the codes plus one float
     leaf)
   * ``quantize(params, bits, pack, policy)`` -> PSI serving params
+  * ``loss(params, batch)``                  -> (loss, {"ce", "aux"}):
+                                                next-token cross-entropy
+                                                plus the MoE auxiliary
+                                                loss, differentiable
+                                                (training; ``qatN``
+                                                fake-quantizes weights)
   * ``prefill(params, tokens, ...)``         -> (last logits, dense cache);
                                                 with ``pos0``/``ctx_kv``
                                                 a suffix prefill over
@@ -233,6 +239,16 @@ class Model:
         only): the encoder's input, zeros (the stub frontend's serving
         input) when None; the decoder's token embeddings get the
         sinusoidal rows of their positions."""
+        logits, states, enc_out, _ = self._forward(
+            params, tokens, pos0, ctx_kv, emit_logits, row_lens, positions,
+            vision_embeds, frames)
+        return (logits, states, enc_out) if return_enc else (logits, states)
+
+    def _forward(self, params, tokens, pos0=0, ctx_kv=None,
+                 emit_logits=True, row_lens=None, positions=None,
+                 vision_embeds=None, frames=None):
+        """:meth:`forward`'s body: (logits, states, enc_out, aux), aux the
+        stack's summed auxiliary loss."""
         B, S = tokens.shape
         cfg = self.cfg
         enc_out = None
@@ -257,14 +273,52 @@ class Model:
         if cfg.rope == "sinusoidal":
             x = x + layers.sinusoidal_from_positions(positions, cfg.d_model,
                                                      self.dtype)
-        x, states = transformer.apply_decoder_stack(
+        x, states, aux = transformer.apply_decoder_stack(
             params["layers"], x, cfg, positions, ctx_kv=ctx_kv,
             row_lens=row_lens, enc_out=enc_out)
         logits = None
         if emit_logits:
             x = layers.apply_norm(params["norm_f"], x, cfg)
             logits = self._logits(params, x)
-        return (logits, states, enc_out) if return_enc else (logits, states)
+        return logits, states, enc_out, aux
+
+    def loss(self, params, batch):
+        """Next-token cross-entropy (the shift inside) plus the MoE
+        auxiliary loss: returns (total, {"ce", "aux"}), f32 scalars.
+
+        ``batch``: {"tokens": (B, S)} and the family's inputs
+        ("vision_embeds", "positions", "frames"; see :meth:`forward`).
+        The logsumexp subtracts the row max (no gradient through it),
+        stores ``exp`` in the logits' dtype and sums it in f32; the gold
+        logit is the activation-dtype logit read out in f32 (the JAX
+        package's one-hot product sums it with zeros: the same value).
+        The VLM's vision positions carry no target: the mean runs over
+        positions ``>= vision_patches - 1`` only.  Nothing here runs under
+        ``inference_mode`` or writes a tensor that needs a gradient, so
+        autograd reaches every float leaf of ``params``."""
+        tokens = batch["tokens"]
+        logits, _, _, aux = self._forward(
+            params, tokens, positions=batch.get("positions"),
+            vision_embeds=batch.get("vision_embeds"),
+            frames=batch.get("frames"))
+        lg = logits[:, :-1]
+        tg = tokens[:, 1:].long()
+        m = lg.detach().amax(dim=-1, keepdim=True)
+        ex = torch.exp(lg - m)
+        logz = (torch.log(torch.sum(ex, dim=-1, dtype=torch.float32))
+                + m[..., 0].to(torch.float32))
+        gold = torch.gather(lg, -1, tg[..., None])[..., 0].to(torch.float32)
+        cfg = self.cfg
+        if cfg.family == "vlm" and cfg.vision_patches:
+            pos = torch.arange(tg.shape[1], device=tg.device)[None]
+            mask = (pos >= cfg.vision_patches - 1).to(torch.float32
+                                                      ).expand(tg.shape)
+        else:
+            mask = torch.ones(tg.shape, dtype=torch.float32,
+                              device=tg.device)
+        ce = (torch.sum((logz - gold) * mask)
+              / torch.clamp_min(mask.sum(), 1.0))
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, tokens, cache_len: Optional[int] = None,
                 true_lens=None, pos0: int = 0, ctx_kv=None,

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import psi
+from repro_torch.quant.linear import maybe_fake_quant
 
 
 def param_specs(cfg, pre: str):
@@ -50,13 +51,14 @@ def _dequantize_bf16(leaf: psi.QuantizedTensor) -> torch.Tensor:
     return torch.mul(leaf.codes, leaf.scale, out=out)
 
 
-def _expert_weights(leaf, dtype):
+def _expert_weights(leaf, dtype, quant_mode="none"):
     """One expert block in ``dtype``: a PSI leaf dequantizes through bf16
     (the JAX package's default dequantize dtype, then the cast), a float
-    leaf is cast as it is."""
+    leaf is cast as it is, fake-quantized first under a ``qatN`` mode
+    (per expert and output channel, as a linear weight)."""
     if isinstance(leaf, psi.QuantizedTensor):
         return _dequantize_bf16(leaf).to(dtype)
-    return leaf.to(dtype)
+    return maybe_fake_quant(leaf, quant_mode, (leaf.dim() - 2,)).to(dtype)
 
 
 def _expert_bmm(a, w):
@@ -143,11 +145,13 @@ def moe_ffn(p, x, cfg, capacity_override=None):
     xe = xe.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
 
     # the expert GEMMs, each block dequantized just before its product
-    g = _expert_bmm(xe, _expert_weights(p["w_gate"], x.dtype))
-    u = _expert_bmm(xe, _expert_weights(p["w_up"], x.dtype))
+    qm = cfg.quant_mode
+    g = _expert_bmm(xe, _expert_weights(p["w_gate"], x.dtype, qm))
+    u = _expert_bmm(xe, _expert_weights(p["w_up"], x.dtype, qm))
     h = (F.silu(g) * u).to(x.dtype)
     del g, u
-    ye = _expert_bmm(h, _expert_weights(p["w_down"], x.dtype)).to(x.dtype)
+    ye = _expert_bmm(h, _expert_weights(p["w_down"], x.dtype, qm)
+                     ).to(x.dtype)
     ye = ye.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
 
     # combine: per-slot gathers weighted by the gate, summed in slot order

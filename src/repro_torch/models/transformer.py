@@ -5,7 +5,9 @@ RG-LRU ``rec`` block (the hybrid's pattern), a ``mamba`` block (the SSM:
 a norm and the mixer, no FFN half) or an ``xattn`` block (whisper's
 decoder: self attention, then cross attention over the encoder output);
 see :func:`layer_kinds`.  The FFN half is the ``mlp`` or, for MoE, the
-``moe`` experts (the MoE auxiliary loss is dropped at serving).
+``moe`` experts, whose load-balancing auxiliary loss
+:func:`apply_decoder_stack` sums over the layers (the training loss adds
+it; serving drops it).
 """
 from __future__ import annotations
 
@@ -31,10 +33,11 @@ def layer_kinds(cfg):
 
 
 def _ffn(p, x, cfg):
-    """The FFN half of a block over (B, S, d), normed input ``x``."""
+    """The FFN half of a block over (B, S, d), normed input ``x``, and its
+    auxiliary loss (MoE's load balance; None for an MLP)."""
     if cfg.family == "moe":
-        return moe.moe_ffn(p["moe"], x, cfg)[0]
-    return layers.apply_mlp(p["mlp"], x, cfg)
+        return moe.moe_ffn(p["moe"], x, cfg)
+    return layers.apply_mlp(p["mlp"], x, cfg), None
 
 
 def _cross(p, x, cfg, enc_out):
@@ -54,10 +57,18 @@ def apply_block(p, x, cfg, kind, positions, ctx=None, row_lens=None,
     of an attention or xattn block, {"h", "conv"} of a rec block and
     {"ssm", "conv"} of a mamba block (recurrent bursts' rows all have one
     length: the engine never pads them)."""
+    return _apply_block_aux(p, x, cfg, kind, positions, ctx, row_lens,
+                            enc_out)[:2]
+
+
+def _apply_block_aux(p, x, cfg, kind, positions, ctx=None, row_lens=None,
+                     enc_out=None):
+    """:func:`apply_block` and the block's auxiliary loss (None but for
+    an MoE FFN)."""
     h = layers.apply_norm(p["norm1"], x, cfg)
     if kind == "mamba":
         y, state = ssm.mamba_block(p["mamba"], h, cfg)
-        return x + y, state
+        return x + y, state, None
     if kind == "rec":
         y, state = rglru.rglru_block(p["rec"], h, cfg)
     else:
@@ -68,7 +79,8 @@ def apply_block(p, x, cfg, kind, positions, ctx=None, row_lens=None,
     if kind == "xattn":
         x = _cross(p, x, cfg, enc_out)
     h2 = layers.apply_norm(p["norm2"], x, cfg)
-    return x + _ffn(p, h2, cfg), state
+    y2, aux = _ffn(p, h2, cfg)
+    return x + y2, state, aux
 
 
 def _freeze_inactive_state(new_state, old_state, active):
@@ -111,7 +123,7 @@ def apply_block_decode(p, x, cfg, kind, positions, cache, block_tables=None,
     if kind == "xattn":
         x = _cross(p, x, cfg, enc_out)
     h2 = layers.apply_norm(p["norm2"], x, cfg)
-    return x + _ffn(p, h2, cfg), cache
+    return x + _ffn(p, h2, cfg)[0], cache
 
 
 def apply_block_verify(p, x, cfg, positions, cache, block_tables,
@@ -125,22 +137,27 @@ def apply_block_verify(p, x, cfg, positions, cache, block_tables,
         p["attn"], h, cfg, positions, cache, block_tables, active=active)
     x = x + y
     h2 = layers.apply_norm(p["norm2"], x, cfg)
-    return x + _ffn(p, h2, cfg), cache
+    return x + _ffn(p, h2, cfg)[0], cache
 
 
 def apply_decoder_stack(layer_params, x, cfg, positions, ctx_kv=None,
                         row_lens=None, enc_out=None):
-    """Returns (x, per-layer states).  ``ctx_kv``: one context dict per
-    layer (:func:`gather_paged_ctx`), or None; ``row_lens``: a burst's
-    per-row attention extents, or None; ``enc_out``: the encoder output
-    (encoder-decoder only)."""
+    """Returns (x, per-layer states, aux): ``aux`` the f32 scalar sum of
+    the layers' auxiliary losses in layer order (0 without MoE).
+    ``ctx_kv``: one context dict per layer (:func:`gather_paged_ctx`), or
+    None; ``row_lens``: a burst's per-row attention extents, or None;
+    ``enc_out``: the encoder output (encoder-decoder only)."""
     states = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (p, kind) in enumerate(zip(layer_params, layer_kinds(cfg))):
-        x, st = apply_block(p, x, cfg, kind, positions,
-                            ctx=None if ctx_kv is None else ctx_kv[i],
-                            row_lens=row_lens, enc_out=enc_out)
+        x, st, a = _apply_block_aux(
+            p, x, cfg, kind, positions,
+            ctx=None if ctx_kv is None else ctx_kv[i], row_lens=row_lens,
+            enc_out=enc_out)
         states.append(st)
-    return x, states
+        if a is not None:
+            aux = aux + a
+    return x, states, aux
 
 
 def apply_decoder_stack_decode(layer_params, x, cfg, positions, pools,

@@ -2,8 +2,12 @@
 
 A :class:`~repro_torch.core.psi.QuantizedTensor` weight goes through the
 PSI matmul kernel (``kernels.ops``: CUDA kernel for a CUDA tensor, plain
-version on the CPU); a float weight (a leaf a policy kept in float) is a
-plain product in the activation dtype.
+version on the CPU); a float weight (a leaf a policy kept in float, or a
+latent weight in training) is a plain product in the activation dtype,
+under a ``qatN`` mode of its fake-quantized copy
+(:func:`~repro_torch.core.psi.fake_quant_ste`: the straight-through
+gradient reaches the float leaf), as the JAX package computes QAT outside
+any kernel.
 """
 from __future__ import annotations
 
@@ -13,19 +17,22 @@ from repro_torch.core import psi, quantizer
 from repro_torch.kernels import ops
 
 
-def _float_weight(w: torch.Tensor, x: torch.Tensor, quant_mode: str):
-    kind, _ = quantizer.parse_quant_mode(quant_mode)
-    if kind == "qat":
-        raise NotImplementedError("QAT fake-quant arrives with the training "
-                                  "port; serve PSI codes (--quant psiN)")
-    return w.to(x.dtype)
+def maybe_fake_quant(w: torch.Tensor, quant_mode: str, axis
+                     ) -> torch.Tensor:
+    """``w`` fake-quantized with the straight-through gradient under a
+    ``qatN`` mode (scale over ``axis``), else ``w`` as it is."""
+    kind, bits = quantizer.parse_quant_mode(quant_mode)
+    if kind != "qat":
+        return w
+    return psi.fake_quant_ste(w, bits, axis)
 
 
 def linear(wleaf, x: torch.Tensor, quant_mode: str = "none") -> torch.Tensor:
     """x (..., K) @ w (K, N) -> (..., N)."""
     if isinstance(wleaf, psi.QuantizedTensor):
         return ops.psi_matmul(x, wleaf)
-    return torch.matmul(x, _float_weight(wleaf, x, quant_mode))
+    w = maybe_fake_quant(wleaf, quant_mode, axis=(wleaf.dim() - 2,))
+    return torch.matmul(x, w.to(x.dtype))
 
 
 def embed(wleaf, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -52,4 +59,5 @@ def tied_logits(wleaf, x: torch.Tensor, quant_mode: str = "none",
     if isinstance(wleaf, psi.QuantizedTensor):
         return ops.psi_matmul(x, head if head is not None
                               else tied_head(wleaf))
-    return torch.matmul(x, _float_weight(wleaf, x, quant_mode).t())
+    w = maybe_fake_quant(wleaf, quant_mode, axis=(wleaf.dim() - 1,))
+    return torch.matmul(x, w.to(x.dtype).t())

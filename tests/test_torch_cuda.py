@@ -1856,3 +1856,96 @@ def test_ssm_encdec_serving_on_the_card_matches_the_cpu(cuda, arch):
                 assert stats["prefill_forwards"] == stats["n_requests"]
     for continuous in (True, False):
         assert done[("cuda", continuous)] == done[("cpu", continuous)]
+
+
+# ------------------------------------------------------ training and CNNs
+@pytest.fixture
+def no_tf32(cuda):
+    """f32 products and convolutions in IEEE f32 on the card (the CPU
+    comparisons below), restored after the test."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("bits,axis", [(8, (0,)), (5, (1,)), (3, None),
+                                       (8, (0, 1, 2))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fake_quant_ste_on_the_card(cuda, bits, axis, dtype):
+    """The STE's forward on the card bit-equal to the CPU's (abs, max,
+    division, round half to even, clip, the PSI table: exact operations),
+    its gradient the incoming one."""
+    shape = (3, 3, 8, 16) if axis == (0, 1, 2) else (64, 48)
+    w = torch.randn(shape, generator=torch.Generator().manual_seed(bits)
+                    ).to(dtype)
+    want = psi.fake_quant_ste(w, bits, axis)
+    wc = w.to(cuda).requires_grad_(True)
+    got = psi.fake_quant_ste(wc, bits, axis)
+    assert got.dtype == dtype and torch.equal(got.detach().cpu(), want)
+    c = torch.randn(shape, device=cuda).to(dtype)
+    (g,) = torch.autograd.grad((got * c).sum(), wc)
+    assert torch.equal(g, c)
+
+
+def test_train_step_card_matches_cpu(no_tf32):
+    """One ``make_train_step`` step of reduced qwen3-8b at qat8 (f32) from
+    the same params and batch: the loss within 1e-5 relative, the
+    gradients' global norm within 1e-4, every parameter within 2 lr of
+    the CPU's (Adam's first step moves each weight by lr x sign(g): a
+    gradient that is a rounding error off 0 can take either sign)."""
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train as tr
+    from repro_torch.optim import adamw
+    from repro_torch.core.quantizer import tree_leaves, tree_map
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode="qat8")
+    model = build_model(cfg)
+    init = model.init(0, "cpu")
+    toks = torch.from_numpy(next(TokenStream(cfg.vocab_size, 64, 4)))
+    lr = 3e-4
+    out = {}
+    for dev in ("cpu", no_tf32):
+        opt = adamw(lr=lr)
+        p = tree_map(lambda t: t.clone().to(dev), init)
+        step = tr.make_train_step(model, opt)
+        p, st, _, met = step(p, opt.init(p), {}, {"tokens": toks.to(dev)})
+        out[str(dev)] = (float(met["loss"]), float(met["grad_norm"]),
+                         [t.detach().cpu() for t in tree_leaves(p)])
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert abs(gg - gc) <= 1e-4 * gc
+    for a, b in zip(pg, pc):
+        assert float((a - b).abs().max()) <= 2 * lr * (1 + 1e-3)
+
+
+@pytest.mark.parametrize("net,batch", [("lenet5", 8), ("alexnet", 2)])
+@pytest.mark.parametrize("mode", ["none", "qat5", "psi8"])
+def test_cnn_forward_card_matches_cpu(no_tf32, net, batch, mode):
+    """LeNet-5 and AlexNet forwards on the card against the CPU from the
+    same params, within 1e-4 of the largest logit (f32 convolutions,
+    cuDNN against oneDNN: other summation orders); psi8 from
+    ``quantize_cnn`` codes (bit-equal on both devices)."""
+    from repro_torch.models import cnn
+    from repro_torch.core.quantizer import tree_map
+    dev = no_tf32
+    base = cnn.LENET5 if net == "lenet5" else cnn.ALEXNET
+    cfg = dataclasses.replace(base, quant_mode=mode)
+    p = cnn.init_cnn(base, 0, "cpu")
+    pd = tree_map(lambda t: t.to(dev), p)
+    if mode == "psi8":
+        p, qd = cnn.quantize_cnn(p, 8), cnn.quantize_cnn(pd, 8)
+        pd = tree_map(lambda t: t.to(dev), p)
+        for k in p:
+            w = "convk" if k.startswith("conv") else "w"
+            assert torch.equal(qd[k][w].data.cpu(), p[k][w].data)
+    x = torch.randn((batch,) + base.in_shape,
+                    generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want = cnn.cnn_forward(p, x, cfg)
+        got = cnn.cnn_forward(pd, x.to(dev), cfg).cpu()
+    assert got.shape == (batch, base.n_classes)
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())

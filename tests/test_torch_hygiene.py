@@ -24,6 +24,15 @@ def test_port_module_imports_neither_jax_nor_repro(path):
     assert not IMPORT_RE.findall(path.read_text()), path
 
 
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(PORT)))
+def test_port_module_does_not_import_msgpack(path):
+    """The checkpoint format is raw arrays plus JSON: no port module needs
+    msgpack (the card's machine has none)."""
+    assert not re.search(r"^\s*(?:import|from)\s+msgpack\b",
+                         path.read_text(), re.M), path
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     text = (ROOT / "chip_smoke.py").read_text()
     assert not IMPORT_RE.findall(text)
