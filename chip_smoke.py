@@ -58,6 +58,18 @@ printing one JSON line; any failure exits non-zero before the result line:
                          forward and step, no paged-attention launch; one
                          decode graph and one round graph; a decode window
                          and the plain read alone at the step's shape;
+  3e. mesh serving (serve_psi8_mesh) — the same trace and params through
+                         a Server on a (1, 1) DeviceMesh of a world-1 NCCL
+                         process group: tokens identical to 3's, one slot
+                         shard, the token all-gathers it issued (> 0),
+                         exact launch counts (added to the kernels line);
+                         its macs_per_token, mfu and tokens_per_joule at
+                         the card's power limit and the roofline terms of
+                         qwen3-8b's decode_32k cell on one H100; then
+                         10 alternating pairs of plain and mesh serves
+                         (tok/s of each, tokens identical).  Every
+                         serve phase's line carries macs_per_token, mfu,
+                         watts and tokens_per_joule;
   3c. context serving (serve_psi8_ctx) — the psi8 model, all 36 layers,
                          serving (a) a shared-prefix trace with the prefix
                          cache off and (b) on, (c) a bursty heavy-tail
@@ -226,6 +238,7 @@ ARCH_MS = (1, 4, 16, 64, 80, 288)
 ARCH_PREFILL_ROWS = 288
 DECODE_M = 4                     # decode rows = max_batch of the serve phase
 HORIZON = 8                      # decode steps per round, serve_psi8_horizon
+MESH_PAIRS = 10                  # serve_psi8_mesh's plain / mesh serve pairs
 # serve_psi8_ctx: the bursty trace's seed (its first burst holds two long
 # requests), its pool (two long requests' optimistic reservations, 2 x 29
 # blocks: the second long request is preempted when the first outgrows
@@ -394,12 +407,13 @@ def check_full(cfg, arch):
 
 
 def card_rates(name):
-    """(bytes/s, bf16 dense FLOP/s) of the H100 SXM from NVIDIA's data
-    sheet; any other card fails rather than get a bound from guessed
-    rates."""
+    """(bytes/s, bf16 dense FLOP/s) of the H100 SXM: the port's roofline
+    constants (``perf.roofline_model``, from NVIDIA's data sheet); any
+    other card fails rather than get a bound from guessed rates."""
     check("H100" in name and "HBM3" in name,
           f"no memory and compute rates known for {name!r} (H100 SXM only)")
-    return 3.35e12, 989e12
+    from repro_torch.perf.roofline_model import HBM_BW, PEAK_FLOPS
+    return HBM_BW, PEAK_FLOPS
 
 
 def main():
@@ -1479,7 +1493,8 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
             "p99_latency_s", "p50_ttft_s", "p99_ttft_s", "p50_itl_s",
             "p99_itl_s", "decode_steps", "prefill_forwards",
             "peak_concurrency", "cache_bytes", "block_util_pct",
-            "host_syncs", "host_syncs_per_token", "decode_compiles")
+            "host_syncs", "host_syncs_per_token", "decode_compiles",
+            "macs_per_token", "mfu", "watts", "tokens_per_joule")
     step_bytes = _step_weight_bytes(ex.params)
     emit({"phase": f"{name}_full_width", "arch": arch,
           "layers": cfg.n_layers, "requests": args.requests,
@@ -1513,6 +1528,7 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
         server8 = None
         phase_serve_dense(torch, dev, server, args, cfg, done_c, launches,
                           keep, window)
+        phase_serve_mesh(torch, dev, server, args, cfg, tc, launches, keep)
     del server, server8, ex, runs, done_c
     _free(torch)
 
@@ -1877,6 +1893,123 @@ def _burst_window(torch, server, lens=(64, 72, 66, 80), calls=3):
             "alone_x4": _window(torch, alone_all, 1, calls)}
 
 
+def phase_serve_mesh(torch, dev, paged_server, args, cfg, paged_tokens,
+                     launches, keep):
+    """serve_psi8_mesh: the psi8 trace of phase_serve (qwen3-8b, all 36
+    layers) through a Server on a (1, 1) ("data", "model") DeviceMesh of a
+    world-1 NCCL process group (a FileStore in a temporary directory;
+    NCCL cannot hold two ranks on one card), over the same params:
+    continuous mode, tokens identical to phase 3's; slot_shards 1; the
+    collectives it issued (the token all-gather of every step and
+    admission) above 0; 253 PSI launches a forward and step and 36
+    attention calls a step, added to the kernels line.  Prints the
+    serve's macs_per_token, mfu and tokens_per_joule at the card's power
+    limit, and the roofline terms of qwen3-8b's decode_32k cell on one
+    H100 (``perf.roofline_model``)."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.perf import roofline_model as roof
+    from repro_torch.runtime import parallel
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "a process group is already up")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        server = serve.Server(cfg, paged_server.executor.params,
+                              max_batch=args.max_batch,
+                              max_seq=paged_server.max_seq,
+                              eos_id=args.eos_id, device=dev, mesh=mesh)
+        ex = server.executor
+        check(ex.mesh_size == 1 and ex.n_slot_shards == 1
+              and ex.local_batch == args.max_batch,
+              "serve_psi8_mesh: not the (1, 1) mesh's whole batch")
+        server.warmup(serve.trace_from_args(args, cfg))
+        ops.reset_launch_counts()                     # the main path starts
+        parallel.reset_collective_counts()
+        done, st = server.serve(serve.trace_from_args(args, cfg),
+                                continuous=True, warmup=False)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()                     # ... and ends here
+        colls = parallel.collective_counts()
+        toks = {r.rid: r.tokens for r in done}
+        check(toks == paged_tokens, "serve_psi8_mesh: tokens differ from "
+                                    "serve_psi8's")
+        check(st["slot_shards"] == 1, f"serve_psi8_mesh: slot_shards "
+                                      f"{st['slot_shards']}")
+        check(sum(colls.values()) > 0 and colls["all_gather"]
+              >= st["decode_steps"],
+              f"serve_psi8_mesh: collectives {colls} for "
+              f"{st['decode_steps']} decode steps")
+        check(st["decode_compiles"] == 1, "serve_psi8_mesh: want one "
+                                          "decode graph")
+        check(st["blocks_free_end"] == st["n_blocks"],
+              "serve_psi8_mesh: blocks leaked")
+        per_fwd, per_step = counts_per_step(cfg)
+        want = {"psi_matmul_codes": matmul_launches(
+                    cfg, st["decode_steps"], st["prefill_forwards"]),
+                "psi_matmul_packed": 0,
+                "paged_attention": per_step * st["decode_steps"]}
+        check(got == want, f"serve_psi8_mesh launch counts {got} != {want}")
+        for k in ("psi_matmul_codes", "paged_attention"):
+            launches[k] = launches.get(k, 0) + got[k]
+        check(st["mfu"] > 0 and st["macs_per_token"] > 0
+              and st["watts"] > 0 and st["tokens_per_joule"] > 0,
+              f"serve_psi8_mesh: roofline stats {st['mfu']} "
+              f"{st['macs_per_token']} {st['tokens_per_joule']}")
+        # the mesh's cost: the plain and the mesh Server serve the trace in
+        # alternating pairs (plain, mesh, then mesh, plain, ...), tok/s
+        # and tokens read from each serve's stats
+        tps = {"plain": [], "mesh": []}
+        for i in range(MESH_PAIRS):
+            for which in (("plain", "mesh") if i % 2 == 0
+                          else ("mesh", "plain")):
+                srv = paged_server if which == "plain" else server
+                d2, s2 = srv.serve(serve.trace_from_args(args, cfg),
+                                   continuous=True, warmup=False)
+                check({r.rid: r.tokens for r in d2} == paged_tokens,
+                      f"serve_psi8_mesh: a {which} repeat changed tokens")
+                tps[which].append(s2["tok_per_s"])
+        ratios = [m / p for p, m in zip(tps["plain"], tps["mesh"])]
+        pairs = {"n": MESH_PAIRS, "order": "plain,mesh | mesh,plain | ...",
+                 "tok_per_s": tps,
+                 "median": {k: statistics.median(v) for k, v in tps.items()},
+                 "quartiles": {k: statistics.quantiles(v, n=4)
+                               for k, v in tps.items()},
+                 "min": {k: min(v) for k, v in tps.items()},
+                 "max": {k: max(v) for k, v in tps.items()},
+                 "mesh_over_plain": ratios,
+                 "mesh_over_plain_median": statistics.median(ratios)}
+        cell = roof.analytic_cell("qwen3-8b", "decode_32k", "psi8", chips=1,
+                                  mesh_model=1)
+        terms = roof.roofline_terms(cell, chips=1)
+        emit({"phase": "serve_psi8_mesh", "mesh": [1, 1],
+              "backend": str(dist.get_backend()),
+              "continuous": {k: st[k] for k in keep if k in st},
+              "tokens_identical_to_serve_psi8": True,
+              "slot_shards": st["slot_shards"], "collectives": colls,
+              "launches": got,
+              "macs_per_token": st["macs_per_token"], "mfu": st["mfu"],
+              "watts": st["watts"],
+              "tokens_per_joule": st["tokens_per_joule"],
+              "alternating_pairs": pairs,
+              "roofline_decode_32k_1xH100": {
+                  "peak_flops": roof.PEAK_FLOPS, "hbm_bw": roof.HBM_BW,
+                  "link_bw": roof.LINK_BW, "flops": cell.flops,
+                  "hbm_bytes": cell.hbm_bytes, **terms},
+              "phase_wall_s": time.perf_counter() - t_phase})
+        del server, ex
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+
+
 def phase_serve_dense(torch, dev, paged_server, args, cfg, paged_done,
                       launches, keep, paged_window):
     """The psi8 trace of phase_serve (qwen3-8b, all 36 layers, bf16) on
@@ -2111,7 +2244,8 @@ def phase_serve_spec(torch, dev, launches):
             "p99_latency_s", "p50_ttft_s", "p50_itl_s", "p99_itl_s",
             "decode_steps", "prefill_forwards", "host_syncs",
             "host_syncs_per_token", "accepted_per_step", "draft_overhead_s",
-            "blocks_free_end", "n_blocks")
+            "blocks_free_end", "n_blocks", "macs_per_token", "mfu", "watts",
+            "tokens_per_joule")
     runs = {}
     for label, server in (("plain", plain_server), ("spec", spec_server)):
         server.warmup(trace())
@@ -2627,7 +2761,7 @@ def phase_serve_ctx(torch, dev, launches):
             "prefill_forwards_headless", "prefilled_tokens",
             "prefix_tokens_reused", "preemptions", "peak_concurrency",
             "host_syncs_per_token", "decode_compiles", "blocks_free_end",
-            "n_blocks")
+            "n_blocks", "macs_per_token", "mfu", "watts", "tokens_per_joule")
     for label, server, trace in (
             ("a", server_a, lambda: serve.trace_from_args(args, cfg)),
             ("b", server_b, lambda: serve.trace_from_args(args, cfg)),

@@ -157,6 +157,89 @@ class ModelConfig:
                 f"RoPE positions, got rope={self.rope!r}")
         return True
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k: bounded decode state (SSM / hybrid / SWA)."""
+        return (self.family in ("ssm", "hybrid")
+                or (self.attn_type == "swa" and self.window > 0))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the JAX
+        package's formula term for term."""
+        d, L = self.d_model, self.n_layers
+        hd = self.resolved_head_dim
+        q = self.n_heads * hd
+        kv = self.n_kv_heads * hd
+        n = self.vocab_size * d                       # embed
+        if not self.tie_embeddings:
+            n += d * self.vocab_size                  # lm head
+
+        def attn_params():
+            return d * q + 2 * d * kv + q * d
+
+        def mlp_params(ff):
+            if self.act in ("swiglu", "geglu"):
+                return 3 * d * ff
+            return 2 * d * ff
+        if self.family == "ssm":
+            di, r, s = self.d_inner, self.resolved_dt_rank, self.ssm_state
+            per = (d * 2 * di + di * self.ssm_conv + di * (r + 2 * s)
+                   + r * di + di * s + di + di * d)
+            n += L * per
+        elif self.family == "hybrid":
+            pat = self.block_pattern or ("rec",)
+            dr = self.resolved_d_rnn
+            rec = 2 * d * dr + dr * self.ssm_conv + 2 * dr * dr + dr * d
+            for i in range(L):
+                kind = pat[i % len(pat)]
+                n += ((attn_params() if kind == "attn" else rec)
+                      + mlp_params(self.d_ff))
+        elif self.family == "moe":
+            per = attn_params() + d * self.n_experts  # router
+            per += self.n_experts * 3 * d * self.d_ff
+            n += L * per
+        elif self.family == "encdec":
+            enc = self.n_enc_layers * (attn_params() + mlp_params(self.d_ff))
+            dec = L * (2 * attn_params() + mlp_params(self.d_ff))
+            n += enc + dec
+        else:                                          # dense / vlm
+            n += L * (attn_params() + mlp_params(self.d_ff))
+        return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        full = self.param_count()
+        expert = self.n_layers * self.n_experts * 3 * self.d_model * self.d_ff
+        active = expert * self.top_k / self.n_experts
+        return int(full - expert + active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the analytic roofline's cells."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (config, shape) cell is meaningful, and why not."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: 524k dense-KV decode is the "
+                       "quadratic regime long_500k excludes")
+    return True, ""
+
 
 _REGISTRY = {}
 

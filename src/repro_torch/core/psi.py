@@ -47,6 +47,11 @@ class PsiFormat:
     def sub_byte(self) -> bool:
         return self.bits < 8
 
+    def bytes_per_weight(self, packed: bool = True) -> float:
+        """Device bytes per weight in serving format (the roofline's memory
+        input): bits/8 when bit-plane packed, one int8 byte otherwise."""
+        return self.bits / 8.0 if (packed and self.sub_byte) else 1.0
+
     def decomposition_table(self) -> np.ndarray:
         return _decomposition_table(self.bits, self.n_psi, self.max_exp)
 
@@ -349,3 +354,9 @@ def unpack_rows(packed: torch.Tensor, rows: torch.Tensor,
 for _bits in sorted(DEFAULT_N_PSI):
     register_format(_bits)
 del _bits
+
+
+def packed_bytes_per_weight(bits: FormatLike) -> float:
+    """Device bytes per weight in serving format (the roofline's memory
+    input)."""
+    return get_format(bits).bytes_per_weight(packed=True)

@@ -195,19 +195,50 @@ def replay_round(toks: np.ndarray, active: np.ndarray,
 
 
 class SlotAllocator:
-    """Fixed pool of decode slots, lowest free index first."""
+    """Fixed pool of ``n_slots`` decode slots, optionally partitioned into
+    per-shard pools.
 
-    def __init__(self, n_slots: int):
-        self._free = list(range(n_slots))
-        heapq.heapify(self._free)
-        self.occupant: List[Optional[int]] = [None] * n_slots
+    On a mesh the executor holds the slots in contiguous chunks over the
+    data axes (``sharding.slot_shard_map``); admission then balances
+    data-parallel work by taking a free slot from the shard with the MOST
+    free slots (ties -> lowest shard index), lowest slot index within the
+    shard.  With ``n_shards == 1`` this is lowest-index-first reuse."""
+
+    def __init__(self, n_slots: int, n_shards: int = 1,
+                 shard_of: Optional[Sequence[int]] = None):
+        self.n_slots = n_slots
+        self.n_shards = max(int(n_shards), 1)
+        if shard_of is None:  # contiguous chunks
+            shard_of = [(s * self.n_shards) // n_slots for s in range(n_slots)]
+        self.shard_of = [int(s) for s in shard_of]
+        assert len(self.shard_of) == n_slots
+        self._free: List[List[int]] = [
+            [s for s in range(n_slots) if self.shard_of[s] == i]
+            for i in range(self.n_shards)]
+        for pool in self._free:
+            heapq.heapify(pool)
+        self.occupant: List[Optional[int]] = [None] * n_slots  # slot -> rid
 
     @property
     def free_count(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
 
-    def alloc(self, rid: int) -> int:
-        slot = heapq.heappop(self._free)
+    def free_per_shard(self) -> List[int]:
+        return [len(f) for f in self._free]
+
+    def shard_order(self) -> List[int]:
+        """Shards with a free slot, in admission preference: most free
+        slots first, ties to the lowest index."""
+        return sorted((i for i in range(self.n_shards) if self._free[i]),
+                      key=lambda i: (-len(self._free[i]), i))
+
+    def alloc(self, rid: int, shard: Optional[int] = None) -> int:
+        """A free slot for ``rid``: from ``shard`` when given, else from
+        the shard with the most free slots."""
+        if shard is None:
+            shard = max(range(self.n_shards),
+                        key=lambda i: (len(self._free[i]), -i))
+        slot = heapq.heappop(self._free[shard])
         self.occupant[slot] = rid
         return slot
 
@@ -215,39 +246,70 @@ class SlotAllocator:
         if self.occupant[slot] is None:
             raise ValueError(f"slot {slot} is already free")
         self.occupant[slot] = None
-        heapq.heappush(self._free, slot)
+        heapq.heappush(self._free[self.shard_of[slot]], slot)
 
 
 class BlockAllocator:
-    """The paged pool's ``n_blocks`` physical blocks, lowest free first.
+    """The paged pool's ``n_blocks`` physical blocks, lowest free first,
+    optionally partitioned into per-shard pools mirroring the pool's
+    block-over-data layout (``sharding.block_shard_map``).
 
     ``reserve`` books a request's blocks at admission, ``alloc`` takes one
     exclusive block against that reservation, ``release`` drops every
-    reference the request holds and its unused reservation.  Every in-use
-    block carries a refcount: ``attach`` shares populated blocks read-only
-    into a request (a prefix hit), the prefix cache pins blocks with
-    ``ref_block`` / ``unref_block``, and a block is freed only when its
-    last reference drops.  ``fork`` is copy-on-write: a shared reference
-    is traded for a fresh exclusive block (the caller copies the data).
-    ``capacity_version`` grows whenever capacity may have grown (a block
-    freed, a reservation refunded), so a blocked admission knows when to
-    retry.
+    reference the request holds and its unused reservation.  Every
+    in-use block carries a refcount: ``attach`` shares populated blocks
+    read-only into a request (a prefix hit), the prefix cache pins blocks
+    with ``ref_block`` / ``unref_block``, and a block is freed only when
+    its last reference drops.  ``fork`` is copy-on-write: a shared
+    reference is traded for a fresh exclusive block (the caller copies the
+    data).  ``capacity_version`` grows whenever capacity may have grown (a
+    block freed, a reservation refunded), so a blocked admission knows when
+    to retry.
+
+    With ``n_shards > 1`` (mesh serving, where each rank holds only its
+    shard's blocks and computes only its own slots' rows) every
+    reservation is booked against one shard (``reserve(rid, n, shard=)``)
+    and every block of it comes from that shard's pool, so a slot's blocks
+    stay on its shard.
     """
 
-    def __init__(self, n_blocks: int):
+    def __init__(self, n_blocks: int, n_shards: int = 1,
+                 shard_of: Optional[Sequence[int]] = None):
         self.n_blocks = n_blocks
-        self._free = list(range(n_blocks))
-        heapq.heapify(self._free)
+        self.n_shards = max(int(n_shards), 1)
+        if shard_of is None:  # contiguous chunks
+            shard_of = [(b * self.n_shards) // n_blocks
+                        for b in range(n_blocks)]
+        self.shard_of = [int(s) for s in shard_of]
+        assert len(self.shard_of) == n_blocks
+        # per-shard min-heaps, lowest block id first
+        self._pools: List[List[int]] = [
+            [b for b in range(n_blocks) if self.shard_of[b] == i]
+            for i in range(self.n_shards)]
+        for pool in self._pools:
+            heapq.heapify(pool)
         self.owner: List[Optional[int]] = [None] * n_blocks
         self.refcount: List[int] = [0] * n_blocks
         self._held: Dict[int, List[int]] = {}   # rid -> blocks, in order
         self._reserved: Dict[int, int] = {}     # rid -> outstanding blocks
+        self._res_shard: Dict[int, int] = {}    # rid -> shard (sharded)
         self.high_watermark = 0
         self.capacity_version = 0
 
     @property
+    def _free(self) -> List[int]:
+        """The free block ids (the one heap when unsharded)."""
+        if self.n_shards == 1:
+            return self._pools[0]
+        return [b for pool in self._pools for b in pool]
+
+    @property
     def free_count(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._pools)
+
+    def shard_capacity(self) -> List[int]:
+        """Blocks each shard's pool holds in all."""
+        return [self.shard_of.count(i) for i in range(self.n_shards)]
 
     @property
     def in_use(self) -> int:
@@ -266,16 +328,25 @@ class BlockAllocator:
     def is_shared(self, blk: int) -> bool:
         return self.refcount[blk] > 1
 
-    def can_reserve(self, n: int) -> bool:
-        return n <= self.free_count - self.reserved_total
+    def can_reserve(self, n: int, shard: Optional[int] = None) -> bool:
+        if shard is None:
+            return n <= self.free_count - self.reserved_total
+        promised = sum(r for rid, r in self._reserved.items()
+                       if self._res_shard.get(rid) == shard)
+        return n <= len(self._pools[shard]) - promised
 
-    def reserve(self, rid: int, n: int) -> None:
+    def reserve(self, rid: int, n: int, shard: Optional[int] = None) -> None:
         if rid in self._reserved:
             raise ValueError(f"request {rid} already holds a reservation")
-        if not self.can_reserve(n):
+        if self.n_shards > 1 and shard is None:
+            raise ValueError("a sharded allocator books each reservation "
+                             "against one shard: pass shard=")
+        if not self.can_reserve(n, shard):
             raise ValueError(f"cannot reserve {n} blocks: {self.free_count} "
                              f"free, {self.reserved_total} already promised")
         self._reserved[rid] = n
+        if shard is not None:
+            self._res_shard[rid] = int(shard)
 
     def reserved_of(self, rid: int) -> int:
         """Blocks still promised (reserved, not yet allocated) to ``rid``."""
@@ -290,7 +361,7 @@ class BlockAllocator:
             raise ValueError(
                 f"request {rid} holds no reservation to grow — grow_reserve "
                 f"is for admitted requests only")
-        if not self.can_reserve(n):
+        if not self.can_reserve(n, self._res_shard.get(rid)):
             raise ValueError(
                 f"cannot grow reservation by {n}: {self.free_count} free, "
                 f"{self.reserved_total} already promised")
@@ -298,14 +369,15 @@ class BlockAllocator:
 
     def alloc(self, rid: int) -> int:
         """Take one exclusive block for ``rid``, drawing down its
-        reservation."""
+        reservation, from the pool of the shard it was booked against."""
         if self._reserved.get(rid, 0) <= 0:
             raise ValueError(f"request {rid} allocating beyond its "
                              f"reservation — admission accounting bug")
-        if not self._free:
+        pool = self._pools[self._res_shard.get(rid, 0)]
+        if not pool:
             raise ValueError("no free blocks despite reservation — "
                              "allocator invariant broken")
-        blk = heapq.heappop(self._free)
+        blk = heapq.heappop(pool)
         self.owner[blk] = rid
         self.refcount[blk] = 1
         self._held.setdefault(rid, []).append(blk)
@@ -359,7 +431,7 @@ class BlockAllocator:
         self.refcount[blk] -= 1
         if self.refcount[blk] == 0:
             self.owner[blk] = None
-            heapq.heappush(self._free, blk)
+            heapq.heappush(self._pools[self.shard_of[blk]], blk)
             self.capacity_version += 1
             return True
         return False
@@ -372,6 +444,7 @@ class BlockAllocator:
             if self.owner[blk] == rid:
                 self.owner[blk] = None  # survivors belong to their sharers
             freed += bool(self._decref(blk))
+        self._res_shard.pop(rid, None)
         if self._reserved.pop(rid, None):
             self.capacity_version += 1     # reservation refund
         return freed
@@ -391,6 +464,8 @@ class Scheduler:
     prefill."""
 
     def __init__(self, requests: Sequence[Request], max_batch: int,
+                 n_shards: int = 1,
+                 shard_of: Optional[Sequence[int]] = None,
                  blocks: Optional[BlockAllocator] = None,
                  blocks_needed: Optional[Callable[[Request], int]] = None,
                  prefix=None, policy=None):
@@ -409,7 +484,7 @@ class Scheduler:
             policy.sort_key if policy is not None
             else (lambda r: (r.arrival_s, r.rid)))
         self.waiting: List[Request] = []
-        self.slots = SlotAllocator(max_batch)
+        self.slots = SlotAllocator(max_batch, n_shards, shard_of)
         self.blocks = blocks
         self._blocks_needed = blocks_needed
         self.prefix = prefix
@@ -436,6 +511,7 @@ class Scheduler:
         admitted = []
         while self.waiting and self.slots.free_count:
             req = self.waiting[0]
+            shard = None
             if self.blocks is not None:
                 if self._hol_blocked == (req.rid,
                                          self.blocks.capacity_version):
@@ -448,7 +524,16 @@ class Scheduler:
                         # makes the matched entries unevictable
                         self.blocks.attach(req.rid, hit)
                 need = self._blocks_needed(req) - len(hit)
-                if not self.blocks.can_reserve(need):
+                if self.blocks.n_shards > 1:
+                    # the slot's shard must hold the whole reservation: the
+                    # first shard in slot preference whose pool can
+                    shard = next((i for i in self.slots.shard_order()
+                                  if self.blocks.can_reserve(need, i)), None)
+                    if shard is None:
+                        self._hol_blocked = (req.rid,
+                                             self.blocks.capacity_version)
+                        break            # head-of-line waits for capacity
+                elif not self.blocks.can_reserve(need):
                     if self.prefix is not None:
                         self.prefix.evict_until(self.blocks, need)
                     if not self.blocks.can_reserve(need):
@@ -457,14 +542,14 @@ class Scheduler:
                         self._hol_blocked = (req.rid,
                                              self.blocks.capacity_version)
                         break            # head-of-line waits for capacity
-                self.blocks.reserve(req.rid, need)
+                self.blocks.reserve(req.rid, need, shard)
                 req.prefix_blocks = list(hit)
                 if self.prefix is not None:
                     req.prefix_hit_tokens += len(hit) * self.prefix.block_size
                     self.prefix.note_lookup(hit,
                                             restore=req.preemptions > 0)
             self.waiting.pop(0)
-            slot = self.slots.alloc(req.rid)
+            slot = self.slots.alloc(req.rid, shard)
             req.slot = slot
             if req.admit_s is None:      # first admission only
                 req.admit_s = now

@@ -87,7 +87,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import math
+import subprocess
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -105,11 +107,67 @@ from repro_torch.launch.scheduler import (BlockAllocator, Request, Scheduler,
                                           summarize)
 from repro_torch.launch.slo import parse_slo_spec, slo_report
 from repro_torch.models import attention, build_model, kvcache as kvc
+from repro_torch.perf.roofline_model import PEAK_FLOPS, decode_macs_per_token
+from repro_torch.runtime import parallel
 from repro_torch.runtime.executor import Executor
 
 # prompt lengths round up to a multiple of this before prefill; the pad
 # rows are masked out of the cache through true_lens
 PREFILL_BUCKET = 16
+
+
+@functools.lru_cache(maxsize=None)
+def card_power_limit(card: str) -> float:
+    """The power limit in W of the card ``card`` names (its UUID,
+    ``GPU-...``, which names the same physical card whatever
+    ``CUDA_VISIBLE_DEVICES`` says), as ``nvidia-smi
+    --query-gpu=power.limit --format=csv,noheader`` reports it (read once
+    per card): the default board power of the tokens-per-joule stat on a
+    CUDA device."""
+    hint = "pass watts= / --watts to give the board power without the query"
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=power.limit",
+                              "--format=csv,noheader", "-i", card],
+                             capture_output=True, text=True, timeout=60)
+    except OSError as e:                 # no nvidia-smi on this host
+        raise RuntimeError(f"cannot run nvidia-smi to read the power limit "
+                           f"({e}); {hint}") from None
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi could not read the power limit "
+                           f"({out.stderr.strip()}); {hint}")
+    return float(out.stdout.strip().splitlines()[0].split()[0])
+
+
+def card_uuid(dev: torch.device) -> str:
+    """The ``GPU-...`` UUID of CUDA device ``dev``, as nvidia-smi names
+    the card."""
+    uuid = str(torch.cuda.get_device_properties(dev).uuid)
+    return uuid if uuid.startswith("GPU-") else f"GPU-{uuid}"
+
+
+def parse_mesh_spec(spec: Optional[str], device=None):
+    """"DATAxMODEL" (e.g. "2x2") -> a ("data", "model") ``DeviceMesh`` over
+    the ranks of the process group, which is initialised from torchrun's
+    environment when the caller has not (NCCL for a CUDA ``device``, gloo
+    for the CPU); None -> None (this process alone)."""
+    if not spec:
+        return None
+    try:
+        d, m = (int(p) for p in spec.lower().split("x"))
+    except ValueError as e:
+        raise ValueError(
+            f"malformed mesh spec {spec!r}: want \"DATAxMODEL\" with two "
+            f"integers, e.g. \"2x2\"") from e
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        dev = resolve_device(device)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    if d * m != dist.get_world_size():
+        raise ValueError(
+            f"mesh {spec} needs {d * m} ranks, have {dist.get_world_size()} "
+            f"(run under torchrun --nproc-per-node {d * m})")
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((d, m), ("data", "model"))
 
 
 def parse_spec_spec(spec: Optional[str]) -> Optional[Tuple[int, int]]:
@@ -140,7 +198,8 @@ class Server:
                  eos_id: int = -1, device=None,
                  n_blocks: Optional[int] = None, decode_horizon: int = 1,
                  prefill_chunk: int = 0, slo=None,
-                 speculative: Optional[Tuple[int, int]] = None):
+                 speculative: Optional[Tuple[int, int]] = None,
+                 watts: Optional[float] = None, mesh=None):
         self.cfg = cfg
         self.paged = cfg.resolved_cache_layout == kvc.PAGED
         # decode in rounds of M steps with retirement on the device and one
@@ -203,7 +262,21 @@ class Server:
                                  max_seq=max_seq, device=device,
                                  n_blocks=n_blocks,
                                  decode_horizon=self.decode_horizon,
-                                 speculative=self.spec)
+                                 speculative=self.spec, mesh=mesh)
+        if self.executor.n_slot_shards > 1 and (self._ctx_serving
+                                                or self.spec):
+            raise NotImplementedError(
+                "context serving (--prefix-cache, --slo, --prefill-chunk) "
+                "and --speculative are not ported to a mesh whose slots "
+                "split over ranks yet (ROADMAP queue 1, item 6): a prefix "
+                "hit or a restore can cross shards")
+        # board power of the tokens-per-joule stat: the card's power
+        # limit on a CUDA device unless given, 0 (no figure) on the CPU
+        dev = self.executor.device
+        if watts is None:
+            watts = (card_power_limit(card_uuid(dev)) if dev.type == "cuda"
+                     else 0.0)
+        self.watts = float(watts)
         self._swa_window = cfg.window if cfg.attn_type == "swa" else 0
         self._ring_extent = attention.cache_extent(cfg, max_seq)
         # recurrent state absorbs pad tokens: the hybrid and the SSM (and,
@@ -337,12 +410,10 @@ class Server:
             return [int(first[0])], cache
         row_lens = (None if self.cfg.family == "moe"
                     else [self._bucket_len(n) for n in lens])
-        first, seq_cache = ex.prefill(toks, tl, row_lens=row_lens)
-        first = first.cpu().numpy()
         slots = [slot for slot, _ in admits]
         rows = np.stack([bt[slot] for slot in slots]) if self.paged else None
-        cache = ex.insert_burst(cache, seq_cache, slots, np.ones(B, bool),
-                                block_rows=rows)
+        first, cache = ex.prefill_burst(toks, tl, slots, cache,
+                                        row_lens=row_lens, block_rows=rows)
         return [int(f) for f in first], cache
 
     def _begin_fill(self, cache, slot, req, sched, bt,
@@ -515,15 +586,25 @@ class Server:
                 + (" + the k-1 speculative overhang"
                    if self._spec_overhang else "")
                 + "); size the Server for the longest request")
-        bad = [r.rid for r in requests if self.paged
-               and kvc.blocks_for(self._worst_extent(r), self.block_size)
-               > ex.n_blocks]
-        if bad:
-            raise ValueError(f"requests {bad} need more blocks than the pool "
-                             f"holds (n_blocks={ex.n_blocks})")
+        blocks = None
+        if self.paged:
+            # on a mesh whose pool splits over ranks, a request's blocks all
+            # come from its slot's shard
+            blocks = BlockAllocator(ex.n_blocks, n_shards=ex.n_block_shards,
+                                    shard_of=ex.block_shards)
+            room = max(blocks.shard_capacity())
+            bad = [r.rid for r in requests
+                   if kvc.blocks_for(self._worst_extent(r), self.block_size)
+                   > room]
+            if bad:
+                raise ValueError(
+                    f"requests {bad} need more blocks than the pool holds "
+                    f"(n_blocks={ex.n_blocks}"
+                    + (f", at most {room} on one shard"
+                       if ex.n_block_shards > 1 else "")
+                    + ")")
         if warmup:
             self.warmup(requests)
-        blocks = BlockAllocator(ex.n_blocks) if self.paged else None
         prefix = None
         if self.prefix_enabled or self.slo is not None:
             # hits aligned to the bucket grid; under an SLO policy the
@@ -531,7 +612,9 @@ class Server:
             # restore attaches from, even with --prefix-cache off
             prefix = PrefixCache(self.block_size,
                                  align_tokens=PREFILL_BUCKET)
-        sched = Scheduler(requests, self.max_batch, blocks=blocks,
+        sched = Scheduler(requests, self.max_batch,
+                          n_shards=ex.n_slot_shards, shard_of=ex.slot_shards,
+                          blocks=blocks,
                           blocks_needed=(self._blocks_needed if self.paged
                                          else None),
                           prefix=prefix, policy=self.slo)
@@ -559,6 +642,11 @@ class Server:
         prefills0 = ex.prefill_calls
         headless0 = ex.prefill_headless
         launches0 = ops.launch_counts()
+        colls0 = parallel.collective_counts()
+        # on a mesh every rank admits on rank 0's clock, so all take the
+        # same decisions at the same iteration
+        now_fn = ((lambda: clock() - t0) if ex.mesh is None
+                  else (lambda: ex.agree_time(clock() - t0)))
         t0 = clock()
 
         def retire(slot, now):
@@ -658,7 +746,7 @@ class Server:
 
         while not sched.done:
             loop_iters += 1
-            now = clock() - t0
+            now = now_fn()
             sched.poll(now)
             if continuous or not sched.running:
                 admits = sched.admit(now)
@@ -767,6 +855,7 @@ class Server:
         stats = summarize(sched.finished, wall,
                           mode="continuous" if continuous else "static")
         launches = ops.launch_counts()
+        colls = parallel.collective_counts()
         n_done = max(len(sched.finished), 1)
         prefilled = int(sum(r.prefilled_tokens for r in sched.finished))
         stats.update({
@@ -782,6 +871,10 @@ class Server:
             "prefill_forwards_headless": ex.prefill_headless - headless0,
             "kernel_launches": {k: launches[k] - launches0[k]
                                 for k in launches},
+            # slot shards the scheduler partitions over (1 off a mesh) and
+            # the collectives this rank issued
+            "slot_shards": ex.n_slot_shards,
+            "collectives": {k: colls[k] - colls0[k] for k in colls},
             "cache_layout": "paged" if self.paged else "dense",
             "cache_bytes": kvc.cache_nbytes(cache),
             "peak_concurrency": peak_running,
@@ -798,6 +891,20 @@ class Server:
             "prefix_tokens_reused": int(sum(r.prefix_hit_tokens
                                             for r in sched.finished)),
         })
+        # MFU and tokens per joule (the paper's MACs/W figure of merit
+        # tied to measured throughput): MACs a token from the analytic
+        # roofline at the mean final context, the peak the card's times the
+        # mesh's size, energy the board power (watts)
+        fin = sched.finished
+        mean_ctx = (sum(len(r.full_seq) for r in fin) / len(fin)
+                    if fin else 1.0)
+        macs_tok = decode_macs_per_token(self.cfg, int(mean_ctx))
+        stats["macs_per_token"] = round(macs_tok, 1)
+        stats["mfu"] = round(2.0 * macs_tok * stats["tok_per_s"]
+                             / (PEAK_FLOPS * ex.mesh_size), 8)
+        stats["watts"] = self.watts
+        stats["tokens_per_joule"] = (round(stats["tok_per_s"] / self.watts, 4)
+                                     if self.watts > 0 else 0.0)
         if self.prefill_chunk:
             stats["prefill_chunks"] = n_chunks
         if self.slo is not None:
@@ -847,6 +954,12 @@ def build_server(args) -> Tuple[Server, object]:
     cfg.resolved_cache_layout        # validate the layout and the prefix
     cfg.prefix_cache_enabled         # cache before the weights are drawn
     device = resolve_device(getattr(args, "device", None))
+    mesh = parse_mesh_spec(getattr(args, "mesh", None), device)
+    if mesh is not None and device.type == "cuda":
+        # one card a rank: torchrun's local rank picks it
+        import os
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
     policy = parse_policy(getattr(args, "quant_policy", None))
     spec = parse_spec_spec(getattr(args, "speculative", None))
     if spec:
@@ -892,7 +1005,8 @@ def build_server(args) -> Tuple[Server, object]:
                     eos_id=args.eos_id, device=device,
                     n_blocks=getattr(args, "cache_blocks", None),
                     decode_horizon=int(getattr(args, "decode_horizon", 1)),
-                    prefill_chunk=chunk, slo=slo, speculative=spec)
+                    prefill_chunk=chunk, slo=slo, speculative=spec,
+                    watts=getattr(args, "watts", None), mesh=mesh)
     return server, cfg
 
 
@@ -1004,6 +1118,16 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch kernels)")
+    ap.add_argument("--watts", type=float, default=None,
+                    help="board power for the tokens-per-joule stat (default "
+                         "the card's power limit from nvidia-smi on a CUDA "
+                         "device, 0 on the CPU: no figure)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help='serving mesh, e.g. "2x2": run one process a rank '
+                         "under torchrun (gloo with --device cpu, NCCL on "
+                         "cards); decode slots split over the data axis, "
+                         "weights tensor-parallel over model where the "
+                         "config is wide enough")
 
 
 def main():
@@ -1015,9 +1139,17 @@ def main():
     server, cfg = build_server(args)
     modes = (["continuous", "static"] if args.mode == "both"
              else [args.mode])
+    ex = server.executor
+    # on a mesh every rank serves the same trace; its first rank prints
+    quiet = False
+    if ex.mesh is not None:
+        import torch.distributed as dist
+        quiet = dist.get_rank() != ex.mesh_ranks()[0]
     for mode in modes:
         done, stats = server.serve(trace_from_args(args, cfg),
                                    continuous=(mode == "continuous"))
+        if quiet:
+            continue
         horizon = ""
         if "prefix_cache" in stats:
             pc = stats["prefix_cache"]
@@ -1046,7 +1178,11 @@ def main():
               f"p99 {stats['p99_latency_s'] * 1e3:.0f}ms | "
               f"ttft p50 {stats['p50_ttft_s'] * 1e3:.0f}ms | "
               f"itl p50 {stats['p50_itl_s'] * 1e3:.1f}ms | "
-              f"peak concurrency {stats['peak_concurrency']} | cache "
+              f"peak concurrency {stats['peak_concurrency']} | "
+              f"{stats['macs_per_token']:.4g} MACs/tok, mfu "
+              f"{stats['mfu']:.2e}, {stats['tokens_per_joule']:.2f} tok/J @ "
+              f"{stats['watts']:.0f}W | slot shards {stats['slot_shards']} "
+              f"| cache "
               + (f"paged ({stats['n_blocks']}x{stats['block_size']} blocks, "
                  f"peak util {stats['block_util_pct']}%)"
                  if "n_blocks" in stats else "dense")
@@ -1065,6 +1201,8 @@ def main():
         for r in sorted(done, key=lambda r: r.rid)[:2]:
             print(f"  req {r.rid}: slot {r.slot}, {len(r.tokens)} tokens, "
                   f"{r.out[:10].tolist()}...")
+    if ex.mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -28,17 +28,26 @@ def maybe_fake_quant(w: torch.Tensor, quant_mode: str, axis
 
 
 def linear(wleaf, x: torch.Tensor, quant_mode: str = "none") -> torch.Tensor:
-    """x (..., K) @ w (K, N) -> (..., N)."""
+    """x (..., K) @ w (K, N) -> (..., N).  A tensor-parallel leaf
+    (``runtime.parallel.TPLinear``) runs its shard and its collective."""
     if isinstance(wleaf, psi.QuantizedTensor):
         return ops.psi_matmul(x, wleaf)
+    tp = getattr(wleaf, "tp_linear", None)
+    if tp is not None:
+        return tp(x, quant_mode)
     w = maybe_fake_quant(wleaf, quant_mode, axis=(wleaf.dim() - 2,))
     return torch.matmul(x, w.to(x.dtype))
 
 
 def embed(wleaf, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """Embedding lookup; PSI tables dequantize per gathered row."""
+    """Embedding lookup; PSI tables dequantize per gathered row (a
+    vocab-parallel table, ``runtime.parallel.TPEmbed``, sums its rows over
+    the model group)."""
     if isinstance(wleaf, psi.QuantizedTensor):
         return wleaf.gather_rows(ids, dtype)
+    tp = getattr(wleaf, "tp_embed", None)
+    if tp is not None:
+        return tp(ids, dtype)
     return wleaf[ids.long()].to(dtype)
 
 
@@ -55,7 +64,10 @@ def tied_logits(wleaf, x: torch.Tensor, quant_mode: str = "none",
                 head=None) -> torch.Tensor:
     """logits = x @ embed_table.T.  A PSI table goes through ``head``, its
     :func:`tied_head` built once (``Model.serving_params``), or one built
-    for this call when there is none."""
+    for this call when there is none.  A tensor-parallel table's ``head``
+    is the gathered product of its local rows."""
+    if getattr(head, "tp_linear", None) is not None:
+        return linear(head, x, quant_mode)
     if isinstance(wleaf, psi.QuantizedTensor):
         return ops.psi_matmul(x, head if head is not None
                               else tied_head(wleaf))

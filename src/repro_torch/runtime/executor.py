@@ -30,6 +30,10 @@ from repro_torch import resolve_device
 from repro_torch.core import psi, quantizer
 from repro_torch.kernels import ops
 from repro_torch.models import build_model, kvcache as kvc
+from repro_torch.runtime import parallel
+from repro_torch.runtime import sharding as shr
+from repro_torch.runtime.elastic import make_mesh_from_plan, plan_remesh
+from repro_torch.runtime.straggler import StragglerMonitor
 
 
 def params_to(tree, device):
@@ -77,16 +81,25 @@ class _Upload:
 
 class DeviceBlockTable:
     """Host-mirrored block table over one fixed int32 device ``buffer``
-    (max_batch, n_bt).  The host mirror is authoritative and written like an
+    (rows, n_bt).  The host mirror is authoritative and written like an
     ndarray; :meth:`device` copies it into the buffer one dirty row at a
     time (all of it when most rows changed, or when the buffer last held
     another table).  The buffer never moves, so a captured decode graph
-    reads the current table."""
+    reads the current table.
 
-    def __init__(self, buffer: torch.Tensor):
-        self.host = np.full(tuple(buffer.shape), -1, np.int32)
+    A rank on a mesh mirrors all ``n_slots`` rows in global block ids and
+    uploads only its window [``row0``, ``row0`` + rows), mapped through
+    ``ids`` into its own pool's ids (``MeshShare.local_block_ids``); by
+    default the window is the whole mirror and ids are kept."""
+
+    def __init__(self, buffer: torch.Tensor, n_slots: int = 0,
+                 row0: int = 0, ids=None):
+        rows, n_bt = buffer.shape
+        self.host = np.full((n_slots or rows, n_bt), -1, np.int32)
+        self._row0, self._rows = row0, rows
+        self._ids = ids if ids is not None else (lambda a: a)
         self._device = buffer
-        self._upload = _Upload(self.host.shape, buffer.device)
+        self._upload = _Upload(tuple(buffer.shape), buffer.device)
         self._dirty = set()
         self._stale = True             # the buffer does not hold this table
         self.stats = {"reuses": 0, "row_updates": 0, "full_uploads": 0}
@@ -106,14 +119,16 @@ class DeviceBlockTable:
         self._stale = True
 
     def device(self) -> torch.Tensor:
-        if self._stale or 2 * len(self._dirty) >= self.host.shape[0]:
-            self._upload.host()[...] = self.host
+        lo, n = self._row0, self._rows
+        window = self.host[lo:lo + n]
+        rows = sorted(s - lo for s in self._dirty if lo <= s < lo + n)
+        if self._stale or 2 * len(rows) >= n:
+            self._upload.host()[...] = self._ids(window)
             self._upload.copy(self._device)
             self.stats["full_uploads"] += 1
-        elif self._dirty:
-            rows = sorted(self._dirty)
+        elif rows:
             stage = self._upload.host()
-            stage[rows] = self.host[rows]
+            stage[rows] = self._ids(window[rows])
             self._upload.copy(self._device, rows)
             self.stats["row_updates"] += len(rows)
         else:
@@ -165,12 +180,23 @@ class Executor:
 
     ``speculative=(bits, k)`` adds the self-speculative pair: a draft tree
     (:func:`quantizer.draft_param_tree` of the serving params at ``bits``)
-    placed on the device once, and the fixed (B, k) drafts and verdicts."""
+    placed on the device once, and the fixed (B, k) drafts and verdicts.
+
+    ``mesh`` (a ``DeviceMesh`` over the ranks of an initialised process
+    group; None: this process alone, today's path) serves SPMD: params,
+    the cache and the step inputs are placed as :func:`sharding.local_shard`
+    of their specs (a paged pool keeps ``local_batch`` scratch blocks of its
+    own), this rank computes its slot shard's rows only (and, where
+    :func:`sharding.tp_enabled` holds, its share of the heads and FFN
+    channels), and every entry point's tokens are all-gathered, so the
+    host-facing API is the single process's: global slots, global block
+    ids, (B,) tokens.  See :class:`parallel.MeshShare`."""
 
     def __init__(self, cfg, params, *, max_batch: int, max_seq: int,
                  device=None, n_blocks: int = None, decode_horizon: int = 1,
-                 speculative=None):
-        self.model = build_model(cfg)
+                 speculative=None, mesh=None):
+        self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -216,16 +242,29 @@ class Executor:
                     "multi-token unit with its own acceptance; pick one "
                     "(drop --speculative or set the horizon to 1)")
             self.spec_bits, self.spec_k = int(bits), int(k)
-        # a tied PSI table's head is transposed here, once, on the device
-        self.params = self.model.serving_params(params_to(params,
-                                                          self.device))
+        self._share = None
+        self.mesh_size = 1
+        self.n_slot_shards, self.n_block_shards = 1, 1
+        self.slot_shards = np.zeros((max_batch,), np.int64)
+        self.block_shards = (np.zeros((self.n_blocks,), np.int64)
+                             if self.paged else None)
+        self.local_batch, self._local_blocks = max_batch, self.n_blocks
+        self.local_cfg = cfg            # this rank's share of the model
+        self.monitor = None
+        if mesh is None:
+            self.model = build_model(cfg)
+            # a tied PSI table's head is transposed here, once, on the device
+            self.params = self.model.serving_params(params_to(params,
+                                                              self.device))
+        else:
+            self._place_on_mesh(cfg, params, mesh)
         # derived on the device from the placed codes: one copy, no host trip
         self.draft_params = (
             quantizer.draft_param_tree(self.params, self.spec_bits)
             if self.speculative is not None else None)
         self.prefill_calls = 0          # model forwards over a prompt batch
         self.prefill_headless = 0       # ... of them without the lm-head
-        B, dev = max_batch, self.device
+        B, dev = self.local_batch, self.device
         self._cache = None
         # the decode graphs' fixed inputs: rows token, pos, active (0/1)
         # and remaining budget per slot; the EOS id; the block table
@@ -255,7 +294,136 @@ class Executor:
         self.carry = {"token": self._inp[0].view(B, 1),
                       "pos": self._inp[1].view(B, 1),
                       "active": self._inp[2], "remaining": self._inp[3]}
-        self._graphs = {}               # name -> (CUDAGraph, launches)
+        self._graphs = {}       # name -> (CUDAGraph, launches, collectives)
+        self._drafts_out = None         # the last gathered drafts (mesh)
+
+    def _place_on_mesh(self, cfg, params, mesh) -> None:
+        """This rank's share of params and cache on ``mesh``; the shard
+        maps the scheduler partitions over."""
+        share = parallel.MeshShare(cfg, mesh, self.max_batch,
+                                   self.n_blocks if self.paged else None)
+        if share.tp and self.speculative is not None:
+            raise NotImplementedError(
+                "speculative decoding with tensor parallelism is not ported "
+                "yet (ROADMAP queue 1, item 6); use a model axis of 1")
+        self._share = share
+        self._given_params = params
+        self.mesh_size = share.size
+        self.n_slot_shards = share.n_slot_shards
+        self.slot_shards = share.slot_shards
+        self.n_block_shards = share.n_block_shards
+        if self.paged:
+            self.block_shards = share.block_shards
+        self.local_batch = share.local_batch
+        self._local_blocks = share.local_blocks
+        self.local_cfg = share.local_cfg(cfg)
+        self.model = build_model(self.local_cfg)
+        specs = shr.param_specs(params, cfg, mesh, mode="serve")
+        local = shr.local_shard_tree(params, specs, mesh, share.coord)
+        local = self.model.serving_params(params_to(local, self.device))
+        self.params = share.wrap_tp(cfg, local, specs)
+        self._check_cache_layout(cfg, mesh)
+        if share.size > 1:
+            self.monitor = StragglerMonitor(n_hosts=share.size)
+
+    def _check_cache_layout(self, cfg, mesh) -> None:
+        """The local cache must be :func:`sharding.local_shard` of the
+        global cache's specs (a paged pool plus its local scratch blocks);
+        a layout the port does not compute (a KV ring split over a mesh
+        axis) is refused here."""
+        B, share = self.max_batch, self._share
+        glob = build_model(cfg).init_cache(
+            B, self.max_seq, device="meta",
+            block_size=self.block_size or None,
+            n_blocks=self.n_blocks if self.paged else None,
+            layout=self.layout)
+        mine = self.model.init_cache(
+            self.local_batch, self.max_seq, device="meta",
+            block_size=self.block_size or None,
+            n_blocks=self._local_blocks if self.paged else None,
+            layout=self.layout)
+        specs = shr.cache_specs(cfg, mesh, glob)
+        pairs = [(f"{i}/{k}", t, layer_s[k], mine.kv[i][k])
+                 for i, (layer, layer_s) in enumerate(zip(glob.kv, specs.kv))
+                 for k, t in layer.items()]
+        if glob.enc_out is not None:
+            pairs.append(("enc_out", glob.enc_out, specs.enc_out,
+                          mine.enc_out))
+        for name, t, spec, loc in pairs:
+            want = tuple(shr.local_shard(t, spec, mesh, share.coord).shape)
+            got = tuple(loc.shape)
+            if self.paged and self.n_block_shards > 1:
+                got = (got[0] - self.local_batch,) + got[1:]
+            if want != got:
+                raise NotImplementedError(
+                    f"cache leaf {name}: spec {spec} gives this rank "
+                    f"{want}, the port computes {got}: that layout is not "
+                    f"ported (ROADMAP queue 1, item 6)")
+
+    # ------------------------------------------------------------ elastic
+    @classmethod
+    def from_devices(cls, cfg, params, *, max_batch: int, max_seq: int,
+                     devices=None, model_parallel: int = 1, pods=None,
+                     **kwargs):
+        """Build on the largest valid (data, model) mesh over the ranks
+        ``devices`` (default every rank of the process group), from
+        :func:`elastic.plan_remesh`.  Every rank of the group calls it; a
+        rank the plan leaves out (a hot spare) gets None."""
+        import torch.distributed as dist
+        ranks = (list(devices) if devices is not None
+                 else list(range(dist.get_world_size())))
+        plan = plan_remesh(len(ranks), model_parallel, pods=pods)
+        mesh = make_mesh_from_plan(plan, ranks)
+        if mesh.get_coordinate() is None:
+            return None
+        return cls(cfg, params, max_batch=max_batch, max_seq=max_seq,
+                   mesh=mesh, **kwargs)
+
+    def mesh_ranks(self) -> list:
+        return [] if self._share is None else list(self._share.ranks)
+
+    def remesh(self, devices=None, model_parallel: int = None):
+        """Rebuild this executor on the ranks ``devices`` (default this
+        mesh's ranks) with the plan of :func:`elastic.plan_remesh`: the
+        params are cut anew (resharding is the load path).  A plan that
+        matches the mesh on the same ranks in the same order returns self;
+        a survivor set with a swapped rank rebuilds.  The rebuild keeps
+        ``n_blocks``, ``speculative`` and ``decode_horizon``.  Every rank
+        of the mesh and of ``devices`` calls it; a rank the new plan drops
+        gets None."""
+        if self._share is None:
+            raise ValueError("remesh needs an executor built on a mesh")
+        axes = self._share.axes
+        ranks = list(devices) if devices is not None else self.mesh_ranks()
+        mp = (model_parallel if model_parallel is not None
+              else axes.get("model", 1))
+        plan = plan_remesh(len(ranks), mp, pods=axes.get("pod", None))
+        if (plan.shape == tuple(axes.values())
+                and plan.axis_names == tuple(axes)
+                and [int(r) for r in ranks[:plan.n_devices]]
+                == self.mesh_ranks()):
+            return self
+        mesh = make_mesh_from_plan(plan, ranks)
+        if mesh.get_coordinate() is None:
+            return None
+        return Executor(self.cfg, self._given_params,
+                        max_batch=self.max_batch, max_seq=self.max_seq,
+                        device=self.device, mesh=mesh,
+                        n_blocks=self.n_blocks if self.paged else None,
+                        speculative=self.speculative,
+                        decode_horizon=self.decode_horizon)
+
+    def observe_step(self, step_times):
+        """Feed per-rank step times to the straggler monitor; its report,
+        or None in a single process."""
+        if self.monitor is None:
+            return None
+        return self.monitor.observe(step_times)
+
+    def agree_time(self, t: float) -> float:
+        """Rank 0's clock reading ``t`` on every rank of the mesh (``t``
+        itself without one): the serve loop admits on it."""
+        return t if self._share is None else self._share.agree_time(t)
 
     def _t(self, a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
@@ -268,9 +436,9 @@ class Executor:
         it never moves."""
         if self._cache is None:
             self._cache = self.model.init_cache(
-                self.max_batch, self.max_seq, device=self.device,
+                self.local_batch, self.max_seq, device=self.device,
                 block_size=self.block_size or None,
-                n_blocks=self.n_blocks if self.paged else None,
+                n_blocks=self._local_blocks if self.paged else None,
                 layout=self.layout)
         else:
             for layer in self._cache.kv:
@@ -287,6 +455,10 @@ class Executor:
         if not self.paged:
             raise ValueError("DeviceBlockTable mirrors the paged layout's "
                              "block table; this executor is dense")
+        if self._share is not None:
+            sh = self._share
+            return DeviceBlockTable(self._bt, self.max_batch, sh.row0,
+                                    sh.local_block_ids)
         return DeviceBlockTable(self._bt)
 
     def graph_counts(self) -> dict:
@@ -317,9 +489,12 @@ class Executor:
         keys = ("token", "pos", "active", "remaining")
         if all(v is self.carry[k] for v, k in zip(vals, keys)):
             return
-        rows = np.zeros((4, self.max_batch), np.int32)
+        rows = np.zeros((4, self.local_batch), np.int32)
         for i, v in enumerate(vals):
-            rows[i] = _host_array(v).reshape(-1)
+            v = _host_array(v).reshape(-1)
+            if self._share is not None and v.size == self.max_batch:
+                v = self._share.local_rows(v)
+            rows[i] = v
         if self._rows is not None and np.array_equal(rows, self._rows):
             return
         self._inp_upload.host()[...] = rows
@@ -347,7 +522,7 @@ class Executor:
 
     # -------------------------------------------------------------- graphs
     def _batch(self) -> dict:
-        B = self.max_batch
+        B = self.local_batch
         return {"token": self._inp[0].view(B, 1),
                 "pos": self._inp[1].view(B, 1),
                 "active": self._inp[2] != 0, "block_table": self._bt}
@@ -405,9 +580,11 @@ class Executor:
             return
         if name not in self._graphs:
             self._graphs[name] = self._capture(body)
-        graph, launches = self._graphs[name]
+        graph, launches, colls = self._graphs[name]
         graph.replay()
         ops.add_launches(launches)
+        if colls:
+            parallel.add_collectives(colls)
 
     def _capture(self, body):
         """Capture ``body`` into a CUDA graph over the fixed buffers.  One
@@ -427,13 +604,18 @@ class Executor:
         stream.wait_stream(side)
         self._inp.copy_(saved)
         before = ops.launch_counts()
+        cbefore = parallel.collective_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             body()
         after = ops.launch_counts()
         launches = {k: after[k] - before[k] for k in after}
         ops.add_launches({k: -n for k, n in launches.items()})
-        return graph, launches
+        cafter = parallel.collective_counts()
+        colls = {k: cafter[k] - cbefore[k] for k in cafter
+                 if cafter[k] != cbefore[k]}
+        parallel.add_collectives({k: -n for k, n in colls.items()})
+        return graph, launches, colls
 
     # --------------------------------------------------------- entry points
     @torch.inference_mode()
@@ -459,6 +641,16 @@ class Executor:
             return None, cache
         return torch.argmax(logits, -1).to(torch.int32), cache
 
+    def _gather_slot_token(self, first, slot: int) -> torch.Tensor:
+        """On a mesh: the slot owner's first token, (1,), on every rank
+        (the owner puts it in its row of a (local_batch,) gather)."""
+        share = self._share
+        vec = torch.zeros((self.local_batch,), dtype=torch.int32,
+                          device=self.device)
+        if first is not None:
+            vec[int(slot) - share.row0] = first[0]
+        return share.gather(vec)[int(slot):int(slot) + 1]
+
     @torch.inference_mode()
     def prefill_insert(self, tokens, true_lens, cache, slot: int,
                        block_row=None, ctx_ids=None, emit: bool = True):
@@ -475,6 +667,25 @@ class Executor:
         if ctx_ids is None and not emit:
             raise ValueError("emit=False is for a chunk of the context "
                              "path: pass ctx_ids (possibly empty)")
+        share = self._share
+        if share is not None:
+            # only the slot's shard computes; every rank gets its token
+            first = None
+            if share.owns(slot):
+                first, cache = self._prefill_insert_local(
+                    tokens, true_lens, cache, int(slot) - share.row0,
+                    None if block_row is None
+                    else share.local_block_ids(block_row),
+                    None if ctx_ids is None
+                    else share.local_block_ids(ctx_ids), emit)
+            if not emit:
+                return None, cache
+            return self._gather_slot_token(first, slot), cache
+        return self._prefill_insert_local(tokens, true_lens, cache, slot,
+                                          block_row, ctx_ids, emit)
+
+    def _prefill_insert_local(self, tokens, true_lens, cache, slot,
+                              block_row, ctx_ids, emit):
         if not self.paged:
             if ctx_ids is not None:
                 raise ValueError("prefix context is gathered from a paged "
@@ -506,15 +717,59 @@ class Executor:
         self._check_pool(cache)
         if self.paged and block_rows is None:
             raise ValueError("a paged burst insert needs block_rows")
+        share = self._share
         for i, (slot, ok) in enumerate(zip(np.asarray(slots),
                                            np.asarray(valid))):
             if not ok:
                 continue
+            if share is not None:
+                # ``seq_cache`` holds this rank's rows of the burst only
+                slot = int(slot) - share.row0
             row = self.model.slice_cache(seq_cache, i)
-            cache = self.model.insert_cache(
-                cache, row, int(slot),
-                self._t(block_rows[i], torch.int64) if self.paged else None)
+            brow = None
+            if self.paged:
+                brow = (block_rows[i] if share is None
+                        else share.local_block_ids(block_rows[i]))
+                brow = self._t(brow, torch.int64)
+            cache = self.model.insert_cache(cache, row, int(slot), brow)
         return cache
+
+    @torch.inference_mode()
+    def prefill_burst(self, tokens, true_lens, slots, cache, row_lens=None,
+                      block_rows=None):
+        """A burst admission: one prefill forward over ``tokens`` (Bb, Sb)
+        and the insert of row i into slot ``slots[i]`` (paged: into the
+        blocks of ``block_rows[i]``).  Returns (first greedy tokens (Bb,)
+        ndarray, cache).  On a mesh each rank prefills only the rows of its
+        own slots (none: no forward), and the first tokens are gathered."""
+        share = self._share
+        if share is None:
+            first, seq_cache = self.prefill(tokens, true_lens,
+                                            row_lens=row_lens)
+            first = first.cpu().numpy()
+            cache = self.insert_burst(cache, seq_cache, slots,
+                                      np.ones(len(slots), bool),
+                                      block_rows=block_rows)
+            return first, cache
+        self._check_pool(cache)
+        mine = [i for i, s in enumerate(slots) if share.owns(s)]
+        vec = torch.zeros((self.local_batch,), dtype=torch.int32,
+                          device=self.device)
+        if mine:
+            idx = np.asarray(mine)
+            first, seq_cache = self.prefill(
+                np.asarray(tokens)[idx], np.asarray(true_lens)[idx],
+                row_lens=(None if row_lens is None
+                          else [row_lens[i] for i in mine]))
+            loc = [int(slots[i]) for i in mine]
+            cache = self.insert_burst(
+                cache, seq_cache, loc, np.ones(len(mine), bool),
+                block_rows=(None if block_rows is None
+                            else np.asarray(block_rows)[idx]))
+            vec[torch.as_tensor([s - share.row0 for s in loc],
+                                device=self.device)] = first
+        got = share.gather(vec).cpu().numpy()
+        return got[np.asarray(slots)], cache
 
     @torch.inference_mode()
     def decode(self, token, pos, active, cache, block_table=None):
@@ -526,6 +781,8 @@ class Executor:
         self._put(token, pos, active, 0)
         self._table(block_table)
         self._run("decode", self._decode_body)
+        if self._share is not None:
+            return self._share.gather(self._next), cache
         return self._next.clone(), cache
 
     @torch.inference_mode()
@@ -552,7 +809,9 @@ class Executor:
         self._table(block_table)
         self._run("decode_multi", self._multi_body)
         self._rows = None                 # the round moved the rows on
-        return RoundTokens(self._toks), self.carry, cache
+        toks = (self._toks if self._share is None
+                else self._share.gather(self._toks, dim=1))
+        return RoundTokens(toks), self.carry, cache
 
     def _need_spec(self) -> None:
         if self.speculative is None:
@@ -570,6 +829,9 @@ class Executor:
         self._put(token, pos, active, 0)
         self._table(block_table)
         self._run("draft", self._draft_body)
+        if self._share is not None:
+            self._drafts_out = self._share.gather(self._drafts)
+            return RoundTokens(self._drafts_out), cache
         return RoundTokens(self._drafts), cache
 
     @torch.inference_mode()
@@ -582,12 +844,18 @@ class Executor:
         the target's greedy token after ``[token, drafts[:, :j]]``."""
         self._need_spec()
         self._check_pool(cache)
+        share = self._share
         if not (isinstance(drafts, RoundTokens)
-                and drafts.source is self._drafts):
+                and drafts.source is (self._drafts if share is None
+                                      else self._drafts_out)):
             if not isinstance(drafts, torch.Tensor):
                 drafts = torch.from_numpy(np.asarray(drafts, np.int32))
+            if share is not None:
+                drafts = drafts[share.row0:share.row0 + self.local_batch]
             self._drafts.copy_(drafts.reshape(self._drafts.shape))
         self._put(token, pos0, active, 0)
         self._table(block_table)
         self._run("verify", self._verify_body)
+        if share is not None:
+            return RoundTokens(share.gather(self._verdicts)), cache
         return RoundTokens(self._verdicts), cache

@@ -1949,3 +1949,54 @@ def test_cnn_forward_card_matches_cpu(no_tf32, net, batch, mode):
     assert got.shape == (batch, base.n_classes)
     assert float((got - want).abs().max()) <= 1e-4 * float(
         want.abs().max())
+
+
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_mesh_server_world1_nccl_matches_single(cuda, tmp_path, layout):
+    """A Server on a (1, 1) mesh of a world-1 NCCL process group (what
+    chip_smoke.py's serve_psi8_mesh runs at full width): tokens identical
+    to the same params without a mesh, one slot shard, token all-gathers
+    issued on the card, the decode graph captured once; the roofline
+    stats read the card's power limit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import parallel
+    cfg = reduced_config(get_config("qwen3-8b"), quant_mode="psi8",
+                         cache_layout=layout, dtype="bfloat16")
+    params = build_model(cfg).init(seed=0, device=cuda, bits=8)
+    plain = serve.Server(cfg, params, max_batch=4, max_seq=64, device=cuda)
+    trace = lambda: scheduler.poisson_trace(  # noqa: E731
+        6, rate_rps=1e9, prompt_len=12, max_new=8, vocab_size=256, seed=3,
+        prompt_jitter=4)
+    want, _ = plain.serve(trace())
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        server = serve.Server(cfg, params, max_batch=4, max_seq=64,
+                              device=cuda, mesh=mesh)
+        parallel.reset_collective_counts()
+        got, st = server.serve(trace())
+        assert ({r.rid: r.tokens for r in got}
+                == {r.rid: r.tokens for r in want})
+        assert st["slot_shards"] == 1 and st["decode_compiles"] == 1
+        assert parallel.collective_counts()["all_gather"] >= st[
+            "decode_steps"] > 0
+        assert st["watts"] > 0 and st["tokens_per_joule"] > 0
+        assert st["mfu"] > 0
+    finally:
+        dist.destroy_process_group()
+
+
+def test_card_power_limit_by_uuid(cuda):
+    """A CUDA Server's default board power: the limit nvidia-smi reports
+    for this process's card, asked for by the card's UUID (the same
+    physical card whatever CUDA_VISIBLE_DEVICES says)."""
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=uuid,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    limits = dict(line.split(", ") for line in out.stdout.strip().splitlines())
+    uuid = serve.card_uuid(torch.device(cuda))
+    assert uuid in limits, (uuid, limits)
+    assert serve.card_power_limit(uuid) == float(limits[uuid].split()[0])
