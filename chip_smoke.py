@@ -9,8 +9,9 @@ full-width qwen3-8b (on the paged pool and on the dense slab),
 phi3-medium-14b, granite-34b, chatglm3-6b, qwen3-moe-30b-a3b, qwen2-vl-2b,
 recurrentgemma-9b, falcon-mamba-7b and whisper-base from PSI codes through
 them, and compares the card with the CPU; then trains qwen3-8b at full
-width on 4 layers and serves the result, and runs the paper's networks
-(AlexNet, LeNet-5).  Phases, each
+width on 4 layers and serves the result, trains it through the sharded
+step on a one-card mesh, and runs the paper's networks (AlexNet,
+LeNet-5).  Phases, each
 printing one JSON line; any failure exits non-zero before the result line:
 
   1. card and build    — nvidia-smi name and power limit, kernel build time;
@@ -178,6 +179,18 @@ printing one JSON line; any failure exits non-zero before the result line:
                          tokens for 4 prompts served on the paged pool
                          through kernels 1 and 3 (exact launch counts,
                          added to the kernels line);
+  5b'. sharded training (train_mesh) — the same 4-layer qat8 cell through
+                         the sharded step (params, m and v on the training
+                         specs, gathered on use, gradients reduce-scattered)
+                         on a (1, 1) mesh of a world-1 NCCL group against
+                         the plain step, 2 steps each from the same params
+                         and batches: losses and every leaf bit-equal;
+                         each step's device ms and the peak memory of
+                         each; a one-rank all-gather / reduce-scatter's
+                         GB/s against a clone; the dry run's resident bytes
+                         of the cell against its tensors'; pipeline_apply
+                         on one stage against the layer loop; the dry run
+                         of qwen3-8b's shapes on the (16, 16) mesh;
   5c. resume (train_resume) — reduced qwen3-8b: 6 steps against 3, a
                          checkpoint and 3 more in a fresh trainer (bit for
                          bit under deterministic algorithms), and against
@@ -273,6 +286,11 @@ TRAIN_LAYERS = 4
 TRAIN_STEPS = 8
 TRAIN_COMPRESS_STEPS = 2
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
+# train_mesh: the sharded step on a (1, 1) mesh against the plain step,
+# this many steps each from the same params and batches
+MESH_TRAIN_STEPS = 2
+# pipeline_apply on a one-stage mesh: layers, microbatches, rows, width
+PIPE_L, PIPE_M, PIPE_MB, PIPE_D = 8, 6, 64, 1024
 GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW = 4, 64, 8
 # the psi8 forward against the QAT forward of the same trained weights:
 # psi8 also quantizes the embedding table (per row; ~0.8 % rms noise on
@@ -473,6 +491,7 @@ def main():
         phase_serve(torch, dev, launches, quant, arch)
     phase_card_vs_cpu(torch, dev)
     phase_train(torch, dev, launches)
+    phase_train_mesh(torch, dev)
     phase_train_resume(torch, dev)
     phase_cnn(torch, dev)
 
@@ -3574,6 +3593,225 @@ def _train_split(torch, cfg, params, dev, reps=3):
     del state
     _free(torch)
     return {k: round(statistics.median(v), 3) for k, v in parts.items()}
+
+
+def phase_train_mesh(torch, dev):
+    """train_mesh: the sharded train step (``runtime.fsdp.TrainShare``,
+    ``launch.train.make_sharded_train_step``: params, m and v on the
+    training specs, gathered on use, gradients reduce-scattered back) on a
+    (1, 1) ("data", "model") mesh of a world-1 NCCL group, against the
+    plain ``make_train_step``: qwen3-8b at full width on TRAIN_LAYERS
+    layers, qat8, batch TRAIN_BATCH x TRAIN_SEQ, MESH_TRAIN_STEPS steps
+    each from the same params (``Model.init`` seed 0, drawn twice) and
+    batches, under deterministic algorithms (the embedding's backward
+    would otherwise add with atomics).  Every collective of a one-rank
+    group is a copy, so the losses and every leaf of params, m and v must
+    be equal bit for bit; otherwise the largest difference is printed and
+    the phase fails.  Prints each step's device ms (CUDA events) beside
+    the plain step's, the peak memory of each run and the collectives the
+    sharded steps issued; the dry run's resident bytes of this cell on an
+    ``AxisMesh((1, 1))`` (f32 params, as the trainer holds them) against
+    the bytes the phase's params, m, v and batch hold; ``pipeline_apply``
+    on a one-stage mesh on the card against the plain layer loop; and the
+    dry run of qwen3-8b's four shapes on the (16, 16) production mesh
+    (host only)."""
+    import shutil
+    import tempfile
+    import warnings
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.core.quantizer import tree_leaves, tree_map
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as tr
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import parallel, sharding as shr
+    from repro_torch.runtime.fsdp import TrainShare
+    from repro_torch.runtime.pipeline_par import pipeline_apply
+    t_phase = time.perf_counter()
+    _free(torch)
+    cfg = dataclasses.replace(get_config(MAIN_ARCH), quant_mode="qat8",
+                              n_layers=TRAIN_LAYERS)
+    _full_width(cfg, MAIN_ARCH)
+    model = build_model(cfg)
+    opt = adamw(lr=3e-4)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{"tokens": torch.as_tensor(next(stream), device=dev)}
+               for _ in range(MESH_TRAIN_STEPS)]
+
+    def timed(fn, *args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*args)
+        ev[1].record()
+        ev[1].synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    det = torch.are_deterministic_algorithms_enabled()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
+    check(not dist.is_initialized(), "a process group is already up")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            # the plain step; its results wait on the host
+            torch.cuda.reset_peak_memory_stats()
+            params = model.init(0, dev)
+            n_params = sum(t.numel() for t in tree_leaves(params))
+            st = opt.init(params)
+            step = tr.make_train_step(model, opt)
+            plain = []
+            for b in batches:
+                (params, st, _, met), ms = timed(step, params, st, {}, b)
+                plain.append({"loss": float(met["loss"]),
+                              "grad_norm": float(met["grad_norm"]),
+                              "device_ms": round(ms, 3)})
+            peak_plain = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            want = tree_map(lambda t: t.detach().cpu(),
+                            {"params": params, "m": st.m, "v": st.v})
+            d2h_s = time.perf_counter() - t0
+            del params, st, step, met
+            _free(torch)
+
+            # the sharded step on a (1, 1) mesh of a world-1 NCCL group
+            dist.init_process_group("nccl",
+                                    store=dist.FileStore(f"{tmp}/store", 1),
+                                    rank=0, world_size=1)
+            backend = str(dist.get_backend())
+            mesh = make_mesh((1, 1), ("data", "model"))
+            torch.cuda.reset_peak_memory_stats()
+            params = model.init(0, dev)
+            share = TrainShare(cfg, mesh, params)
+            local = share.place(params)
+            del params
+            st = opt.init(local)
+            step = tr.make_sharded_train_step(model, opt, share)
+            parallel.reset_collective_counts()
+            sharded = []
+            for b in batches:
+                lb = share.local_batch(b)
+                (local, st, met), ms = timed(step, local, st, lb)
+                sharded.append({"loss": float(met["loss"]),
+                                "grad_norm": float(met["grad_norm"]),
+                                "device_ms": round(ms, 3)})
+            colls = parallel.collective_counts()
+            peak_mesh = torch.cuda.max_memory_allocated()
+            del met
+            # what a one-rank NCCL collective costs: the GB/s of an
+            # all-gather and a reduce-scatter of the largest leaf (the
+            # embedding table) against a clone of it
+            emb = local["embed"].detach()
+            rates = {}
+            for name, fn in (
+                    ("clone", lambda: emb.clone()),
+                    ("all_gather", lambda: parallel.all_gather(
+                        emb, mesh.flat_group)),
+                    ("reduce_scatter", lambda: parallel.reduce_scatter(
+                        torch.empty_like(emb), [emb], mesh.flat_group))):
+                fn()
+                _, ms = timed(fn)
+                rates[name] = round(2 * emb.numel() * emb.element_size()
+                                    / (ms * 1e-3) / 1e9, 1)
+            del emb
+
+            # bit for bit against the plain step
+            got = {"params": local, "m": st.m, "v": st.v}
+            t0 = time.perf_counter()
+            diff, n_diff = 0.0, 0
+            for kind in ("params", "m", "v"):
+                for g, w in zip(tree_leaves(got[kind]),
+                                tree_leaves(want[kind])):
+                    w = w.to(dev)
+                    if not torch.equal(g.detach(), w):
+                        n_diff += 1
+                        diff = max(diff, float((g.detach() - w).abs().max()))
+                    del w
+            cmp_s = time.perf_counter() - t0
+            del want
+            same_loss = ([r["loss"] for r in sharded]
+                         == [r["loss"] for r in plain])
+            check(same_loss and n_diff == 0,
+                  f"train_mesh: the (1, 1) sharded step differs from the "
+                  f"plain one: losses {[r['loss'] for r in sharded]} vs "
+                  f"{[r['loss'] for r in plain]}, {n_diff} leaves differ, "
+                  f"largest difference {diff}")
+
+            # the dry run of this cell against the bytes its tensors hold
+            held = {"params": sum(t.numel() * t.element_size()
+                                  for t in tree_leaves(local)),
+                    "opt": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(st.m)
+                               + tree_leaves(st.v)),
+                    "batch": sum(t.numel() * t.element_size()
+                                 for t in lb.values())}
+            cell = ShapeConfig("train_8x128", TRAIN_SEQ, TRAIN_BATCH, "train")
+            amesh = shr.AxisMesh((1, 1), ("data", "model"))
+            report = dryrun.resident_bytes(dryrun.place_cell(
+                cfg, cell, amesh, param_dtype=torch.float32), amesh)
+            check(report == held, f"train_mesh: dry-run bytes {report} != "
+                                  f"the tensors' {held}")
+            del local, st, step, share, lb
+            _free(torch)
+
+            # pipeline_apply on a one-stage mesh against the layer loop
+            smesh = make_mesh((1,), ("stage",))
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            ws = torch.randn((PIPE_L, PIPE_D, PIPE_D), generator=gen,
+                             device=dev) * PIPE_D ** -0.5
+            xs = torch.randn((PIPE_M, PIPE_MB, PIPE_D), generator=gen,
+                             device=dev)
+            layer = lambda w, x: torch.tanh(x @ w)
+            parallel.reset_collective_counts()
+            (pipe, pipe_ms) = timed(pipeline_apply, layer, ws, xs, smesh)
+            pipe_colls = sum(parallel.collective_counts().values())
+            # the layer loop a microbatch at a time (a (M x mb)-row product
+            # would take another GEMM algorithm and round otherwise)
+            loop = []
+            for x in xs:
+                for w in ws:
+                    x = torch.tanh(x @ w)
+                loop.append(x)
+            loop = torch.stack(loop)
+            pipe_err = float((pipe - loop).abs().max())
+            check(pipe_err == 0.0 and pipe_colls == 0,
+                  f"train_mesh: one-stage pipeline differs from the layer "
+                  f"loop by {pipe_err} ({pipe_colls} collectives)")
+            del ws, xs, pipe, loop
+        finally:
+            torch.use_deterministic_algorithms(det)
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            shutil.rmtree(tmp, ignore_errors=True)
+    _free(torch)
+
+    # the production mesh's report for qwen3-8b (meta tensors, host only)
+    prod = {}
+    for name in SHAPES:
+        r = dryrun.run_cell(MAIN_ARCH, name, verbose=False)
+        prod[name] = r if "skipped" in r else {
+            k: r[k] for k in ("resident_bytes_per_dev",
+                              "memory_per_device_bytes", "fits_hbm_80g",
+                              "bottleneck", "bound_s", "place_s")}
+    emit({"phase": "train_mesh", "mesh": [1, 1],
+          "backend": backend, "layers": TRAIN_LAYERS, "params": n_params,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "quant": "qat8",
+          "plain_steps": plain, "sharded_steps": sharded,
+          "bit_equal": True, "collectives": colls,
+          "peak_mem_plain_gb": round(peak_plain / 1e9, 3),
+          "peak_mem_sharded_gb": round(peak_mesh / 1e9, 3),
+          "one_rank_copy_gb_per_s": rates,
+          "host_copy_s": round(d2h_s, 3), "compare_s": round(cmp_s, 3),
+          "dryrun_cell_bytes": report, "tensor_bytes": held,
+          "pipeline_one_stage": {"layers": PIPE_L, "microbatches": PIPE_M,
+                                 "rows": PIPE_MB, "width": PIPE_D,
+                                 "device_ms": round(pipe_ms, 3),
+                                 "max_abs_err": pipe_err},
+          "dryrun_qwen3_8b_16x16": prod,
+          "phase_s": round(time.perf_counter() - t_phase, 3)})
 
 
 def phase_train_resume(torch, dev):

@@ -132,15 +132,32 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Dict, extra: Optional[Dict] = None,
-             blocking: bool = True) -> None:
+             blocking: bool = True, shardings=None) -> None:
         """Write ``tree`` (tensors, QuantizedTensors, numpy arrays or
         scalars in nested dicts / lists / tuples) and the JSON-able
         ``extra`` as step ``step``; with ``blocking=False`` the leaves are
-        copied to the host here and written on a background thread."""
+        copied to the host here and written on a background thread.
+
+        ``shardings`` = (spec tree, mesh): ``tree`` holds this rank's
+        chunks.  Every rank of the mesh calls ``save``; the chunks are
+        gathered into the global tree and the mesh's first rank writes it
+        (the format is the single process's); blocking, every rank
+        returns once the checkpoint is on disk."""
+        mesh = None
+        if shardings is not None:
+            from repro_torch.runtime import fsdp, sharding
+            specs, mesh = shardings
+            tree = fsdp.gather_tree(tree, specs, mesh)
+            if any(sharding.mesh_coordinate(mesh).values()):
+                if blocking:
+                    _barrier(mesh)
+                return
         flat = _flatten(tree)
         self.wait()
         if blocking:
             self._write(step, flat, extra or {})
+            if mesh is not None:
+                _barrier(mesh)
         else:
             self._thread = threading.Thread(
                 target=self._write, args=(step, flat, extra or {}),
@@ -199,11 +216,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, device=None):
+    def restore(self, step: Optional[int] = None, device=None,
+                shardings=None):
         """Returns (tree, extra): the latest step (or ``step``), every
         array a tensor (bf16 where the dtype name says so) on ``device``,
         the host when None; ``@psi`` records come back as
-        QuantizedTensors."""
+        QuantizedTensors.  ``shardings`` = (spec tree structure-equal to
+        the checkpoint's, mesh): each leaf is cut to this rank's chunk
+        (``sharding.local_shard``) before it moves to ``device``, onto
+        whatever mesh the job runs now (the elastic restart path)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -212,8 +233,28 @@ class CheckpointManager:
             manifest = json.load(f)
         with open(os.path.join(d, "arrays.bin"), "rb") as f:
             data = f.read()
-        flat = {}
-        for name, meta in manifest["arrays"].items():
-            t = _from_bytes(data, meta)
-            flat[name] = t if device is None else t.to(device)
-        return _unflatten(flat), manifest["extra"]
+        tree = _unflatten({name: _from_bytes(data, meta)
+                           for name, meta in manifest["arrays"].items()})
+        if shardings is not None:
+            from repro_torch.runtime import sharding
+            specs, mesh = shardings
+            tree = sharding.local_shard_tree(tree, specs, mesh)
+        if device is not None:
+            tree = _to_device(tree, device)
+        return tree, manifest["extra"]
+
+
+def _to_device(tree, device):
+    """Every tensor (and QuantizedTensor) of a nested tree on ``device``."""
+    if isinstance(tree, (torch.Tensor, QuantizedTensor)):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
+
+
+def _barrier(mesh) -> None:
+    import torch.distributed as dist
+    dist.barrier(group=mesh.flat_group)

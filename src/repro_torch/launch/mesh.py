@@ -11,6 +11,8 @@ model; multi-pod adds the leading "pod" axis (2 pods = 512 cards).
 """
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 
 
@@ -54,6 +56,22 @@ def make_mesh(shape, axes, ranks=None):
         mesh.host_group = (mesh.flat_group
                            if str(dist.get_backend()).lower() == "gloo"
                            else dist.new_group(ranks[:n], backend="gloo"))
+    # the groups over two or more axes but not all of them (a 3-axis mesh's
+    # ("pod", "data") and the like), which sharded training gathers and
+    # reduces over: each rank keeps the group of ranks that share its
+    # coordinates on the other axes (one axis: ``get_group``; all of them:
+    # ``flat_group``)
+    mesh.axis_groups = {}
+    names = tuple(axes)
+    for k in range(2, len(names)):
+        for sub in itertools.combinations(range(len(names)), k):
+            rest = [d for d in range(len(names)) if d not in sub]
+            lines = grid.permute(*rest, *sub).reshape(
+                -1, int(np.prod([shape[d] for d in sub])))
+            for line in lines.tolist():
+                g = dist.new_group(line)
+                if dist.get_rank() in line:
+                    mesh.axis_groups[tuple(names[d] for d in sub)] = g
     return mesh
 
 

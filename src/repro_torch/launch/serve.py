@@ -268,7 +268,7 @@ class Server:
             raise NotImplementedError(
                 "context serving (--prefix-cache, --slo, --prefill-chunk) "
                 "and --speculative are not ported to a mesh whose slots "
-                "split over ranks yet (ROADMAP queue 1, item 6): a prefix "
+                "split over ranks yet (ROADMAP queue 1, item 5): a prefix "
                 "hit or a restore can cross shards")
         # board power of the tokens-per-joule stat: the card's power
         # limit on a CUDA device unless given, 0 (no figure) on the CPU

@@ -61,6 +61,45 @@ def make_train_step(model, opt, compress: bool = False):
     return train_step
 
 
+def make_sharded_train_step(model, opt, share, compress: bool = False):
+    """The train step on a mesh (``runtime.fsdp.TrainShare``), the twin of
+    the JAX package's dry-run step (params, m and v on the train specs,
+    the batch on ``batch_specs``): ``step(params, opt_state, batch)`` ->
+    (params, opt_state, metrics) with params, ``m`` and ``v`` this rank's
+    chunks and ``batch`` its rows (``share.local_batch``).  The whole
+    params are gathered on use, the loss over the rank's rows is scaled
+    by 1 / mesh size so the gradients that reduce back to each chunk are
+    those of the global mean, ``opt.update`` runs on the chunks with the
+    global norm, in place.  The metrics' losses are global means."""
+    if compress:
+        raise NotImplementedError(
+            "gradient compression on a mesh is not ported (ROADMAP queue 1, "
+            "item 1: the JAX package's sharded step has none)")
+    if model.cfg.family == "moe":
+        from repro_torch.runtime.fsdp import MOE_REFUSAL
+        raise NotImplementedError(MOE_REFUSAL)
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, met = model.loss(share.gather_params(params), batch)
+        got = torch.autograd.grad(loss / share.size, leaves,
+                                  allow_unused=True)
+        it = iter([torch.zeros_like(p) if g is None else g
+                   for p, g in zip(leaves, got)])
+        del got
+        grads = tree_map(lambda _: next(it), params)
+        params, opt_state, om = opt.update(
+            grads, opt_state, params, grad_norm=share.global_norm(grads))
+        del grads
+        metrics = {"loss": share.mean(loss),
+                   **{k: share.mean(v) for k, v in met.items()}, **om}
+        return params, opt_state, metrics
+
+    return train_step
+
+
 def train(cfg, steps: int, ckpt_dir=None, seed: int = 0,
           compress: bool = False, save_every: int = 50, log_every: int = 10,
           batch_size: int = 8, seq_len: int = 128, device=None,

@@ -93,11 +93,13 @@ class adamw:
                           v=tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, grad_norm=None):
         """One step: clip, then the moments and the parameters, in place.
         Returns (params, state, {"grad_norm", "lr"}), the trees those of
-        the arguments."""
-        gn = global_norm(grads)
+        the arguments.  ``grad_norm``: the global norm when the leaves are
+        one rank's chunks (``runtime.fsdp.TrainShare.global_norm``); by
+        default the norm of ``grads``."""
+        gn = global_norm(grads) if grad_norm is None else grad_norm
         scale = _clip_scale(gn, self.clip_norm)
         step = state.step + 1
         lr = _lr_at(self.lr, step)

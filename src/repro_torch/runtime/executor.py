@@ -305,7 +305,7 @@ class Executor:
         if share.tp and self.speculative is not None:
             raise NotImplementedError(
                 "speculative decoding with tensor parallelism is not ported "
-                "yet (ROADMAP queue 1, item 6); use a model axis of 1")
+                "yet (ROADMAP queue 1, item 5); use a model axis of 1")
         self._share = share
         self._given_params = params
         self.mesh_size = share.size
@@ -358,7 +358,7 @@ class Executor:
                 raise NotImplementedError(
                     f"cache leaf {name}: spec {spec} gives this rank "
                     f"{want}, the port computes {got}: that layout is not "
-                    f"ported (ROADMAP queue 1, item 6)")
+                    f"ported (ROADMAP queue 1, item 5)")
 
     # ------------------------------------------------------------ elastic
     @classmethod

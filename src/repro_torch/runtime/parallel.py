@@ -19,7 +19,9 @@ its own heads and FFN channels.  The collectives:
   and an all-gather of the vocab-parallel logits and of a K/V projection
   whose columns cut a head (MQA).
 
-Every collective issued adds one to its count (``collective_counts``); a
+Sharded training (``runtime/fsdp.py``) adds reduce-scatters and the
+pipeline (``runtime/pipeline_par.py``) sends and receives.  Every
+collective issued adds one to its count (``collective_counts``); a
 CUDA-graph replay adds the counts its capture recorded, as the kernels'
 launch counts do.
 """
@@ -33,7 +35,8 @@ import torch
 
 from repro_torch.runtime import sharding as shr
 
-_COUNTS = {"all_gather": 0, "all_reduce": 0, "broadcast": 0}
+_COUNTS = {"all_gather": 0, "all_reduce": 0, "broadcast": 0,
+           "reduce_scatter": 0, "send": 0, "recv": 0}
 
 
 def collective_counts() -> dict:
@@ -72,6 +75,16 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     _dist().all_reduce(t, group=group)
     _COUNTS["all_reduce"] += 1
     return t
+
+
+def reduce_scatter(out: torch.Tensor, chunks: list, group) -> torch.Tensor:
+    """``out`` = the sum over the group's ranks of their ``chunks[i]``,
+    ``i`` this rank's place in the group (``chunks`` in group-rank
+    order)."""
+    _dist().reduce_scatter(out, [c.contiguous() for c in chunks],
+                           group=group)
+    _COUNTS["reduce_scatter"] += 1
+    return out
 
 
 class TPLinear:
@@ -240,7 +253,7 @@ class MeshShare:
         if cfg.family not in ("dense", "vlm"):
             raise NotImplementedError(
                 f"tensor-parallel execution of the {cfg.family!r} family is "
-                f"not ported yet (ROADMAP queue 1, item 6: TP/EP for MoE, "
+                f"not ported yet (ROADMAP queue 1, item 4: TP/EP for MoE, "
                 f"hybrid, SSM and encoder-decoder); serve it on a mesh with "
                 f"a model axis of 1")
         hq, hkv = cfg.n_heads, cfg.n_kv_heads

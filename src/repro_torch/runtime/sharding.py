@@ -486,6 +486,15 @@ def mesh_coordinate(mesh) -> Optional[Dict[str, int]]:
     return dict(zip(mesh_axes(mesh), (int(c) for c in coord)))
 
 
+def mesh_coords(mesh) -> Dict[int, Dict[str, int]]:
+    """Global rank -> its coordinate on ``mesh`` (axis name -> index), for
+    every rank of the mesh."""
+    grid = np.asarray(mesh.mesh.tolist())
+    names = tuple(mesh_axes(mesh))
+    return {int(grid[idx]): dict(zip(names, (int(i) for i in idx)))
+            for idx in np.ndindex(grid.shape)}
+
+
 def shard_index(mesh, axes, coord: Dict[str, int]) -> Tuple[int, int]:
     """(index, count) of the chunk a rank at ``coord`` holds of a dim split
     over ``axes`` (None, one name or a tuple of names): the row-major index

@@ -19,6 +19,9 @@ process computes the references.  Params come from the JAX package
   vocab-parallel table): tokens identical, forward logits within ``ATOL``
   of the single process's (row-parallel partial sums add in another
   order) and of the JAX package's;
+* the same (2, 2) mesh at horizon 4 for a reduced qwen3-moe burst and
+  reduced recurrentgemma: tokens identical to the single process and the
+  JAX Server;
 * ``from_devices`` / ``remesh`` on four ranks, and the refusals (a family
   not yet tensor-parallel, context serving over split slots, a
   ``max_batch`` the data axis does not divide).
@@ -55,6 +58,9 @@ NARROW = dict(d_model=1024, n_layers=2, n_heads=8, head_dim=128, d_ff=2048,
 # arch, bits, kv heads (qwen2-vl: M-RoPE and the tied head, vocab-parallel)
 TP_CASES = {"psi8": ("qwen3-8b", 8, 2), "psi5": ("qwen3-8b", 5, 2),
             "mqa": ("qwen3-8b", 8, 1), "vlm": ("qwen2-vl-2b", 8, 2)}
+
+# the other families served with data parallelism on the (2, 2) mesh
+FAMILY_DP = {"dp_moe": "qwen3-moe-30b-a3b", "dp_rg": "recurrentgemma-9b"}
 
 # prompts / budgets of the JAX package's sharded-serving tests
 SAME_LEN = ([8] * 6, [3, 7, 2, 5, 4, 6])
@@ -130,6 +136,13 @@ if job == "dp":
         out[f"h4_{layout}_cont"] = serve(sh, SPECS["ragged"], cfg.vocab_size)
         out[f"h4_{layout}_static"] = serve(sh, SPECS["ragged"],
                                            cfg.vocab_size, False)
+    # the other families' data parallelism at horizon 4: an MoE burst
+    # (all arrivals at once) and a recurrent-state family (dense slab)
+    for name in ("dp_moe", "dp_rg"):
+        fcfg, fparams = load(name)
+        sf = Server(fcfg, fparams, max_batch=4, max_seq=64, device="cpu",
+                    mesh=mesh, decode_horizon=4)
+        out[f"{name}_h4"] = serve(sf, SPECS["ragged"], fcfg.vocab_size)
     # elastic hooks
     e = Executor.from_devices(cfg, params, max_batch=4, max_seq=32,
                               model_parallel=2, device="cpu", n_blocks=24,
@@ -271,6 +284,10 @@ def runs(tmp_path_factory):
     ref = {}
     dp_cfg, dp_params = _jax_params("qwen3-8b", {}, 8)
     dumps = {"dp": ("qwen3-8b", {"quant_mode": "psi8"}, np_tree(dp_params))}
+    fam = {name: (arch, _jax_params(arch, {}, 8))
+           for name, arch in FAMILY_DP.items()}
+    for name, (arch, (_, fparams)) in fam.items():
+        dumps[name] = (arch, {"quant_mode": "psi8"}, np_tree(fparams))
     tp = {}
     for name, (arch, bits, kv) in TP_CASES.items():
         kw = dict(NARROW, n_kv_heads=kv)
@@ -306,6 +323,14 @@ def runs(tmp_path_factory):
         for cont, mode in ((True, "cont"), (False, "static")):
             ref["dp"][f"port_h4_{layout}_{mode}"] = _port_tokens(
                 tc, tdp, RAGGED, 4, cont, horizon=4)
+    for name, (arch, (fcfg, fparams)) in fam.items():
+        tcfg = tconfigs.reduced_config(tconfigs.get_config(arch),
+                                       quant_mode="psi8")
+        ref[name] = {
+            "jax": _jax_tokens(fcfg, fparams, RAGGED, 4, horizon=4),
+            "port": _port_tokens(tcfg, params_from_numpy(dumps[name][2],
+                                                         device="cpu"),
+                                 RAGGED, 4, horizon=4)}
     spec_tp = specs["ragged_tp"]
     toks = np.stack([np.arange(8) * 7 % 512,
                      np.arange(8) * 3 + 1]).astype(np.int32)
@@ -385,6 +410,23 @@ def test_dp_first_admissions_one_a_shard(runs):
         assert shards == {0, 1, 2, 3}, shards
     assert len({json.dumps(r["same_len"], sort_keys=True)
                 for r in got["dp"]}) == 1
+
+
+@pytest.mark.parametrize("name", list(FAMILY_DP))
+def test_dp_other_families_match(runs, name):
+    """(2, 2) mesh at horizon 4, the slots four shards: a reduced
+    qwen3-moe burst (all six arrivals at once; routing and capacity per
+    forward) and reduced recurrentgemma (RG-LRU state on the dense slab,
+    exact-length prefills): tokens == the port's single process == the
+    JAX Server's."""
+    ref, got, _ = runs
+    assert ref[name]["port"] == ref[name]["jax"]
+    for rank in got["dp"]:
+        res = rank[f"{name}_h4"]
+        assert _rids(res["tokens"]) == ref[name]["jax"]
+        assert res["slot_shards"] == 4
+        assert res["decode_rounds"] > 0
+        assert res["collectives"]["all_gather"] > 0
 
 
 @pytest.mark.parametrize("case", list(TP_CASES))
