@@ -34,7 +34,11 @@ printing one JSON line; any failure exits non-zero before the result line:
                          layouts (4 x 80, 4 x 512, 16 x 2048), qwen3-moe's
                          32/4 and qwen2-vl's 12/2 (G = 6) included
                          (recurrentgemma, falcon-mamba and whisper decode
-                         on the dense slab: no kernel 3);
+                         on the dense slab: no kernel 3); kernels 1-2
+                         also at one rank's weights of falcon-mamba,
+                         qwen3-moe and mixtral on a model axis of 4 (TP /
+                         EP over four cards: kernel_shape_local) and
+                         kernel 3 at their local heads 8/1 and 12/2;
   3. serve psi8        — Server.serve of qwen3-8b, all 36 layers, in
                          continuous and static modes: identical tokens, and
                          253 PSI-matmul (kernel 1) + 36 attention launches
@@ -190,7 +194,9 @@ printing one JSON line; any failure exits non-zero before the result line:
                          GB/s against a clone; the dry run's resident bytes
                          of the cell against its tensors'; pipeline_apply
                          on one stage against the layer loop; the dry run
-                         of qwen3-8b's shapes on the (16, 16) mesh;
+                         of qwen3-8b's shapes on the (16, 16) mesh; then
+                         full-width qwen3-moe-30b-a3b on 2 layers, qat8,
+                         the same pair (its aux loss inside), bit-equal;
   5c. resume (train_resume) — reduced qwen3-8b: 6 steps against 3, a
                          checkpoint and 3 more in a fresh trainer (bit for
                          bit under deterministic algorithms), and against
@@ -250,6 +256,12 @@ MOE_SPEC_K = 3                   # the MoE card-vs-CPU serve's --speculative
 ARCH_MS = (1, 4, 16, 64, 80, 288)
 ARCH_PREFILL_ROWS = 288
 DECODE_M = 4                     # decode rows = max_batch of the serve phase
+# the kernel phase also holds kernels 1-3 at one rank's share of these
+# configs on a model axis of TP_LOCAL_M (expert / tensor parallelism on
+# four cards), kernels 1 and 2 at TP_LOCAL_MS bf16 rows
+TP_LOCAL_M = 4
+TP_LOCAL_ARCHS = ("falcon-mamba-7b", "qwen3-moe-30b-a3b", "mixtral-8x22b")
+TP_LOCAL_MS = (1, 4, 16, 64, 288)
 HORIZON = 8                      # decode steps per round, serve_psi8_horizon
 MESH_PAIRS = 10                  # serve_psi8_mesh's plain / mesh serve pairs
 # serve_psi8_ctx: the bursty trace's seed (its first burst holds two long
@@ -287,8 +299,11 @@ TRAIN_STEPS = 8
 TRAIN_COMPRESS_STEPS = 2
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
 # train_mesh: the sharded step on a (1, 1) mesh against the plain step,
-# this many steps each from the same params and batches
+# this many steps each from the same params and batches; then the MoE
+# step at full width, its depth cut to MOE_TRAIN_LAYERS (all 48 layers'
+# f32 params, gradients and Adam moments, 16 B a parameter, would not fit)
 MESH_TRAIN_STEPS = 2
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "qwen3-moe-30b-a3b", 2
 # pipeline_apply on a one-stage mesh: layers, microbatches, rows, width
 PIPE_L, PIPE_M, PIPE_MB, PIPE_D = 8, 6, 64, 1024
 GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW = 4, 64, 8
@@ -759,6 +774,7 @@ def phase_kernels(torch, dev, bw, peak):
         torch.cuda.empty_cache()
 
     _arch_gemm_rows(torch, dev, bw, peak, gen, max_err)
+    _local_gemm_rows(torch, dev, bw, peak, gen, max_err)
 
     replaces = {"psi_matmul_codes": "src/repro/kernels/psi_matmul.py:153",
                 "psi_matmul_packed": "src/repro/kernels/psi_matmul.py:197"}
@@ -1072,6 +1088,14 @@ def phase_kernels(torch, dev, bw, peak):
                                              row["max_abs_err"])
             emit({"phase": "kernel_paged_attention_time", "arch": arch,
                   **row})
+    # one rank's heads on a model axis of TP_LOCAL_M
+    for arch, hq, hkv in _local_heads():
+        for B, n_pos in ((4, 80), (16, 2048)):
+            row = attn_times(B, n_pos, "bf16", hq, hkv)
+            max_err["paged_attention"] = max(max_err["paged_attention"],
+                                             row["max_abs_err"])
+            emit({"phase": "kernel_paged_attention_time", "arch": arch,
+                  "model_axis": TP_LOCAL_M, **row})
     out["paged_attention"] = {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -1284,6 +1308,96 @@ def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
                   "bits": bits, "launches_per_decode_step":
                   counts_per_step(cfg)[0], **a, "bound_ms": bound,
                   "device_roofline_share": bound / a["device_ms"]})
+
+
+def local_weight_shapes(cfg, m):
+    """:func:`weight_shapes` of one rank's share of ``cfg`` on a model axis
+    of ``m`` (``parallel.tp_local_config``: its heads, its SSM channels;
+    an MoE's experts are dequantized blocks, no PSI matmul), the lm-head
+    at its V/m vocab-parallel columns."""
+    from repro_torch.runtime.parallel import tp_local_config
+    out = weight_shapes(tp_local_config(cfg, m))
+    (K, N), n = out.pop("lm_head")
+    out["lm_head"] = ((K, N // m), n)
+    return out
+
+
+def _local_gemm_rows(torch, dev, bw, peak, gen, max_err):
+    """Kernels 1 (psi8) and 2 (psi5) at every rank's local weight shapes of
+    the tensor / expert-parallel configs on a model axis of TP_LOCAL_M:
+    held against their plain versions at TP_LOCAL_MS rows in bf16 and
+    (4, 16) in f32, plus the f32 rows of :func:`_extra_ms` (the SSM's
+    x_proj / dt_proj at prefill), then timed at M = DECODE_M with the
+    weights cold (graph replay, plain version, bf16 torch.matmul) and, for
+    an f32-route weight, at ARCH_PREFILL_ROWS f32 rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import psi
+    from repro_torch.kernels import ops, ref
+    bf16 = torch.bfloat16
+    for arch in TP_LOCAL_ARCHS:
+        cfg = get_config(arch)
+        for wl, ((K, N), per_step) in local_weight_shapes(
+                cfg, TP_LOCAL_M).items():
+            w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
+            row = {"phase": "kernel_shape_local", "arch": arch,
+                   "model_axis": TP_LOCAL_M, "weight": wl, "K": K, "N": N,
+                   "launches_per_decode_step": per_step,
+                   "checked_M": f"bf16 {TP_LOCAL_MS}, f32 (4, 16)"}
+            for bits in (8, 5):
+                qt = psi.quantize_weights(w, bits, axis=(0,))
+                key = "psi_matmul_codes" if bits == 8 else "psi_matmul_packed"
+                if bits < 8:
+                    qt = qt.pack()
+                    plain = lambda x, q=qt: ref.psi_matmul_packed_ref(
+                        x, q.data, q.scale, 5)
+                else:
+                    plain = lambda x, q=qt: ref.psi_matmul_codes_ref(
+                        x, q.data, q.scale)
+                err, ratio = _gemm_errors(torch, ops, ref, qt, plain,
+                                          TP_LOCAL_MS, bf16, gen, dev)
+                check(ratio <= 1.0, f"{key} {arch} local {wl} bf16 err {err} "
+                                    f"over one bf16 ulp of the output")
+                _, xf = _extra_ms(cfg, wl)
+                f32_ms = tuple(sorted({4, 16, *xf}))
+                err32, ratio = _gemm_errors(torch, ops, ref, qt, plain,
+                                            f32_ms, torch.float32, gen, dev)
+                check(ratio <= 1.0, f"{key} {arch} local {wl} f32 err "
+                                    f"{err32} at rows {f32_ms} over tolerance")
+                max_err[key] = max(max_err[key], err, err32)
+                t, _, datas = _decode_times(torch, qt, gen, dev, bw, peak,
+                                            host=False)
+                del datas
+                t["bound_by"] = ("bytes" if t["bytes"] / bw
+                                 >= t["flops"] / peak else "operations")
+                t["library_bound_share"] = (t["bound_ms"]
+                                            / t["library_device_ms"])
+                row[f"psi{bits}"] = {"max_abs_err": err,
+                                     "f32_max_abs_err": err32,
+                                     "f32_checked_M": f32_ms, **t}
+                if bits == 8 and xf:
+                    row["psi8"]["f32_rows_time"] = _rows_times(
+                        torch, qt, ARCH_PREFILL_ROWS, torch.float32, gen,
+                        dev, bw, peak)
+            emit(row)
+            del w
+            torch.cuda.empty_cache()
+
+
+def _local_heads():
+    """(arch, local Hq, local Hkv) of each TP_LOCAL_ARCHS config with
+    attention (head_dim 128) on a model axis of TP_LOCAL_M."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.parallel import tp_local_config
+    out = []
+    for a in TP_LOCAL_ARCHS:
+        cfg = get_config(a)
+        if cfg.is_attention_free:
+            continue
+        local = tp_local_config(cfg, TP_LOCAL_M)
+        check(local.resolved_head_dim == 128, f"{a}: kernel 3's rows here "
+                                              f"are at head_dim 128")
+        out.append((a, local.n_heads, local.n_kv_heads))
+    return out
 
 
 def _arch_heads():
@@ -3595,6 +3709,88 @@ def _train_split(torch, cfg, params, dev, reps=3):
     return {k: round(statistics.median(v), 3) for k, v in parts.items()}
 
 
+def _plain_vs_sharded(torch, dev, model, opt, mesh, batches, timed,
+                      label):
+    """``len(batches)`` plain steps (``make_train_step``), then as many
+    sharded steps (``make_sharded_train_step`` on ``mesh``) from the same
+    params (``Model.init`` seed 0, drawn twice); the plain run's params, m
+    and v wait on the host.  Fails unless the losses (the MoE
+    load-balancing loss inside) and every leaf of params, m and v are
+    bit-equal; returns each step's loss, aux, gradient norm and device ms,
+    the peaks, the collectives, and the sharded run's state (``local``,
+    ``st``, the last ``lb``)."""
+    from repro_torch.core.quantizer import tree_leaves, tree_map
+    from repro_torch.launch import train as tr
+    from repro_torch.runtime import parallel
+    from repro_torch.runtime.fsdp import TrainShare
+
+    def record(met, ms):
+        return {"loss": float(met["loss"]), "aux": float(met["aux"]),
+                "grad_norm": float(met["grad_norm"]),
+                "device_ms": round(ms, 3)}
+
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    st = opt.init(params)
+    step = tr.make_train_step(model, opt)
+    plain = []
+    for b in batches:
+        (params, st, _, met), ms = timed(step, params, st, {}, b)
+        plain.append(record(met, ms))
+    peak_plain = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    want = tree_map(lambda t: t.detach().cpu(),
+                    {"params": params, "m": st.m, "v": st.v})
+    d2h_s = time.perf_counter() - t0
+    del params, st, step, met
+    _free(torch)
+
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, dev)
+    share = TrainShare(model.cfg, mesh, params)
+    local = share.place(params)
+    del params
+    st = opt.init(local)
+    step = tr.make_sharded_train_step(model, opt, share)
+    parallel.reset_collective_counts()
+    sharded = []
+    for b in batches:
+        lb = share.local_batch(b)
+        (local, st, met), ms = timed(step, local, st, lb)
+        sharded.append(record(met, ms))
+    colls = parallel.collective_counts()
+    peak_mesh = torch.cuda.max_memory_allocated()
+    del met, step
+
+    # bit for bit against the plain step
+    got = {"params": local, "m": st.m, "v": st.v}
+    t0 = time.perf_counter()
+    diff, n_diff = 0.0, 0
+    for kind in ("params", "m", "v"):
+        for g, w in zip(tree_leaves(got[kind]), tree_leaves(want[kind])):
+            w = w.to(dev)
+            if not torch.equal(g.detach(), w):
+                n_diff += 1
+                diff = max(diff, float((g.detach() - w).abs().max()))
+            del w
+    cmp_s = time.perf_counter() - t0
+    del want
+    same_loss = ([(r["loss"], r["aux"]) for r in sharded]
+                 == [(r["loss"], r["aux"]) for r in plain])
+    check(same_loss and n_diff == 0,
+          f"{label}: the (1, 1) sharded step differs from the plain one: "
+          f"losses {[r['loss'] for r in sharded]} vs "
+          f"{[r['loss'] for r in plain]}, {n_diff} leaves differ, largest "
+          f"difference {diff}")
+    return {"params": n_params, "plain": plain, "sharded": sharded,
+            "bit_equal": True, "collectives": colls,
+            "peak_mem_plain_gb": round(peak_plain / 1e9, 3),
+            "peak_mem_sharded_gb": round(peak_mesh / 1e9, 3),
+            "host_copy_s": round(d2h_s, 3), "compare_s": round(cmp_s, 3),
+            "local": local, "st": st, "lb": lb}
+
+
 def phase_train_mesh(torch, dev):
     """train_mesh: the sharded train step (``runtime.fsdp.TrainShare``,
     ``launch.train.make_sharded_train_step``: params, m and v on the
@@ -3614,21 +3810,22 @@ def phase_train_mesh(torch, dev):
     the bytes the phase's params, m, v and batch hold; ``pipeline_apply``
     on a one-stage mesh on the card against the plain layer loop; and the
     dry run of qwen3-8b's four shapes on the (16, 16) production mesh
-    (host only)."""
+    (host only).  Then the same pair for the MoE family: qwen3-moe-30b-a3b
+    at full width on MOE_TRAIN_LAYERS layers (its load-balancing loss in
+    the loss; on one row shard the router's sums are the single
+    process's), bit-equal losses (aux included), params, m and v."""
     import shutil
     import tempfile
     import warnings
     import torch.distributed as dist
     from repro_torch.configs import SHAPES, ShapeConfig, get_config
-    from repro_torch.core.quantizer import tree_leaves, tree_map
+    from repro_torch.core.quantizer import tree_leaves
     from repro_torch.data import TokenStream
     from repro_torch.launch import dryrun
-    from repro_torch.launch import train as tr
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     from repro_torch.optim import adamw
     from repro_torch.runtime import parallel, sharding as shr
-    from repro_torch.runtime.fsdp import TrainShare
     from repro_torch.runtime.pipeline_par import pipeline_apply
     t_phase = time.perf_counter()
     _free(torch)
@@ -3656,50 +3853,16 @@ def phase_train_mesh(torch, dev):
         warnings.simplefilter("ignore")
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            # the plain step; its results wait on the host
-            torch.cuda.reset_peak_memory_stats()
-            params = model.init(0, dev)
-            n_params = sum(t.numel() for t in tree_leaves(params))
-            st = opt.init(params)
-            step = tr.make_train_step(model, opt)
-            plain = []
-            for b in batches:
-                (params, st, _, met), ms = timed(step, params, st, {}, b)
-                plain.append({"loss": float(met["loss"]),
-                              "grad_norm": float(met["grad_norm"]),
-                              "device_ms": round(ms, 3)})
-            peak_plain = torch.cuda.max_memory_allocated()
-            t0 = time.perf_counter()
-            want = tree_map(lambda t: t.detach().cpu(),
-                            {"params": params, "m": st.m, "v": st.v})
-            d2h_s = time.perf_counter() - t0
-            del params, st, step, met
-            _free(torch)
-
-            # the sharded step on a (1, 1) mesh of a world-1 NCCL group
             dist.init_process_group("nccl",
                                     store=dist.FileStore(f"{tmp}/store", 1),
                                     rank=0, world_size=1)
             backend = str(dist.get_backend())
             mesh = make_mesh((1, 1), ("data", "model"))
-            torch.cuda.reset_peak_memory_stats()
-            params = model.init(0, dev)
-            share = TrainShare(cfg, mesh, params)
-            local = share.place(params)
-            del params
-            st = opt.init(local)
-            step = tr.make_sharded_train_step(model, opt, share)
-            parallel.reset_collective_counts()
-            sharded = []
-            for b in batches:
-                lb = share.local_batch(b)
-                (local, st, met), ms = timed(step, local, st, lb)
-                sharded.append({"loss": float(met["loss"]),
-                                "grad_norm": float(met["grad_norm"]),
-                                "device_ms": round(ms, 3)})
-            colls = parallel.collective_counts()
-            peak_mesh = torch.cuda.max_memory_allocated()
-            del met
+            pair = _plain_vs_sharded(torch, dev, model, opt, mesh, batches,
+                                     timed, "train_mesh")
+            plain, sharded = pair["plain"], pair["sharded"]
+            local, st, lb = pair.pop("local"), pair.pop("st"), pair.pop("lb")
+            n_params, colls = pair["params"], pair["collectives"]
             # what a one-rank NCCL collective costs: the GB/s of an
             # all-gather and a reduce-scatter of the largest leaf (the
             # embedding table) against a clone of it
@@ -3717,28 +3880,6 @@ def phase_train_mesh(torch, dev):
                                     / (ms * 1e-3) / 1e9, 1)
             del emb
 
-            # bit for bit against the plain step
-            got = {"params": local, "m": st.m, "v": st.v}
-            t0 = time.perf_counter()
-            diff, n_diff = 0.0, 0
-            for kind in ("params", "m", "v"):
-                for g, w in zip(tree_leaves(got[kind]),
-                                tree_leaves(want[kind])):
-                    w = w.to(dev)
-                    if not torch.equal(g.detach(), w):
-                        n_diff += 1
-                        diff = max(diff, float((g.detach() - w).abs().max()))
-                    del w
-            cmp_s = time.perf_counter() - t0
-            del want
-            same_loss = ([r["loss"] for r in sharded]
-                         == [r["loss"] for r in plain])
-            check(same_loss and n_diff == 0,
-                  f"train_mesh: the (1, 1) sharded step differs from the "
-                  f"plain one: losses {[r['loss'] for r in sharded]} vs "
-                  f"{[r['loss'] for r in plain]}, {n_diff} leaves differ, "
-                  f"largest difference {diff}")
-
             # the dry run of this cell against the bytes its tensors hold
             held = {"params": sum(t.numel() * t.element_size()
                                   for t in tree_leaves(local)),
@@ -3753,7 +3894,25 @@ def phase_train_mesh(torch, dev):
                 cfg, cell, amesh, param_dtype=torch.float32), amesh)
             check(report == held, f"train_mesh: dry-run bytes {report} != "
                                   f"the tensors' {held}")
-            del local, st, step, share, lb
+            del local, st, lb
+            _free(torch)
+
+            # MoE: full-width qwen3-moe on MOE_TRAIN_LAYERS layers, the
+            # load-balancing loss included (one row shard: the router's
+            # sums are the single process's)
+            mcfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                                       quant_mode="qat8",
+                                       n_layers=MOE_TRAIN_LAYERS)
+            _full_width(mcfg, MOE_TRAIN_ARCH)
+            mstream = TokenStream(mcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=0)
+            mbatches = [{"tokens": torch.as_tensor(next(mstream),
+                                                   device=dev)}
+                        for _ in range(MESH_TRAIN_STEPS)]
+            moe_pair = _plain_vs_sharded(torch, dev, build_model(mcfg),
+                                         adamw(lr=3e-4), mesh, mbatches,
+                                         timed, "train_mesh moe")
+            del moe_pair["local"], moe_pair["st"], moe_pair["lb"]
             _free(torch)
 
             # pipeline_apply on a one-stage mesh against the layer loop
@@ -3801,10 +3960,13 @@ def phase_train_mesh(torch, dev):
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "quant": "qat8",
           "plain_steps": plain, "sharded_steps": sharded,
           "bit_equal": True, "collectives": colls,
-          "peak_mem_plain_gb": round(peak_plain / 1e9, 3),
-          "peak_mem_sharded_gb": round(peak_mesh / 1e9, 3),
+          "peak_mem_plain_gb": pair["peak_mem_plain_gb"],
+          "peak_mem_sharded_gb": pair["peak_mem_sharded_gb"],
           "one_rank_copy_gb_per_s": rates,
-          "host_copy_s": round(d2h_s, 3), "compare_s": round(cmp_s, 3),
+          "host_copy_s": pair["host_copy_s"],
+          "compare_s": pair["compare_s"],
+          "moe": {"arch": MOE_TRAIN_ARCH, "layers": MOE_TRAIN_LAYERS,
+                  **moe_pair},
           "dryrun_cell_bytes": report, "tensor_bytes": held,
           "pipeline_one_stage": {"layers": PIPE_L, "microbatches": PIPE_M,
                                  "rows": PIPE_MB, "width": PIPE_D,

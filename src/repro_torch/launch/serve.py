@@ -110,6 +110,7 @@ from repro_torch.models import attention, build_model, kvcache as kvc
 from repro_torch.perf.roofline_model import PEAK_FLOPS, decode_macs_per_token
 from repro_torch.runtime import parallel
 from repro_torch.runtime.executor import Executor
+from repro_torch.runtime.sharding import LeafPlacer
 
 # prompt lengths round up to a multiple of this before prefill; the pad
 # rows are masked out of the cache through true_lens
@@ -199,7 +200,8 @@ class Server:
                  n_blocks: Optional[int] = None, decode_horizon: int = 1,
                  prefill_chunk: int = 0, slo=None,
                  speculative: Optional[Tuple[int, int]] = None,
-                 watts: Optional[float] = None, mesh=None):
+                 watts: Optional[float] = None, mesh=None,
+                 params_are_local: bool = False):
         self.cfg = cfg
         self.paged = cfg.resolved_cache_layout == kvc.PAGED
         # decode in rounds of M steps with retirement on the device and one
@@ -262,7 +264,8 @@ class Server:
                                  max_seq=max_seq, device=device,
                                  n_blocks=n_blocks,
                                  decode_horizon=self.decode_horizon,
-                                 speculative=self.spec, mesh=mesh)
+                                 speculative=self.spec, mesh=mesh,
+                                 params_are_local=params_are_local)
         if self.executor.n_slot_shards > 1 and (self._ctx_serving
                                                 or self.spec):
             raise NotImplementedError(
@@ -949,6 +952,10 @@ def build_server(args) -> Tuple[Server, object]:
                                     or cfg.cache_block_size)}
     if getattr(args, "n_layers", 0):
         over["n_layers"] = int(args.n_layers)
+    if getattr(args, "d_model", 0):
+        if not args.reduced:
+            raise ValueError("--d-model widens a --reduced config")
+        over["d_model"] = int(args.d_model)
     over["prefix_cache"] = getattr(args, "prefix_cache", "off") == "on"
     cfg = dataclasses.replace(cfg, **over)
     cfg.resolved_cache_layout        # validate the layout and the prefix
@@ -973,17 +980,22 @@ def build_server(args) -> Tuple[Server, object]:
     # --qat-precondition: each leaf is snapped to that grid as it is drawn
     pre = int(getattr(args, "qat_precondition", 0) or 0)
     model = build_model(cfg)
+    # on a mesh each rank draws every leaf and keeps its share only: no
+    # rank holds the whole model
+    share = (None if mesh is None
+             else LeafPlacer(cfg, mesh, mode="serve"))
     if args.quant != "none" or policy:
         _, bits = parse_quant_mode(args.quant)
         params = model.init(seed=args.seed, device=device, bits=bits,
-                            pack=True, policy=policy, qat_precondition=pre)
+                            pack=True, policy=policy, qat_precondition=pre,
+                            share=share)
         mode = args.quant
         if mode == "none" and policy and policy.get("default"):
             mode = f"psi{policy['default']}"
         cfg = dataclasses.replace(cfg, quant_mode=mode)
     else:
         params = model.init(seed=args.seed, device=device,
-                            qat_precondition=pre)
+                            qat_precondition=pre, share=share)
     # the cache extent covers the bucketed prompt (a shared prefix
     # included) plus the decode budget, plus k-1 for a speculative round's
     # overhang
@@ -1006,13 +1018,19 @@ def build_server(args) -> Tuple[Server, object]:
                     n_blocks=getattr(args, "cache_blocks", None),
                     decode_horizon=int(getattr(args, "decode_horizon", 1)),
                     prefill_chunk=chunk, slo=slo, speculative=spec,
-                    watts=getattr(args, "watts", None), mesh=mesh)
+                    watts=getattr(args, "watts", None), mesh=mesh,
+                    params_are_local=mesh is not None)
     return server, cfg
 
 
 def trace_from_args(args, cfg):
-    """The arrival trace of the CLI flags; ``--priority-mix`` draws each
+    """The arrival trace of the CLI flags: drawn from ``--trace-seed`` when
+    it is given, else from ``--seed`` (which also fixes the weights), so
+    traffic can vary against fixed weights; ``--priority-mix`` draws each
     request's SLO class from the ``--slo`` policy's classes."""
+    seed = getattr(args, "trace_seed", None)
+    if seed is None:
+        seed = args.seed
     mix = None
     pm = getattr(args, "priority_mix", None)
     if pm:
@@ -1027,7 +1045,7 @@ def trace_from_args(args, cfg):
                          prompt_jitter=args.prompt_jitter,
                          shared_prefix_len=getattr(args, "shared_prefix_len",
                                                    0),
-                         vocab_size=cfg.vocab_size, seed=int(args.seed),
+                         vocab_size=cfg.vocab_size, seed=int(seed),
                          priority_mix=mix)
 
 
@@ -1045,6 +1063,10 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--n-layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = the "
                          "config's)")
+    ap.add_argument("--d-model", type=int, default=0,
+                    help="with --reduced, this residual width (0 = the "
+                         "reduced config's); 1024 or more puts the weights "
+                         "tensor-parallel over a mesh's model axis")
     ap.add_argument("--quant", default="psi8",
                     choices=list(serving_mode_choices()),
                     help="uniform PSI serving width; sub-byte widths "
@@ -1095,6 +1117,9 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--priority-mix", default=None, metavar="W1,W2,...",
                     help="per-class arrival weights, one per --slo class in "
                          "order; each request draws its class from them")
+    ap.add_argument("--trace-seed", type=int, default=None,
+                    help="seed of the arrival trace alone (default --seed), "
+                         "so traffic varies against fixed weights")
     ap.add_argument("--speculative", default=None, metavar="BITS:K",
                     help="self-speculative decoding: draft K tokens a round "
                          "with a psiBITS view of the serving codes (no "
@@ -1114,7 +1139,8 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
                          "device and one host sync per round (1 = one "
                          "step at a time)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the weights and of the arrival trace")
+                    help="seed of the weights (and of the arrival trace "
+                         "unless --trace-seed is given)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch kernels)")

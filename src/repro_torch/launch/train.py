@@ -70,20 +70,29 @@ def make_sharded_train_step(model, opt, share, compress: bool = False):
     params are gathered on use, the loss over the rank's rows is scaled
     by 1 / mesh size so the gradients that reduce back to each chunk are
     those of the global mean, ``opt.update`` runs on the chunks with the
-    global norm, in place.  The metrics' losses are global means."""
+    global norm, in place.  The metrics' losses are global means (an MoE
+    model's load-balancing loss is taken over the global batch:
+    ``runtime.fsdp.BatchSum``)."""
     if compress:
         raise NotImplementedError(
             "gradient compression on a mesh is not ported (ROADMAP queue 1, "
             "item 1: the JAX package's sharded step has none)")
-    if model.cfg.family == "moe":
-        from repro_torch.runtime.fsdp import MOE_REFUSAL
-        raise NotImplementedError(MOE_REFUSAL)
+    moe = model.cfg.family == "moe"
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
-        loss, met = model.loss(share.gather_params(params), batch)
+        full = share.gather_params(params)
+        if moe:
+            # the router's load-balance means over the global batch
+            batch_sum = share.batch_sum()
+            if batch_sum is not None:
+                full["layers"] = [dict(layer, moe=dict(layer["moe"],
+                                                       batch_sum=batch_sum))
+                                  for layer in full["layers"]]
+        loss, met = model.loss(full, batch)
+        del full
         got = torch.autograd.grad(loss / share.size, leaves,
                                   allow_unused=True)
         it = iter([torch.zeros_like(p) if g is None else g

@@ -134,7 +134,7 @@ class Model:
 
     def init(self, seed: int = 0, device=None, bits: Optional[int] = None,
              pack: bool = False, policy=None,
-             qat_precondition: int = 0) -> dict:
+             qat_precondition: int = 0, share=None) -> dict:
         """Random params from a seeded ``torch.Generator`` on ``device``
         (CUDA unless the caller names another); with ``bits``/``policy``,
         each quantizable leaf is quantized right after it is drawn.
@@ -143,7 +143,14 @@ class Model:
         psiN grid (quantize, dequantize), as a checkpoint trained with the
         quantizer in the loop would be: random weights' logit margins
         drown in low-bit noise, so a speculative draft accepts almost
-        nothing without it."""
+        nothing without it.
+
+        ``share`` (a ``runtime.sharding.LeafPlacer``): a rank-local init.
+        Each leaf is drawn whole, in the same order from the same
+        generator, quantized, and cut to this rank's share at once
+        (``share.place(path, leaf)``); the rest is freed before the next
+        draw, so a rank holds its share plus one whole leaf at most.  The
+        result equals the placement of the whole init bit for bit."""
         device = resolve_device(device)
         policy = quantizer.parse_policy(policy)
         quant = bits is not None or bool(policy)
@@ -170,6 +177,8 @@ class Model:
                 if quant:
                     leaf = quantizer.quantize_leaf(path, leaf, bits, pack,
                                                    policy)
+            if share is not None:
+                leaf = share.place(path, leaf)
             node = params
             keys = path.split("/")
             for k in keys[:-1]:

@@ -15,6 +15,15 @@ PSI expert weights dequantize whole, through bf16 as in the JAX package
 (even for a float32 activation), and the expert GEMMs are plain batched
 products: the reference has no kernel for them.  Every op has a fixed
 shape and no host sync, so the decode and verify CUDA graphs capture it.
+
+On a serving mesh's model axis the layer's params carry a
+``runtime.parallel.ExpertShard`` under "shard": the router runs
+replicated over the same rows on every rank (slots, keeps and C are the
+single process's), each rank runs its experts (or its columns of every
+expert) on the dispatch buffer, and the shard joins the outputs before
+the combine.  On a training mesh they carry "batch_sum"
+(``runtime.fsdp.BatchSum``): the load-balancing loss's two means are
+then taken over every rank's rows.
 """
 from __future__ import annotations
 
@@ -64,8 +73,11 @@ def _expert_weights(leaf, dtype, quant_mode="none"):
 def _expert_bmm(a, w):
     """(E, T, K) @ (E, K, N) with f32 products and sums: bf16 operands on
     the card through ``out_dtype`` (no upcast copy of the block), anything
-    else upcast to f32."""
-    if a.is_cuda and a.dtype == torch.bfloat16:
+    else upcast to f32 (so is a product autograd records: ``out_dtype``
+    has no derivative; a bf16 product is exact in f32 either way)."""
+    if (a.is_cuda and a.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and (a.requires_grad or w.requires_grad))):
         return torch.bmm(a, w, out_dtype=torch.float32)
     return torch.bmm(a.to(torch.float32), w.to(torch.float32))
 
@@ -105,10 +117,19 @@ def route(p, x, cfg, capacity_override=None):
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
 
     # load-balance aux loss (Switch/GShard): global means
-    me = probs.mean(dim=(0, 1))
-    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+    counts = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, eidx.reshape(-1), torch.ones(eidx.numel(), dtype=torch.float32,
-                                        device=x.device)) / (B * S * k)
+                                        device=x.device))
+    batch_sum = p.get("batch_sum")
+    if batch_sum is None:
+        me = probs.mean(dim=(0, 1))
+        ce = counts / (B * S * k)
+    else:
+        # a training mesh's rows: the sums over every rank's rows (one
+        # all-reduce under autograd), then the global means
+        sums, n = batch_sum(torch.stack([probs.sum(dim=(0, 1)), counts]),
+                            B * S)
+        me, ce = sums[0] / n, sums[1] / (n * k)
     aux = cfg.router_aux_weight * E * torch.sum(me * ce)
 
     C = capacity_override or max(
@@ -143,6 +164,9 @@ def moe_ffn(p, x, cfg, capacity_override=None):
     x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)     # empty -> 0
     xe = torch.gather(x_pad, 1, inv[:, :-1, None].expand(B, E * C, d))
     xe = xe.reshape(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    shard = p.get("shard")
+    if shard is not None:
+        xe = shard.local(xe)
 
     # the expert GEMMs, each block dequantized just before its product
     qm = cfg.quant_mode
@@ -150,8 +174,8 @@ def moe_ffn(p, x, cfg, capacity_override=None):
     u = _expert_bmm(xe, _expert_weights(p["w_up"], x.dtype, qm))
     h = (F.silu(g) * u).to(x.dtype)
     del g, u
-    ye = _expert_bmm(h, _expert_weights(p["w_down"], x.dtype, qm)
-                     ).to(x.dtype)
+    ye = _expert_bmm(h, _expert_weights(p["w_down"], x.dtype, qm))
+    ye = ye.to(x.dtype) if shard is None else shard.join(ye, x.dtype)
     ye = ye.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
 
     # combine: per-slot gathers weighted by the gate, summed in slot order

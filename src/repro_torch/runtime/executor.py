@@ -186,17 +186,25 @@ class Executor:
     group; None: this process alone, today's path) serves SPMD: params,
     the cache and the step inputs are placed as :func:`sharding.local_shard`
     of their specs (a paged pool keeps ``local_batch`` scratch blocks of its
-    own), this rank computes its slot shard's rows only (and, where
-    :func:`sharding.tp_enabled` holds, its share of the heads and FFN
-    channels), and every entry point's tokens are all-gathered, so the
-    host-facing API is the single process's: global slots, global block
-    ids, (B,) tokens.  See :class:`parallel.MeshShare`."""
+    own; a mamba ``in_proj`` is resliced by channel, see
+    :class:`sharding.LeafPlacer`), this rank computes its slot shard's rows
+    only (and, where :func:`sharding.tp_enabled` holds, its share of the
+    heads and FFN channels, its experts or its columns of every expert,
+    its SSM channels), and every entry point's tokens are all-gathered, so
+    the host-facing API is the single process's: global slots, global
+    block ids, (B,) tokens.  See :class:`parallel.MeshShare`.
+    ``params_are_local=True``: ``params`` is already this rank's share (a
+    rank-local ``Model.init(share=...)``); its shapes are checked against
+    the placement, and :meth:`remesh` is refused."""
 
     def __init__(self, cfg, params, *, max_batch: int, max_seq: int,
                  device=None, n_blocks: int = None, decode_horizon: int = 1,
-                 speculative=None, mesh=None):
+                 speculative=None, mesh=None, params_are_local=False):
         self.cfg = cfg
         self.mesh = mesh
+        if params_are_local and mesh is None:
+            raise ValueError("params_are_local needs a mesh")
+        self._params_are_local = bool(params_are_local)
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -318,13 +326,70 @@ class Executor:
         self._local_blocks = share.local_blocks
         self.local_cfg = share.local_cfg(cfg)
         self.model = build_model(self.local_cfg)
-        specs = shr.param_specs(params, cfg, mesh, mode="serve")
-        local = shr.local_shard_tree(params, specs, mesh, share.coord)
+        # shr.LeafPlacer cuts what local_shard cuts, but for a mamba
+        # in_proj: its (d, 2 d_inner) columns are two halves, x and z, and
+        # a rank computes on its channels of both (a contiguous chunk of
+        # the columns, as GSPMD lays the spec out, would give one rank all
+        # of x and the other all of z); and for a packed expert block,
+        # whose planes keep the expert dim where the codes have it
+        placer = shr.LeafPlacer(cfg, mesh, share.coord, "serve")
+        if self._params_are_local:
+            glob = self._global_meta(cfg, params)
+            self._check_local_params(placer, glob, params)
+            local = params
+        else:
+            glob = params
+            local = placer.place_tree(params)
+        specs = placer.specs(glob)
         local = self.model.serving_params(params_to(local, self.device))
         self.params = share.wrap_tp(cfg, local, specs)
         self._check_cache_layout(cfg, mesh)
         if share.size > 1:
             self.monitor = StragglerMonitor(n_hosts=share.size)
+
+    @staticmethod
+    def _global_meta(cfg, local):
+        """The global param tree as meta tensors, each leaf quantized as
+        this rank's chunk of it is (its width, packed or not)."""
+        def at(path):
+            node = local
+            for k in path.split("/"):
+                node = node[int(k)] if isinstance(node, list) else node[k]
+            return node
+
+        tree = {"layers": [{} for _ in range(cfg.n_layers)]}
+        if cfg.family == "encdec":
+            tree["encoder"] = [{} for _ in range(cfg.n_enc_layers)]
+        for path, shape, _ in build_model(cfg).param_specs():
+            leaf = torch.empty(shape, dtype=torch.float32, device="meta")
+            mine = at(path)
+            if isinstance(mine, psi.QuantizedTensor):
+                leaf = quantizer.quantize_leaf(path, leaf, mine.fmt.bits,
+                                               pack=mine.packed)
+            node = tree
+            keys = path.split("/")
+            for k in keys[:-1]:
+                node = node[int(k)] if isinstance(node, list) else \
+                    node.setdefault(k, {})
+            node[keys[-1]] = leaf
+        return tree
+
+    @staticmethod
+    def _check_local_params(placer, glob, local) -> None:
+        """Every given chunk has the shape the placement cuts from the
+        global leaf."""
+        def one(path, g, mine):
+            name = "/".join(map(str, path))
+            want = placer.place(name, g)
+            pairs = ([(want.data, mine.data), (want.scale, mine.scale)]
+                     if isinstance(want, psi.QuantizedTensor)
+                     else [(want, mine)])
+            for w, m in pairs:
+                if tuple(w.shape) != tuple(m.shape):
+                    raise ValueError(
+                        f"params_are_local: {name} is {tuple(m.shape)} but "
+                        f"this rank's share is {tuple(w.shape)}")
+        shr.map_tree(one, glob, local)
 
     def _check_cache_layout(self, cfg, mesh) -> None:
         """The local cache must be :func:`sharding.local_shard` of the
@@ -393,6 +458,9 @@ class Executor:
         gets None."""
         if self._share is None:
             raise ValueError("remesh needs an executor built on a mesh")
+        if self._params_are_local:
+            raise ValueError("remesh cuts the global params anew: this "
+                             "executor was given this rank's share only")
         axes = self._share.axes
         ranks = list(devices) if devices is not None else self.mesh_ranks()
         mp = (model_parallel if model_parallel is not None

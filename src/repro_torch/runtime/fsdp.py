@@ -24,6 +24,10 @@ does, FSDP-style:
 * **Clip norm.** One all-reduce of per-rank partial sums of squares; each
   element is counted once (a replicated chunk by the rank whose
   coordinates on the axes it is replicated over are all 0).
+* **MoE.** Dispatch is per row (C from S), so a rank's rows route as
+  they do in one process; only the load-balancing loss is global: the
+  router's sums are all-reduced over the ranks whose rows differ
+  (:class:`BatchSum`, handed to each MoE layer of the gathered params).
 * **Ordering.** Every rank issues the same collectives in the same order:
   the gathers in tree order before the forward, the reductions in the
   autograd engine's order over an identical graph, then the norm and the
@@ -43,13 +47,6 @@ from repro_torch.core.psi import QuantizedTensor
 from repro_torch.core.quantizer import tree_leaves, tree_map
 from repro_torch.runtime import parallel
 from repro_torch.runtime import sharding as shr
-
-MOE_REFUSAL = (
-    "sharded training of the MoE family is not ported yet (ROADMAP queue "
-    "1, item 4: its load-balancing loss is E * sum(me * ce) of two global "
-    "means, which a mean of per-shard aux losses does not give); train it "
-    "in one process")
-
 
 def _split_axes(spec, mesh) -> tuple:
     """The mesh axes a spec names, in the mesh's axis order."""
@@ -120,6 +117,40 @@ def scatter_sum(g: torch.Tensor, spec, mesh, coords=None) -> torch.Tensor:
     return out
 
 
+class AllReduceSum(torch.autograd.Function):
+    """``apply(t, group)``: the sum of ``t`` over the group; backward the
+    sum of the incoming gradients over the group (every rank's output
+    depends on every rank's ``t``)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return parallel.all_reduce_(t.detach().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return parallel.all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+class BatchSum:
+    """An MoE router's sums over the rows of every rank that holds rows of
+    its own (the ranks of ``group``, ``n`` row shards): ``self(t,
+    rows)`` -> (the sum of ``t`` over the group, under autograd; the
+    global row count ``rows * n``).  The load-balancing loss ``w E sum(me
+    ce)`` is a product of two means over the global batch, so each mean is
+    taken over every rank's rows before the product (a mean of per-shard
+    losses differs).  With the step's 1 / mesh-size scaling, the gradient
+    that reaches each chunk is that of the global loss: every rank's aux
+    is the same global value, and the backward all-reduce hands each rank
+    the gradient of all of them."""
+
+    def __init__(self, group, n: int):
+        self.group, self.n = group, int(n)
+
+    def __call__(self, t, rows: int):
+        return AllReduceSum.apply(t, self.group), rows * self.n
+
+
 class GatherOnUse(torch.autograd.Function):
     """``apply(chunk, spec, mesh, coords)``: the whole leaf
     (:func:`gather`); backward: :func:`scatter_sum` of its gradient."""
@@ -172,6 +203,7 @@ class TrainShare:
         self.coords = shr.mesh_coords(mesh)
         self.specs = shr.param_specs(params, cfg, mesh, mode="train")
         self._spec_leaves = tree_leaves(self.specs)
+        self.row_axes = None            # set by local_batch
 
     # -------------------------------------------------------- placement
     def place(self, tree):
@@ -189,7 +221,20 @@ class TrainShare:
                 raise NotImplementedError(
                     f"batch {name!r} spec {spec} splits the sequence: the "
                     f"sharded step takes rows over the data axes only")
+        self.row_axes = _split_axes(shr.P(specs["tokens"][0]), self.mesh)
         return shr.local_shard_tree(batch, specs, self.mesh, self.coord)
+
+    def batch_sum(self):
+        """The :class:`BatchSum` over the ranks whose rows differ (the
+        axes :meth:`local_batch` split the rows over), or None when every
+        rank holds every row."""
+        if self.row_axes is None:
+            raise ValueError("cut the batch with local_batch first: the "
+                             "MoE router's sums follow its row split")
+        n = int(np.prod([self.axes[a] for a in self.row_axes] or [1]))
+        if n == 1:
+            return None
+        return BatchSum(_group(self.mesh, self.row_axes), n)
 
     # ------------------------------------------------------ collectives
     def gather_params(self, local):

@@ -15,9 +15,12 @@ its own heads and FFN channels.  The collectives:
   more than one rank (``agree_time``), so arrivals are admitted at the same
   iteration everywhere;
 * inside the model, with TP: an all-reduce after each row-parallel
-  projection (``wo``, ``w_down``) and after the vocab-parallel embedding,
-  and an all-gather of the vocab-parallel logits and of a K/V projection
-  whose columns cut a head (MQA).
+  projection (``wo``, ``w_down``; a mamba layer's ``x_proj`` and
+  ``out_proj``) and after the vocab-parallel embedding, and an all-gather
+  of the vocab-parallel logits and of a K/V projection whose columns cut
+  a head (MQA); in an MoE layer an all-gather of the experts' outputs
+  (expert parallelism) or an all-reduce of their partial sums (tensor
+  parallelism inside each expert): see :class:`ExpertShard`.
 
 Sharded training (``runtime/fsdp.py``) adds reduce-scatters and the
 pipeline (``runtime/pipeline_par.py``) sends and receives.  Every
@@ -33,6 +36,7 @@ import warnings
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.runtime import sharding as shr
 
 _COUNTS = {"all_gather": 0, "all_reduce": 0, "broadcast": 0,
@@ -130,6 +134,106 @@ class TPEmbed:
                                              torch.zeros_like(ids)), dtype)
         rows = rows.masked_fill(~mine[..., None], 0)
         return all_reduce_(rows, self.group)
+
+
+class ExpertShard:
+    """How this rank's expert blocks join the model group's (an MoE layer's
+    params carry it under "shard"; ``moe.moe_ffn`` reads it).
+
+    * "ep" (the experts divide the model axis): this rank holds experts
+      [rank E/m, (rank+1) E/m) whole, runs their rows of the dispatch
+      buffer only, and the outputs of all experts are all-gathered in the
+      activation dtype, so the combine sums them in the single process's
+      order;
+    * "tp" (they do not): every expert's d_ff columns are split (w_gate and
+      w_up by column, w_down by row); each rank runs every expert's rows
+      on its columns and the partial down-projections are all-reduced in
+      f32 before the cast."""
+
+    def __init__(self, kind: str, group, rank: int, size: int):
+        if kind not in ("ep", "tp"):
+            raise ValueError(f"unknown expert sharding {kind!r}")
+        self.kind, self.group = kind, group
+        self.rank, self.size = int(rank), int(size)
+
+    def local(self, xe: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the (E, T, d) dispatch buffer."""
+        if self.kind == "tp":
+            return xe
+        n = xe.shape[0] // self.size
+        return xe[self.rank * n:(self.rank + 1) * n]
+
+    def join(self, ye: torch.Tensor, dtype) -> torch.Tensor:
+        """Every expert's whole output (E, T, d) in ``dtype`` from this
+        rank's f32 ``ye``."""
+        if self.kind == "ep":
+            return torch.cat(all_gather(ye.to(dtype), self.group), dim=0)
+        return all_reduce_(ye, self.group).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig(ModelConfig):
+    """A rank's share of a config whose SSM channels split over "model":
+    ``d_inner`` is the rank's channel count (the state, the conv and the
+    projections follow it); every other field is the global config's."""
+    local_d_inner: int = 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.local_d_inner or self.ssm_expand * self.d_model
+
+
+def tp_local_config(cfg, m: int):
+    """The config of one rank's share of ``cfg`` tensor-parallel over a
+    model axis of ``m``: its query heads, KV heads and FFN channels (the
+    head width pinned); for MoE the heads only (the experts and the
+    routing stay global: ``ExpertShard`` holds the split); for the SSM
+    its ``d_inner`` channels (:class:`ShardConfig`)."""
+    if m == 1:
+        return cfg
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "tensor-parallel execution of the hybrid family is not ported "
+            "yet (ROADMAP queue 1, item 5: its attention is MQA on the "
+            "dense SWA ring, whose sequence dim then splits over \"model\", "
+            "and its RG-LRU channels go with it); serve it on a mesh with a "
+            "model axis of 1")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
+        raise NotImplementedError(
+            f"tensor-parallel execution of the {cfg.family!r} family is not "
+            f"ported (ROADMAP queue 1, item 4: its one config is narrower "
+            f"than TP_MIN_D_MODEL, so it serves data-parallel); serve it on "
+            f"a mesh with a model axis of 1")
+    bad = [f"vocab_size={cfg.vocab_size}"] if cfg.vocab_size % m else []
+    if cfg.family == "ssm":
+        if cfg.d_inner % m:
+            bad.append(f"d_inner={cfg.d_inner}")
+        if bad:
+            raise NotImplementedError(
+                f"tensor parallelism over model={m} needs "
+                f"{', '.join(bad)} to split {m} ways")
+        fields = {f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(ModelConfig)}
+        return ShardConfig(**fields, local_d_inner=cfg.d_inner // m)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if hq % m:
+        bad.append(f"n_heads={hq}")
+    if hkv % m and hkv != 1:
+        bad.append(f"n_kv_heads={hkv} (neither a multiple of the model axis "
+                   f"nor 1)")
+    if cfg.family == "moe":
+        if cfg.n_experts % m and cfg.d_ff % m:
+            bad.append(f"n_experts={cfg.n_experts} or d_ff={cfg.d_ff}")
+    elif cfg.d_ff % m:
+        bad.append(f"d_ff={cfg.d_ff}")
+    if bad:
+        raise NotImplementedError(
+            f"tensor parallelism over model={m} needs "
+            f"{', '.join(bad)} to split {m} ways")
+    return dataclasses.replace(
+        cfg, n_heads=hq // m, n_kv_heads=hkv // m if hkv % m == 0 else 1,
+        d_ff=cfg.d_ff if cfg.family == "moe" else cfg.d_ff // m,
+        head_dim=cfg.resolved_head_dim)
 
 
 class MeshShare:
@@ -245,31 +349,9 @@ class MeshShare:
 
     # ---------------------------------------------------- tensor parallel
     def local_cfg(self, cfg):
-        """The config of this rank's share of the model: its query heads,
-        KV heads and FFN channels (the head width pinned)."""
-        if not self.tp:
-            return cfg
-        m = self.tp_size
-        if cfg.family not in ("dense", "vlm"):
-            raise NotImplementedError(
-                f"tensor-parallel execution of the {cfg.family!r} family is "
-                f"not ported yet (ROADMAP queue 1, item 4: TP/EP for MoE, "
-                f"hybrid, SSM and encoder-decoder); serve it on a mesh with "
-                f"a model axis of 1")
-        hq, hkv = cfg.n_heads, cfg.n_kv_heads
-        bad = [f"{n}={v}" for n, v in (("n_heads", hq), ("d_ff", cfg.d_ff),
-                                       ("vocab_size", cfg.vocab_size))
-               if v % m]
-        if hkv % m and hkv != 1:
-            bad.append(f"n_kv_heads={hkv} (neither a multiple of the model "
-                       f"axis nor 1)")
-        if bad:
-            raise NotImplementedError(
-                f"tensor parallelism over model={m} needs "
-                f"{', '.join(bad)} to split {m} ways")
-        return dataclasses.replace(
-            cfg, n_heads=hq // m, n_kv_heads=hkv // m if hkv % m == 0 else 1,
-            d_ff=cfg.d_ff // m, head_dim=cfg.resolved_head_dim)
+        """The config of this rank's share of the model
+        (:func:`tp_local_config` over the model axis)."""
+        return tp_local_config(cfg, self.tp_size) if self.tp else cfg
 
     def wrap_tp(self, cfg, params, specs):
         """The local param tree with its TP leaves wrapped: column-parallel
@@ -291,13 +373,22 @@ class MeshShare:
 
         def one(path, leaf, spec):
             name = str(path[-1])
+            if "moe" in path:
+                # the expert blocks are local as they stand (their
+                # ExpertShard below joins them); the router replicates
+                return leaf
             if name == "embed":
                 if split_dim(spec) != "K":          # (V, d): rows split
                     raise NotImplementedError("the embed table must split "
                                               "over model")
                 return TPEmbed(leaf, self.tp_rank * leaf.shape[0], g)
             want = {"wq": "N", "w_gate": "N", "w_up": "N", "wo": "K",
-                    "w_down": "K", "lm_head": "N", "wk": "N", "wv": "N"}
+                    "w_down": "K", "lm_head": "N", "wk": "N", "wv": "N",
+                    # mamba: in_proj column-parallel over its resliced
+                    # channels, x_proj and out_proj row-parallel, dt_proj
+                    # column-parallel (two all-reduces a layer)
+                    "in_proj": "N", "x_proj": "K", "dt_proj_w": "N",
+                    "out_proj": "K"}
             if name not in want:
                 return leaf
             got = split_dim(spec)
@@ -323,4 +414,9 @@ class MeshShare:
                 raise NotImplementedError("a tied float table under tensor "
                                           "parallelism: quantize it first")
             out["tied_head"] = TPLinear(params["tied_head"], "gather", g)
+        if cfg.family == "moe":
+            kind = "ep" if cfg.n_experts % m == 0 else "tp"
+            for layer in out["layers"]:
+                layer["moe"] = dict(layer["moe"], shard=ExpertShard(
+                    kind, g, self.tp_rank, m))
         return out

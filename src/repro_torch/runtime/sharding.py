@@ -37,6 +37,7 @@ import re
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.psi import QuantizedTensor
 from repro_torch.models.kvcache import KVCache
@@ -301,30 +302,25 @@ def _spec_for_qt(leaf: QuantizedTensor, spec_tail, mesh, mode: str,
     return QuantizedTensor(data, scale, leaf.fmt, leaf.packed)
 
 
-def param_specs(params, cfg, mesh, mode: str = "serve"):
-    """Spec tree matching ``params`` (plain or PSI-quantized)."""
+def leaf_spec(path: str, leaf, cfg, mesh, mode: str = "serve"):
+    """The spec of one param leaf at ``path`` ("layers/0/attn/wq")."""
     use_tp = tp_enabled(cfg)
-    if not use_tp:
-        # Small model: replicate everything; the mesh axes all become
-        # batch parallelism.
-        def repl(path, leaf):
-            if _is_qt(leaf):
-                return QuantizedTensor(P(), P(), leaf.fmt, leaf.packed)
-            return P()
-        return map_tree(repl, params)
+    spec_tail = _logical_spec(path, cfg, mesh) if use_tp else None
+    if _is_qt(leaf):
+        if spec_tail is None:
+            return QuantizedTensor(P(), P(), leaf.fmt, leaf.packed)
+        return _spec_for_qt(leaf, spec_tail, mesh, mode, use_tp)
+    if spec_tail is None or leaf.dim() < len(spec_tail):
+        return P()
+    return _materialize(spec_tail, tuple(leaf.shape), mesh, mode, use_tp)
 
-    def one(path, leaf):
-        p = _path_str(path)
-        spec_tail = _logical_spec(p, cfg, mesh)
-        if _is_qt(leaf):
-            if spec_tail is None:
-                return QuantizedTensor(P(), P(), leaf.fmt, leaf.packed)
-            return _spec_for_qt(leaf, spec_tail, mesh, mode, use_tp)
-        if spec_tail is None or leaf.dim() < len(spec_tail):
-            return P()
-        return _materialize(spec_tail, tuple(leaf.shape), mesh, mode, use_tp)
 
-    return map_tree(one, params)
+def param_specs(params, cfg, mesh, mode: str = "serve"):
+    """Spec tree matching ``params`` (plain or PSI-quantized).  A model
+    narrower than ``TP_MIN_D_MODEL`` replicates everything: the mesh axes
+    all become batch parallelism."""
+    return map_tree(lambda path, leaf: leaf_spec(_path_str(path), leaf, cfg,
+                                                 mesh, mode), params)
 
 
 def batch_specs(cfg, mesh, batch_tree, seq_shard: bool = False):
@@ -539,6 +535,114 @@ def local_shard(tensor, spec, mesh, coord: Optional[Dict[str, int]] = None):
         c = size // n
         out = out.narrow(dim, i * c, c)
     return out.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Serving placement: the layout a rank computes on.
+# ---------------------------------------------------------------------------
+def placement_spec(path: str, leaf, cfg, mesh):
+    """:func:`leaf_spec` in serve mode, except where the port's execution
+    needs another cut of the same bytes.  A packed expert block's planes (E, bits, K/8,
+    N) get the replicated bit-plane dim just before its (K, N):
+    ``_spec_for_qt`` (the JAX package's rule) puts it in front of every
+    dim, which for a stacked leaf shifts the expert spec onto the planes
+    (GSPMD computes any layout; the port's experts and kernels read the
+    experts' own dims)."""
+    spec = leaf_spec(path, leaf, cfg, mesh)
+    if not (_is_qt(leaf) and leaf.packed and leaf.data.dim() > 3
+            and tp_enabled(cfg)):
+        return spec
+    tail = _logical_spec(path, cfg, mesh)
+    if tail is None:
+        return spec
+    tail = tuple(tail)
+    data = _materialize(tail[:-2] + (None,) + tail[-2:],
+                        tuple(leaf.data.shape), mesh, "serve")
+    return QuantizedTensor(data, spec.scale, leaf.fmt, leaf.packed)
+
+
+def _is_in_proj(path: str) -> bool:
+    return re.search(r"(^|/)in_proj$", path) is not None
+
+
+def _halves_shard(t, spec, mesh, coord):
+    """The SSM ``in_proj`` reslice: the last dim is two halves (x, z) of
+    ``d_inner`` channels each, and the rank whose chunk of that dim would
+    be ``i`` of ``n`` takes channels [i di/n, (i+1) di/n) of both halves
+    (the block splits its output in half; a contiguous chunk would give
+    one rank all of x and another all of z).  Other dims cut as
+    :func:`local_shard` cuts them."""
+    i, n = shard_index(mesh, spec[-1], coord)
+    t = local_shard(t, P(*tuple(spec)[:-1], None), mesh, coord)
+    if n == 1:
+        return t
+    h = t.shape[-1] // 2
+    if t.shape[-1] % 2 or h % n:
+        raise ValueError(f"in_proj's {t.shape[-1]} columns do not split as "
+                         f"two halves {n} ways")
+    c = h // n
+    return torch.cat([t[..., i * c:(i + 1) * c],
+                      t[..., h + i * c:h + (i + 1) * c]], dim=-1)
+
+
+def _own(t):
+    """``t`` in storage of its own: a chunk that is a view of the whole
+    leaf would keep the whole leaf alive."""
+    if t.device.type == "meta":
+        return t
+    if t.untyped_storage().nbytes() > t.numel() * t.element_size():
+        return t.clone()
+    return t
+
+
+def place_leaf(path: str, leaf, spec, mesh, coord, mode: str = "serve"):
+    """This rank's chunk of one leaf under its :func:`placement_spec`: the
+    :func:`local_shard` cut, but for a serving SSM's ``in_proj``, which is
+    resliced by channel (:func:`_halves_shard`).  The chunk holds no
+    reference to the whole leaf."""
+    cut = (_halves_shard if mode == "serve" and _is_in_proj(path)
+           else local_shard)
+    if _is_qt(leaf):
+        return QuantizedTensor(_own(cut(leaf.data, spec.data, mesh, coord)),
+                               _own(cut(leaf.scale, spec.scale, mesh, coord)),
+                               leaf.fmt, leaf.packed)
+    return _own(cut(leaf, spec, mesh, coord))
+
+
+class LeafPlacer:
+    """A rank's share of a param tree, one leaf at a time: ``place(path,
+    leaf)`` gives the chunk :func:`place_leaf` cuts at ``coord`` (default
+    this rank's) on ``mesh`` in ``mode`` ("serve" or "train").  A model's
+    rank-local init hands it each leaf as it is drawn."""
+
+    def __init__(self, cfg, mesh, coord=None, mode: str = "serve"):
+        if mode not in ("serve", "train"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if coord is None:
+            coord = mesh_coordinate(mesh)
+            if coord is None:
+                raise ValueError("this rank is not in the mesh")
+        self.cfg, self.mesh, self.coord, self.mode = cfg, mesh, coord, mode
+
+    def spec(self, path: str, leaf):
+        if self.mode == "train":
+            return leaf_spec(path, leaf, self.cfg, self.mesh, "train")
+        return placement_spec(path, leaf, self.cfg, self.mesh)
+
+    def place(self, path: str, leaf):
+        if not isinstance(leaf, (torch.Tensor, QuantizedTensor)):
+            return leaf
+        return place_leaf(path, leaf, self.spec(path, leaf), self.mesh,
+                          self.coord, self.mode)
+
+    def specs(self, tree):
+        """The spec tree of a global tree (meta tensors do)."""
+        return map_tree(lambda path, leaf: self.spec(_path_str(path), leaf),
+                        tree)
+
+    def place_tree(self, tree):
+        return map_tree(lambda path, leaf: self.place(_path_str(path), leaf),
+                        tree)
 
 
 def local_shard_tree(tree, specs, mesh, coord=None):

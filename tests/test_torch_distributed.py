@@ -22,9 +22,10 @@ process computes the references.  Params come from the JAX package
 * the same (2, 2) mesh at horizon 4 for a reduced qwen3-moe burst and
   reduced recurrentgemma: tokens identical to the single process and the
   JAX Server;
-* ``from_devices`` / ``remesh`` on four ranks, and the refusals (a family
-  not yet tensor-parallel, context serving over split slots, a
-  ``max_batch`` the data axis does not divide).
+* ``from_devices`` / ``remesh`` on four ranks, and the refusals (the
+  RG-LRU hybrid on a model axis > 1, context serving over split slots, a
+  ``max_batch`` the data axis does not divide).  The MoE and SSM families'
+  tensor and expert parallelism is tested in ``test_torch_tp_families.py``.
 """
 import dataclasses
 import json
@@ -182,12 +183,12 @@ elif job == "tp":
                               ex.local_cfg.d_ff]
         out[name] = res
     from repro_torch.models import build_model
-    mcfg = reduced_config(get_config("qwen3-moe-30b-a3b"), d_model=1024,
-                          n_layers=1, n_heads=8, head_dim=128, d_ff=256,
+    hcfg = reduced_config(get_config("recurrentgemma-9b"), d_model=1024,
+                          n_layers=3, n_heads=8, head_dim=128, d_ff=256,
                           vocab_size=512, quant_mode="psi8")
-    mparams = build_model(mcfg).init(seed=0, device="cpu", bits=8)
-    out["refuse_moe"] = refused(lambda: Server(
-        mcfg, mparams, max_batch=2, max_seq=64, device="cpu", mesh=mesh))
+    hparams = build_model(hcfg).init(seed=0, device="cpu", bits=8)
+    out["refuse_hybrid"] = refused(lambda: Server(
+        hcfg, hparams, max_batch=2, max_seq=64, device="cpu", mesh=mesh))
 with open(f"{tmp}/{job}.{rank}.json", "w") as f:
     json.dump(out, f)
 dist.destroy_process_group()
@@ -470,5 +471,7 @@ def test_mesh_refusals(runs):
         assert res["refuse_batch"].startswith("ValueError: max_batch=3")
         assert res["refuse_prefix"].startswith("NotImplementedError")
     for res in got["tp"]:
-        assert res["refuse_moe"].startswith("NotImplementedError")
-        assert "ROADMAP" in res["refuse_moe"]
+        # the RG-LRU hybrid stays refused on a model axis > 1: its MQA
+        # ring would split over "model" (ROADMAP queue 1, item 5)
+        assert res["refuse_hybrid"].startswith("NotImplementedError")
+        assert "ROADMAP queue 1, item 5" in res["refuse_hybrid"]

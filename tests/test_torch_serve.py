@@ -123,6 +123,35 @@ def test_eos_retires_at_first_eos(engines):
             assert len(r.tokens) == r.max_new
 
 
+def _trace_args(argv):
+    ap = argparse.ArgumentParser()
+    tserve.add_serve_args(ap)
+    return ap.parse_args(["--arch", "qwen3-8b", "--requests", "6",
+                          "--prompt-jitter", "3", "--min-new", "2",
+                          "--arrival-rate", "50"] + argv)
+
+
+def _draws(trace):
+    return [(r.rid, r.max_new, r.arrival_s, r.prompt.tolist())
+            for r in trace]
+
+
+def test_trace_seed_matches_reference():
+    """``--seed 0 --trace-seed 7``: the port's trace is the reference's
+    ``trace_from_args`` draw (arrivals, budgets, prompts), and differs
+    from ``--seed 0`` alone (whose trace is the reference's too)."""
+    from repro.launch.serve import trace_from_args as jtrace
+    cfg = tconfigs.get_config("qwen3-8b")
+    both = _trace_args(["--seed", "0", "--trace-seed", "7"])
+    alone = _trace_args(["--seed", "0"])
+    assert both.trace_seed == 7 and alone.trace_seed is None
+    got = _draws(tserve.trace_from_args(both, cfg))
+    assert got == _draws(jtrace(both, cfg))
+    plain = _draws(tserve.trace_from_args(alone, cfg))
+    assert plain == _draws(jtrace(alone, cfg))
+    assert got != plain
+
+
 def test_cli_path_serves_on_cpu():
     args = argparse.Namespace(
         arch="qwen3-8b", reduced=True, n_layers=0, quant="psi5",
@@ -157,3 +186,21 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         params_from_numpy({"embed": np.zeros((1, 1), np.float32),
                            "norm_f": {}, "stack": {"groups": {"b0_attn": {
                                "w": np.zeros((1, 1), np.float32)}}}})
+
+
+def test_cli_d_model_widens_a_reduced_config():
+    """``--d-model`` sets a reduced config's residual width (1024 puts the
+    weights tensor-parallel on a mesh) and is refused without
+    ``--reduced``."""
+    ap = argparse.ArgumentParser()
+    tserve.add_serve_args(ap)
+    args = ap.parse_args(["--arch", "qwen3-moe-30b-a3b", "--reduced",
+                          "--d-model", "1024", "--device", "cpu",
+                          "--requests", "2", "--max-new", "2",
+                          "--prompt-len", "8"])
+    server, cfg = tserve.build_server(args)
+    assert cfg.d_model == 1024 and cfg.quant_mode == "psi8"
+    assert server.executor.params["embed"].shape == (cfg.vocab_size, 1024)
+    args.reduced = False
+    with pytest.raises(ValueError, match="--d-model"):
+        tserve.build_server(args)

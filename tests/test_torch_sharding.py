@@ -27,6 +27,7 @@ from repro.models import build_model as jbuild_model
 from repro.runtime import elastic as jel
 from repro.runtime import sharding as jshr
 from repro_torch.configs import get_config as tget_config
+from repro_torch.configs import reduced_config as treduced_config
 from repro_torch.core import quantizer as tqz
 from repro_torch.core.psi import QuantizedTensor as TQT
 from repro_torch.launch import scheduler as tsched
@@ -395,3 +396,87 @@ def test_block_allocator_books_one_shard():
     for a in (ja, ta):
         a.reserve(0, 4)
     assert [ta.alloc(0) for _ in range(4)] == [ja.alloc(0) for _ in range(4)]
+
+
+# narrow configs wide enough for tensor parallelism (d_model >= 1024): an
+# MoE whose experts divide every model axis here (expert parallelism), one
+# whose 3 experts do not (tensor parallelism inside each expert), mixtral,
+# and the SSM
+NARROW_TP = {
+    "qwen3-moe": ("qwen3-moe-30b-a3b", dict(
+        d_model=1024, n_layers=1, n_heads=8, head_dim=128, d_ff=256,
+        vocab_size=512)),
+    "moe3": ("qwen3-moe-30b-a3b", dict(
+        d_model=1024, n_layers=1, n_heads=8, head_dim=128, d_ff=256,
+        vocab_size=512, n_experts=3)),
+    "mixtral": ("mixtral-8x22b", dict(
+        d_model=1024, n_layers=1, n_heads=8, head_dim=128, d_ff=256,
+        vocab_size=512)),
+    "falcon-mamba": ("falcon-mamba-7b", dict(d_model=1024, n_layers=2,
+                                             vocab_size=512)),
+}
+
+
+def _want_chunk(path, leaf, spec, mesh, coord, cfg):
+    """This rank's share of a whole leaf, computed apart from the placer:
+    ``local_shard`` of its spec, but (a) a mamba in_proj's channels [j
+    di/m, (j+1) di/m) of both halves of its columns (its codes and
+    scales), (b) a packed expert block compared through its codes (the
+    codes' spec: the planes keep the expert dim)."""
+    if path.endswith("in_proj") and isinstance(leaf, TQT):
+        m, j = mesh.shape["model"], coord["model"]
+
+        def halves(t):
+            h = t.shape[-1] // 2
+            c = h // m
+            return torch.cat([t[..., j * c:(j + 1) * c],
+                              t[..., h + j * c:h + (j + 1) * c]], -1)
+        return ("codes", halves(leaf.codes), halves(leaf.scale))
+    if isinstance(leaf, TQT) and leaf.packed and leaf.data.dim() > 3:
+        cspec = tshr.leaf_spec(path, leaf.unpack(), cfg, mesh)
+        return ("codes", tshr.local_shard(leaf.codes, cspec.data, mesh, coord),
+                tshr.local_shard(leaf.scale, cspec.scale, mesh, coord))
+    if isinstance(leaf, TQT):
+        return ("data", tshr.local_shard(leaf.data, spec.data, mesh, coord),
+                tshr.local_shard(leaf.scale, spec.scale, mesh, coord))
+    return ("plain", tshr.local_shard(leaf, spec, mesh, coord), None)
+
+
+@pytest.mark.parametrize("bits", [8, 5, None])
+@pytest.mark.parametrize("name", list(NARROW_TP))
+def test_rank_local_init_is_the_placed_init(name, bits):
+    """``Model.init(share=LeafPlacer(cfg, mesh, coord))`` (each leaf drawn
+    whole, quantized, cut at once) at every coordinate of (1, 2) and (2, 2)
+    ``AxisMesh``es in serve mode equals the whole init cut to that rank,
+    bit for bit (the SSM reslice and the experts' own dims included), and
+    holds nothing of a whole leaf (its chunks own their storage).  Float
+    params (``bits`` None) in train mode: ``local_shard`` of the train
+    specs, as ``TrainShare.place`` cuts them."""
+    arch, kw = NARROW_TP[name]
+    cfg = treduced_config(tget_config(arch), **kw)
+    model = tbuild_model(cfg)
+    mode = "serve" if bits else "train"
+    full = model.init(seed=0, device="cpu", bits=bits, pack=True)
+    for shape in ((1, 2), (2, 2)):
+        mesh = tshr.AxisMesh(shape, ("data", "model"))
+        specs = tshr.param_specs(full, cfg, mesh, mode)
+        for c in _coords(mesh):
+            got = model.init(seed=0, device="cpu", bits=bits, pack=True,
+                             share=tshr.LeafPlacer(cfg, mesh, c, mode))
+
+            def one(path, leaf, spec, mine):
+                p = "/".join(map(str, path))
+                kind, want, want_scale = _want_chunk(p, leaf, spec, mesh, c,
+                                                     cfg)
+                if kind == "plain":
+                    assert torch.equal(mine, want), p
+                    parts = [mine]
+                else:
+                    have = mine.codes if kind == "codes" else mine.data
+                    assert torch.equal(have, want), (p, c)
+                    assert torch.equal(mine.scale, want_scale), (p, c)
+                    parts = [mine.data, mine.scale]
+                for t in parts:
+                    assert (t.untyped_storage().nbytes()
+                            == t.numel() * t.element_size()), p
+            tshr.map_tree(one, full, specs, got)

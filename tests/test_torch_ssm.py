@@ -409,3 +409,38 @@ def test_refusals_match_jax(what):
         tserve.Server(tcfg, tparams, max_batch=2, max_seq=48, device="cpu",
                       **tkw)
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("bits", [8, 5])
+@pytest.mark.parametrize("m", [2, 4])
+def test_in_proj_reslice_gives_each_rank_its_channels(m, bits):
+    """On a model axis of m (d_model 1024: tensor parallelism on), rank j's
+    ``in_proj`` holds the single process's channels [j di/m, (j+1) di/m)
+    of the x half and the same channels of the z half (codes and per-column
+    scales; psi5's planes cut along N), in that order, where a contiguous
+    chunk of the columns (the spec's GSPMD layout) would give the first
+    ranks x and the last z; the rank's config has d_inner / m channels."""
+    from repro_torch.runtime import parallel, sharding as tshr
+    tcfg = tconfigs.reduced_config(tconfigs.get_config(ARCH), d_model=1024,
+                                   n_layers=1, vocab_size=512)
+    di = tcfg.d_inner
+    full = tbuild_model(tcfg).init(seed=0, device="cpu", bits=bits,
+                                   pack=True)
+    whole = full["layers"][0]["mamba"]["in_proj"]
+    assert whole.packed == (bits < 8)
+    mesh = tshr.AxisMesh((1, m), ("data", "model"))
+    spec = tshr.param_specs(full, tcfg, mesh)["layers"][0]["mamba"][
+        "in_proj"]
+    assert tuple(spec.data)[-1] == "model"
+    c = di // m
+    for j in range(m):
+        placer = tshr.LeafPlacer(tcfg, mesh, {"data": 0, "model": j})
+        mine = placer.place("layers/0/mamba/in_proj", whole)
+        assert mine.shape == (tcfg.d_model, 2 * c)
+        for half in (0, 1):
+            lo = half * di + j * c
+            assert torch.equal(mine.codes[:, half * c:(half + 1) * c],
+                               whole.codes[:, lo:lo + c]), (j, half)
+            assert torch.equal(mine.scale[..., half * c:(half + 1) * c],
+                               whole.scale[..., lo:lo + c]), (j, half)
+    assert parallel.tp_local_config(tcfg, m).d_inner == c

@@ -20,7 +20,8 @@ a digest of its gathered states, which must equal rank 0's).
   ``shardings=`` onto the (1, 2) mesh ``plan_remesh(2, model_parallel=2)``
   gives and stepped once: both against three single-process steps; one
   step on a (2, 1, 2) ("pod", "data", "model") mesh.
-* Reduced recurrentgemma-9b on (2, 2): one step; MoE refuses the step.
+* Reduced recurrentgemma-9b and reduced qwen3-moe on (2, 2): one step
+  each (the MoE load-balancing loss over the global batch).
 * The twin of the JAX package's ``test_elastic_restart_resharded``: an 8 x
   8 ``arange`` leaf under ``P("data", "model")`` saved from (2, 2) chunks
   restores onto (1, 2), each rank its own chunk.
@@ -132,7 +133,7 @@ class Single:
         self.step_fn = make_train_step(build_model(cfg), opt)
     def step(self, b):
         self.p, self.s, _, met = self.step_fn(self.p, self.s, {}, b)
-        return [float(met["loss"]), float(met["grad_norm"])]
+        return [float(met["loss"]), float(met["grad_norm"]), float(met["aux"])]
     def diff(self, got):
         out = {}
         for kind, want in (("params", self.p), ("m", self.s.m), ("v", self.s.v)):
@@ -157,11 +158,13 @@ def run(cfg, share, local, st, name, steps, ref):
     their digest and (rank 0) their distance from ``ref``, which takes the
     same step unless it already has."""
     step = make_sharded_train_step(build_model(cfg), adamw(lr=LR), share)
-    rec = {"loss": [], "grad_norm": [], "digest": [], "single": [], "diff": []}
+    rec = {"loss": [], "grad_norm": [], "aux": [], "digest": [], "single": [],
+           "diff": []}
     for i in steps:
         local, st, met = step(local, st, share.local_batch(batch(name, i)))
         rec["loss"].append(float(met["loss"]))
         rec["grad_norm"].append(float(met["grad_norm"]))
+        rec["aux"].append(float(met["aux"]))
         got = {"params": share.gather_tree(local), "m": share.gather_tree(st.m),
                "v": share.gather_tree(st.v)}
         rec["digest"].append(digest(got))
@@ -201,13 +204,14 @@ share, local, st = fresh(cfg, mesh22, params)
 out["rg"] = run(cfg, share, local, st, "rg", range(1),
                 Single(cfg, params) if rank == 0 else None)[2]
 
-# MoE refuses
+# MoE on (2, 2): one step, the load-balancing loss over the global batch
 cfg, params = load("moe")
-try:
-    make_sharded_train_step(build_model(cfg), adamw(lr=LR), None)
-    out["moe"] = None
-except NotImplementedError as e:
-    out["moe"] = str(e)
+share, local, st = fresh(cfg, mesh22, params)
+parallel.reset_collective_counts()
+out["moe"] = run(cfg, share, local, st, "moe", range(1),
+                 Single(cfg, params) if rank == 0 else None)[2]
+out["moe"]["collectives"] = parallel.collective_counts()
+out["moe"]["rows"] = int(share.local_batch(batch("moe", 0))["tokens"].shape[0])
 
 # NARROW (TP on) on (2, 2): 2 steps, a checkpoint, a third step
 cfg, params = load("narrow")
@@ -223,7 +227,7 @@ mgr.save(2, {"params": local, "opt": {"step": torch.tensor(st.step, dtype=torch.
                                      "m": st.m, "v": st.v}},
          extra={"step": 2}, shardings=(ckpt_specs(share.specs), mesh22))
 local, st, rec3 = run(cfg, share, local, st, "narrow", [2], ref)
-for k in ("loss", "grad_norm", "digest", "single", "diff"):
+for k in ("loss", "grad_norm", "aux", "digest", "single", "diff"):
     rec[k] += rec3[k]
 out["narrow22"] = rec
 
@@ -320,10 +324,19 @@ def runs(tmp_path_factory):
     # the JAX references while the ranks run
     ref = {}
     for k, quant in (("qwen", "none"), ("qwen", "qat8"), ("narrow", "none"),
-                     ("rg", "none")):
+                     ("rg", "none"), ("moe", "none")):
         model = build_model(dataclasses.replace(cfgs[k], quant_mode=quant))
         ref[f"{k}_{quant}"] = float(model.loss(
             jparams[k], {"tokens": jnp.asarray(batches[k][0])})[0])
+    # the MoE load-balancing loss over the whole batch, and the mean of the
+    # four row shards' own (what a per-rank aux would give)
+    moe_model = build_model(cfgs["moe"])
+    rows = batches["moe"][0]
+    ref["moe_aux"] = float(moe_model.loss(
+        jparams["moe"], {"tokens": jnp.asarray(rows)})[1]["aux"])
+    ref["moe_aux_shard_mean"] = float(np.mean([
+        moe_model.loss(jparams["moe"], {"tokens": jnp.asarray(part)})[1]["aux"]
+        for part in np.split(rows, 4)]))
     seq = jnp.asarray(pipe["xs"])
     for w in pipe["ws"]:
         seq = jnp.tanh(seq @ jnp.asarray(w))
@@ -415,7 +428,7 @@ def test_fsdp_checkpoint_restores_onto_the_remeshed_job(runs):
         assert res["local_wq"] == [1024, 512]
         assert res["digest"] == got[0]["narrow12_restored"]["digest"]
         np.testing.assert_allclose([res["loss"][0], res["grad_norm"][0]],
-                                   want, rtol=LOSS_RTOL)
+                                   want[:2], rtol=LOSS_RTOL)
     diff = got[0]["narrow12_restored"]["diff"][0]
     assert diff["params"]["max_abs"] <= 2 * LR * STEPS, diff
     assert max(diff[k]["max_rel_leaf"] for k in ("m", "v")) <= STATE_REL
@@ -439,10 +452,24 @@ def test_recurrent_family_loss_matches(runs):
 
 
 def test_moe_refuses_the_sharded_step(runs):
-    _, got = runs
+    """Once a refusal, now parity: reduced qwen3-moe on (2, 2), the rows
+    split four ways (2 a rank), one step == the single process (loss with
+    its aux, gradient norm, m, v and params as the other families are
+    held).  The load-balancing loss is the global batch's, all-reduced
+    inside autograd: equal to JAX's over the whole batch, and measurably
+    apart from the mean of the four shards' own."""
+    ref, got = runs
+    _check_run(got, "moe", ref["moe_none"], (LR, GRAD_REL), (LR, GRAD_REL))
+    want, per_shard = ref["moe_aux"], ref["moe_aux_shard_mean"]
+    assert abs(want - per_shard) > 1e-3 * abs(want)
+    single_aux = got[0]["moe"]["single"][0][2]
+    assert abs(single_aux - want) <= LOSS_RTOL * abs(want)
     for res in got:
-        assert res["moe"] is not None
-        assert "ROADMAP queue 1, item 4" in res["moe"]
+        aux = res["moe"]["aux"][0]
+        assert abs(aux - want) <= LOSS_RTOL * abs(want)
+        assert abs(aux - per_shard) > 1e-3 * abs(want)
+        assert res["moe"]["rows"] == 2
+        assert res["moe"]["collectives"]["all_reduce"] > 0
 
 
 def test_compression_refused_on_a_mesh():
