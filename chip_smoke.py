@@ -37,8 +37,23 @@ printing one JSON line; any failure exits non-zero before the result line:
                          on the dense slab: no kernel 3); kernels 1-2
                          also at one rank's weights of falcon-mamba,
                          qwen3-moe and mixtral on a model axis of 4 (TP /
-                         EP over four cards: kernel_shape_local) and
-                         kernel 3 at their local heads 8/1 and 12/2;
+                         EP over four cards: kernel_shape_local), and of
+                         recurrentgemma-9b and granite-34b there at M = 4
+                         (their cut MQA K/V projections, the RG-LRU's
+                         channels), and kernel 3 at their local heads
+                         8/1, 12/2 and 12/1; kernels 1 and 2's f32 output
+                         route (a row-parallel shard's partial sums) at
+                         every served config's weight shapes at M 4 and
+                         288 against the plain version, its cast to bf16
+                         equal to the bf16 route's output bit for bit,
+                         both routes' device times at M = 4 (f32_out);
+  2b. split-ring merge (ring_merge) — the decode read of a dense KV ring
+                         split over a model axis of 4, on one card as 4
+                         chunks of one slab (B 4, C 2048; granite-34b's
+                         48/1 heads of 128, recurrentgemma-9b's 16/1 of
+                         256 under its 2048 window): each chunk's partial
+                         softmax and the merge, against plain sdpa over
+                         the whole slab, and both timed;
   3. serve psi8        — Server.serve of qwen3-8b, all 36 layers, in
                          continuous and static modes: identical tokens, and
                          253 PSI-matmul (kernel 1) + 36 attention launches
@@ -262,6 +277,11 @@ DECODE_M = 4                     # decode rows = max_batch of the serve phase
 TP_LOCAL_M = 4
 TP_LOCAL_ARCHS = ("falcon-mamba-7b", "qwen3-moe-30b-a3b", "mixtral-8x22b")
 TP_LOCAL_MS = (1, 4, 16, 64, 288)
+# the configs whose KV heads do not split over the model axis (a cut MQA
+# K/V projection, the dense ring split by position) and the hybrid's
+# channels: one rank's weights at the decode rows only
+TP_RING_ARCHS = ("recurrentgemma-9b", "granite-34b")
+RING_B, RING_C = 4, 2048         # the split-ring merge's slots and ring
 HORIZON = 8                      # decode steps per round, serve_psi8_horizon
 MESH_PAIRS = 10                  # serve_psi8_mesh's plain / mesh serve pairs
 # serve_psi8_ctx: the bursty trace's seed (its first burst holds two long
@@ -379,41 +399,49 @@ def matmul_launches(cfg, steps, forwards):
     return per_step * (steps + forwards) + encoder_launches(cfg) * forwards
 
 
-def weight_shapes(cfg):
+def weight_shapes(cfg, m=1):
     """{label: ((K, N), launches per decode step)} of a config's PSI
     matmuls (wq and wo apart where n_heads x head_dim != d_model; no MLP
     for MoE or the SSM; the rec layers' five, the mamba layers' four,
-    whisper's cross attention's four; labels of one shape merged)."""
+    whisper's cross attention's four; labels of one shape merged), or of
+    one rank's share on a model axis of ``m`` (its heads, FFN, RG-LRU and
+    SSM channels; a K/V projection whose heads do not split cut by
+    column, the dense gate projections' K whole, the lm-head's V/m
+    vocab-parallel columns; an MoE's experts are dequantized blocks, no
+    PSI matmul)."""
     from repro_torch.models.transformer import layer_kinds
     kinds = layer_kinds(cfg)
     d, hd, L = cfg.d_model, cfg.resolved_head_dim, len(kinds)
     La = kinds.count("attn") + 2 * kinds.count("xattn")
     Lr, dr = kinds.count("rec"), cfg.resolved_d_rnn
     Lm, di = kinds.count("mamba"), cfg.d_inner
-    q = cfg.n_heads * hd
+    q = cfg.n_heads * hd // m
+    kv = cfg.n_kv_heads * hd
+    kv = kv // m if kv % m == 0 else kv
+    ff = cfg.d_ff // m
     rows = []
     if La:
         rows = ([("wq/wo", (d, d), 2 * La)] if q == d
                 else [("wq", (d, q), La), ("wo", (q, d), La)])
-        rows.append(("wk/wv", (d, cfg.n_kv_heads * hd), 2 * La))
+        rows.append(("wk/wv", (d, kv), 2 * La))
     if Lr:
-        rows += [("w_in_gate/w_in_rec", (d, dr), 2 * Lr),
-                 ("rglru_wa/rglru_wx", (dr, dr), 2 * Lr),
-                 ("w_out", (dr, d), Lr)]
+        rows += [("w_in_gate/w_in_rec", (d, dr // m), 2 * Lr),
+                 ("rglru_wa/rglru_wx", (dr, dr // m), 2 * Lr),
+                 ("w_out", (dr // m, d), Lr)]
     if Lm:
-        r, N = cfg.resolved_dt_rank, cfg.ssm_state
-        rows += [("in_proj", (d, 2 * di), Lm),
-                 ("x_proj", (di, r + 2 * N), Lm),
-                 ("dt_proj_w", (r, di), Lm),
-                 ("out_proj", (di, d), Lm)]
+        r, N, dl = cfg.resolved_dt_rank, cfg.ssm_state, di // m
+        rows += [("in_proj", (d, 2 * dl), Lm),
+                 ("x_proj", (dl, r + 2 * N), Lm),
+                 ("dt_proj_w", (r, dl), Lm),
+                 ("out_proj", (dl, d), Lm)]
     if cfg.family in ("moe", "ssm"):
         pass
     elif cfg.act == "gelu":
-        rows += [("w_up", (d, cfg.d_ff), L), ("w_down", (cfg.d_ff, d), L)]
+        rows += [("w_up", (d, ff), L), ("w_down", (ff, d), L)]
     else:
-        rows += [("w_gate/w_up", (d, cfg.d_ff), 2 * L),
-                 ("w_down", (cfg.d_ff, d), L)]
-    rows.append(("lm_head", (d, cfg.vocab_size), 1))
+        rows += [("w_gate/w_up", (d, ff), 2 * L),
+                 ("w_down", (ff, d), L)]
+    rows.append(("lm_head", (d, cfg.vocab_size // m), 1))
     out = {}
     for label, kn, n in rows:
         old = next((k for k, (s, _) in out.items() if s == kn), None)
@@ -496,19 +524,30 @@ def main():
           "bytes_per_s": bw, "bf16_flop_per_s": peak})
 
     from repro_torch.kernels import ops
-    summary = phase_kernels(torch, dev, bw, peak)
+    seconds = {"build": round(build_s, 3)}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        got = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 3)
+        return got
+
+    summary = timed("kernels", phase_kernels, torch, dev, bw, peak)
+    timed("ring_merge", phase_ring_merge, torch, dev, bw)
     launches = {}
-    phase_serve(torch, dev, launches, "psi8")
-    phase_serve_ctx(torch, dev, launches)
-    phase_serve(torch, dev, launches, "psi5")
-    phase_serve_spec(torch, dev, launches)
+    timed("serve_psi8", phase_serve, torch, dev, launches, "psi8")
+    timed("serve_psi8_ctx", phase_serve_ctx, torch, dev, launches)
+    timed("serve_psi5", phase_serve, torch, dev, launches, "psi5")
+    timed("serve_psi5_spec", phase_serve_spec, torch, dev, launches)
     for arch, (_, quant) in ARCHS.items():
-        phase_serve(torch, dev, launches, quant, arch)
-    phase_card_vs_cpu(torch, dev)
-    phase_train(torch, dev, launches)
-    phase_train_mesh(torch, dev)
-    phase_train_resume(torch, dev)
-    phase_cnn(torch, dev)
+        timed(f"serve_{arch}", phase_serve, torch, dev, launches, quant,
+              arch)
+    timed("card_vs_cpu", phase_card_vs_cpu, torch, dev)
+    timed("train", phase_train, torch, dev, launches)
+    timed("train_mesh", phase_train_mesh, torch, dev)
+    timed("train_resume", phase_train_resume, torch, dev)
+    timed("cnn", phase_cnn, torch, dev)
+    emit({"phase": "phase_seconds", **seconds})
 
     # ---------------------------------------------------------- 6. summary
     kernels = []
@@ -647,7 +686,8 @@ def phase_kernels(torch, dev, bw, peak):
                "paged_attention": 0.0}
     agg = {k: dict.fromkeys(("ms", "device_ms", "host_ms", "plain_ms",
                              "library_ms", "library_device_ms", "bytes",
-                             "flops"), 0.0)
+                             "flops", "f32_out_device_ms",
+                             "f32_out_bf16_device_ms"), 0.0)
            for k in ("psi_matmul_codes", "psi_matmul_packed")}
 
     # -- ragged shapes, f32 (the reduced configs' dtype): reduced widths,
@@ -747,11 +787,15 @@ def phase_kernels(torch, dev, bw, peak):
             if bits not in (8, 5):
                 continue
             t, kern, datas = _decode_times(torch, qt, gen, dev, bw, peak)
+            t["f32_out"] = _f32_out_route(torch, qt, datas, gen, dev)
             row[f"psi{bits}_decode"] = t
             a = agg[key]
             for f in ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
                       "library_device_ms", "bytes", "flops"):
                 a[f] += per_step * t[f]
+            a["f32_out_device_ms"] += per_step * t["f32_out"]["device_ms"]
+            a["f32_out_bf16_device_ms"] += (per_step
+                                            * t["f32_out"]["bf16_device_ms"])
             n_graph = max(20, len(datas))   # every copy once: cold
             # a verify's rows (max_batch x k), weights cold
             xv = torch.randn(DECODE_M * SPEC_K, K, generator=gen,
@@ -793,11 +837,18 @@ def phase_kernels(torch, dev, bw, peak):
             "device_ms": a["device_ms"], "host_ms": a["host_ms"],
             "library_device_ms": a["library_device_ms"],
             "device_roofline_share": bound / a["device_ms"],
+            # the f32 output route's step (every launch on it) against the
+            # bf16 route's, timed side by side
+            "f32_out_device_ms": a["f32_out_device_ms"],
+            "f32_out_bf16_device_ms": a["f32_out_bf16_device_ms"],
             "scope": f"one full-width {MAIN_ARCH} decode step at "
                      f"psi{bits}: {per_fwd} launches at M={DECODE_M}, "
                      f"weights cold; ms, plain_ms and library_ms are eager "
                      f"loops (host cost included), "
-                     f"device_ms and library_device_ms CUDA-graph replays",
+                     f"device_ms and library_device_ms CUDA-graph replays; "
+                     f"f32_out_device_ms the same step on the f32 output "
+                     f"route, f32_out_bf16_device_ms the bf16 route in the "
+                     f"same measurement",
             "bytes": a["bytes"]}
 
     # -- paged attention
@@ -1160,6 +1211,56 @@ def _decode_times(torch, qt, gen, dev, bw, peak, host=True):
     return t, kern, datas
 
 
+def _f32_out_route(torch, qt, datas, gen, dev):
+    """Kernel 1 or 2's f32 output route (``out_dtype=torch.float32`` of a
+    bf16 x: a row-parallel shard's partial sums, all-reduced before their
+    one cast) on the (K, N) weight ``qt``: held against the plain
+    version's f32 output at M = DECODE_M and ARCH_PREFILL_ROWS (1e-5 of
+    the largest output: the same f32 sums in another order), its cast to
+    bf16 equal to the bf16 route's output bit for bit; then both routes'
+    device times at M = DECODE_M over the cold weight copies ``datas``
+    (CUDA-graph replays of the same calls)."""
+    from repro_torch.core import psi
+    from repro_torch.kernels import ops, ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    K, N = qt.shape
+    scale = qt.scale.reshape(-1)
+    worst = 0.0
+    for M in (DECODE_M, ARCH_PREFILL_ROWS):
+        x = torch.randn(M, K, generator=gen, device=dev).to(bf16)
+        got = ops.psi_matmul_2d(x, qt, out_dtype=f32)
+        check(got.dtype == f32, f"the f32 route returned {got.dtype}")
+        if qt.packed:
+            want = ref.psi_matmul_packed_ref(x, qt.data, scale, qt.fmt.bits,
+                                             out_dtype=f32)
+        else:
+            want = ref.psi_matmul_codes_ref(x, qt.data, scale, out_dtype=f32)
+        err = float((got - want).abs().max())
+        check(err <= 1e-5 * max(float(want.abs().max()), 1.0),
+              f"f32 route ({M}, {K}, {N}) bits {qt.fmt.bits}: err {err} "
+              f"over tolerance")
+        check(torch.equal(got.to(bf16), ops.psi_matmul_2d(x, qt)),
+              f"f32 route ({M}, {K}, {N}) bits {qt.fmt.bits}: its cast to "
+              f"bf16 is not the bf16 route's output bit for bit")
+        worst = max(worst, err)
+    x = torch.randn(DECODE_M, K, generator=gen, device=dev).to(bf16)
+
+    def run(i, dt):
+        return ops.psi_matmul_2d(
+            x, psi.QuantizedTensor(datas[i], scale, qt.fmt, qt.packed),
+            out_dtype=dt)
+
+    n = max(20, len(datas))
+    return {"checked_M": [DECODE_M, ARCH_PREFILL_ROWS],
+            "max_abs_err": worst, "bf16_cast_bit_equal": True,
+            "M": DECODE_M,
+            "device_ms": _graph_ms(torch, lambda i: run(i, f32), len(datas),
+                                   iters=n),
+            "bf16_device_ms": _graph_ms(torch, lambda i: run(i, None),
+                                        len(datas), iters=n),
+            "extra_bytes": 2 * DECODE_M * N}
+
+
 def _extra_ms(cfg, label):
     """(bf16 rows, f32 rows) past ARCH_MS at which a served config runs a
     weight: the SSM's x_proj and dt_proj_w take f32 rows at prefill (the
@@ -1284,6 +1385,7 @@ def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
                 max_err[key] = max(max_err[key], err)
                 t, kern, datas = _decode_times(torch, qt, gen, dev, bw, peak,
                                                host=False)
+                t["f32_out"] = _f32_out_route(torch, qt, datas, gen, dev)
                 xp = torch.randn(64, K, generator=gen, device=dev).to(bf16)
                 t["prefill_64_device_ms"] = _graph_ms(
                     torch, lambda i: kern(i, xp), len(datas), iters=5)
@@ -1312,14 +1414,10 @@ def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
 
 def local_weight_shapes(cfg, m):
     """:func:`weight_shapes` of one rank's share of ``cfg`` on a model axis
-    of ``m`` (``parallel.tp_local_config``: its heads, its SSM channels;
-    an MoE's experts are dequantized blocks, no PSI matmul), the lm-head
-    at its V/m vocab-parallel columns."""
+    of ``m``, the share ``parallel.tp_local_config`` holds."""
     from repro_torch.runtime.parallel import tp_local_config
-    out = weight_shapes(tp_local_config(cfg, m))
-    (K, N), n = out.pop("lm_head")
-    out["lm_head"] = ((K, N // m), n)
-    return out
+    tp_local_config(cfg, m)             # the split is one the port serves
+    return weight_shapes(cfg, m)
 
 
 def _local_gemm_rows(torch, dev, bw, peak, gen, max_err):
@@ -1334,15 +1432,17 @@ def _local_gemm_rows(torch, dev, bw, peak, gen, max_err):
     from repro_torch.core import psi
     from repro_torch.kernels import ops, ref
     bf16 = torch.bfloat16
-    for arch in TP_LOCAL_ARCHS:
+    for arch in TP_LOCAL_ARCHS + TP_RING_ARCHS:
         cfg = get_config(arch)
+        ms = (TP_LOCAL_MS, (4, 16)) if arch in TP_LOCAL_ARCHS else (
+            (DECODE_M,), (DECODE_M,))
         for wl, ((K, N), per_step) in local_weight_shapes(
                 cfg, TP_LOCAL_M).items():
             w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
             row = {"phase": "kernel_shape_local", "arch": arch,
                    "model_axis": TP_LOCAL_M, "weight": wl, "K": K, "N": N,
                    "launches_per_decode_step": per_step,
-                   "checked_M": f"bf16 {TP_LOCAL_MS}, f32 (4, 16)"}
+                   "checked_M": f"bf16 {ms[0]}, f32 {ms[1]}"}
             for bits in (8, 5):
                 qt = psi.quantize_weights(w, bits, axis=(0,))
                 key = "psi_matmul_codes" if bits == 8 else "psi_matmul_packed"
@@ -1354,11 +1454,11 @@ def _local_gemm_rows(torch, dev, bw, peak, gen, max_err):
                     plain = lambda x, q=qt: ref.psi_matmul_codes_ref(
                         x, q.data, q.scale)
                 err, ratio = _gemm_errors(torch, ops, ref, qt, plain,
-                                          TP_LOCAL_MS, bf16, gen, dev)
+                                          ms[0], bf16, gen, dev)
                 check(ratio <= 1.0, f"{key} {arch} local {wl} bf16 err {err} "
                                     f"over one bf16 ulp of the output")
                 _, xf = _extra_ms(cfg, wl)
-                f32_ms = tuple(sorted({4, 16, *xf}))
+                f32_ms = tuple(sorted({*ms[1], *xf}))
                 err32, ratio = _gemm_errors(torch, ops, ref, qt, plain,
                                             f32_ms, torch.float32, gen, dev)
                 check(ratio <= 1.0, f"{key} {arch} local {wl} f32 err "
@@ -1384,15 +1484,16 @@ def _local_gemm_rows(torch, dev, bw, peak, gen, max_err):
 
 
 def _local_heads():
-    """(arch, local Hq, local Hkv) of each TP_LOCAL_ARCHS config with
-    attention (head_dim 128) on a model axis of TP_LOCAL_M."""
+    """(arch, local Hq, local Hkv) of each TP_LOCAL_ARCHS / TP_RING_ARCHS
+    config that can read through kernel 3 (head_dim 128) on a model axis
+    of TP_LOCAL_M (an MQA head is read whole by every rank's heads)."""
     from repro_torch.configs import get_config
     from repro_torch.runtime.parallel import tp_local_config
     out = []
-    for a in TP_LOCAL_ARCHS:
+    for a in TP_LOCAL_ARCHS + TP_RING_ARCHS:
         cfg = get_config(a)
-        if cfg.is_attention_free:
-            continue
+        if cfg.is_attention_free or cfg.family == "hybrid":
+            continue            # no attention, or only on the dense ring
         local = tp_local_config(cfg, TP_LOCAL_M)
         check(local.resolved_head_dim == 128, f"{a}: kernel 3's rows here "
                                               f"are at head_dim 128")
@@ -1426,6 +1527,80 @@ def _packed_plan(K, N):
     from repro_torch.kernels import _build
     from repro_torch.kernels import psi_matmul as pm
     return pm.split_plan(K, N, _build.sm_count(0))
+
+
+def phase_ring_merge(torch, dev, bw):
+    """2b: the decode read of a dense KV ring whose positions split over a
+    model axis of TP_LOCAL_M, on one card: RING_B rows against one
+    RING_C-slot bf16 slab cut into TP_LOCAL_M chunks, each chunk's partial
+    softmax (``attention.ring_partial``, every query head) merged in chunk
+    order (``attention.merge_ring_partials``), held against plain sdpa
+    over the whole slab (the single process's read); rows before the ring
+    has filled, at its wrap and past it.  Device times (CUDA-graph
+    replays, slabs cold): the whole-slab sdpa, all chunks and the merge,
+    and one rank's share (its chunk and the merge of all the chunks'
+    partials)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as att
+    bf16, m = torch.bfloat16, TP_LOCAL_M
+    B, C = RING_B, RING_C
+    cc = C // m
+    for arch in ("granite-34b", "recurrentgemma-9b"):
+        cfg = get_config(arch)
+        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        window = cfg.window if cfg.attn_type == "swa" else 0
+        g = torch.Generator(device=dev)
+        g.manual_seed(H * 1000 + D)
+        q = torch.randn(B, 1, H, D, generator=g, device=dev).to(bf16)
+        k = torch.randn(B, C, Hkv, D, generator=g, device=dev).to(bf16)
+        v = torch.randn(B, C, Hkv, D, generator=g, device=dev).to(bf16)
+        P = torch.tensor([C // 2 - 3, C - 1, C + 5, 3 * C + 17],
+                         dtype=torch.int32, device=dev)[:B]
+        # ring slot i holds the newest position p <= P with p % C == i
+        i = torch.arange(C, dtype=torch.int32, device=dev)
+        kp = P[:, None] - (P[:, None] - i[None]) % C
+        kp = torch.where(kp >= 0, kp, torch.full_like(kp, -1))
+        qp = P[:, None]
+
+        def parts(kk, vv, n=m):
+            return [att.ring_partial(q, kk[:, c * cc:(c + 1) * cc],
+                                     vv[:, c * cc:(c + 1) * cc], qp,
+                                     kp[:, c * cc:(c + 1) * cc], window)
+                    for c in range(n)]
+
+        want = att.sdpa(q, k, v, qp, kp, window=window)[:, 0].float()
+        a = att.sdpa(q, k, v.abs(), qp, kp, window=window)[:, 0].float()
+        got = att.merge_ring_partials(parts(k, v))
+        check(torch.isfinite(got).all().item(), "ring merge: non-finite")
+        d = (got - want).abs()
+        # the plain read rounds its probabilities to bf16 before the values
+        # (2^-9 A each), the merge does not, and both outputs round once
+        tol = 2.0 ** -7 * want.abs() + 2.0 ** -5 * a
+        check(not bool((d > tol).any()),
+              f"ring merge {arch}: err {float(d.max())} over its "
+              f"per-element tolerance")
+        slab = 2 * k.numel() * k.element_size()
+        sets = list(zip(_copies(k, slab), _copies(v, slab)))
+        rest = parts(k, v)[1:]
+        n = max(20, len(sets))
+        t_whole = _graph_ms(torch, lambda j: att.sdpa(
+            q, sets[j][0], sets[j][1], qp, kp, window=window), len(sets),
+            iters=n)
+        t_all = _graph_ms(torch, lambda j: att.merge_ring_partials(
+            parts(*sets[j])), len(sets), iters=n)
+        t_rank = _graph_ms(torch, lambda j: att.merge_ring_partials(
+            parts(*sets[j], n=1) + rest), len(sets), iters=n)
+        nbytes = slab + 2 * q.numel() * 2 + 4 * kp.numel()
+        emit({"phase": "ring_merge", "arch": arch, "B": B, "C": C,
+              "chunks": m, "Hq": H, "Hkv": Hkv, "D": D, "window": window,
+              "positions": P.tolist(), "max_abs_err": float(d.max()),
+              "tolerance": "2^-7 |want| + 2^-5 A, A = sdpa on |V|",
+              "sdpa_device_ms": t_whole, "merge_all_device_ms": t_all,
+              "rank_device_ms": t_rank, "bytes": nbytes,
+              "bound_ms": nbytes / bw * 1e3,
+              "rank_bound_ms": nbytes / m / bw * 1e3})
+        del sets
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

@@ -268,6 +268,19 @@ constexpr int kMmaBN = 32;              // channels per block (two A tiles)
 constexpr int kGroupRows = 8;           // plane rows per group (64 K)
 constexpr int kMaxSplit = 8;            // K splits: a portable cluster
 
+// The epilogue's store of one output: the f32 sum times its scale, rounded
+// to bf16 into `out`, or as it is into `out32` when the caller asked for an
+// f32 output (a row-parallel partial sum, added over ranks before its one
+// cast).  Rounding is round-to-nearest-even either way, so the f32 output
+// cast to bf16 is the bf16 output bit for bit.
+__device__ __forceinline__ void store_out(__nv_bfloat16* out, float* out32,
+                                          size_t i, float y) {
+  if (out32 != nullptr)
+    out32[i] = y;
+  else
+    out[i] = __float2bfloat16(y);
+}
+
 // One step of an 8 x 8 bit transpose (Hacker's Delight, transpose8),
 // done in four byte lanes at once: bits j + S of `lo` (j in the lower half
 // of each 2S-bit field, the bits MASK selects) trade places with bits j of
@@ -325,7 +338,7 @@ __device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* __restrict__ x,
 // of (1, n_split, 1): split s takes the 64-K groups [s*chunk, min(groups,
 // (s+1)*chunk)) and warp w groups w, w+8, ... of them.  Each block sums its
 // warps in shared memory; the blocks of a cluster then add the splits, in
-// split order, through distributed shared memory, and store bf16.  Up to two
+// split order, through distributed shared memory, and store bf16 (or f32).  Up to two
 // token tiles, registers are held to three blocks per SM; four tiles' 32
 // accumulators need more.
 template <int BITS, int NT, bool VEC>
@@ -333,7 +346,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32, NT == 4 ? 1 : 3)
 psi_gemm_mma_kernel(const __nv_bfloat16* __restrict__ x,
                     const uint8_t* __restrict__ planes,
                     const float* __restrict__ scale,
-                    __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ out32, int M, int K, int N,
                     int chunk) {
   __shared__ float red[kMmaWarps][NT * 8 * kMmaBN];   // [warp][tok][ch]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -475,14 +489,14 @@ psi_gemm_mma_kernel(const __nv_bfloat16* __restrict__ x,
     float s = 0.f;
     for (int r = 0; r < n_split; ++r)
       s += cluster.map_shared_rank(&red[0][0], r)[idx];
-    out[(size_t)row * N + col] = __float2bfloat16(s * scale[col]);
+    store_out(out, out32, (size_t)row * N + col, s * scale[col]);
   }
   cluster.sync();              // keep red alive until the cluster has read it
 }
 
 template <int BITS, int NT, bool VEC>
 int launch_mma_t(const void* x, const void* w, const void* scale, void* out,
-                 int M, int K, int N, int chunk, int n_split,
+                 bool f32_out, int M, int K, int N, int chunk, int n_split,
                  cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + kMmaBN - 1) / kMmaBN, n_split,
@@ -499,39 +513,41 @@ int launch_mma_t(const void* x, const void* w, const void* scale, void* out,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, psi_gemm_mma_kernel<BITS, NT, VEC>,
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M,
-      K, N, chunk);
+      static_cast<const float*>(scale),
+      f32_out ? nullptr : static_cast<__nv_bfloat16*>(out),
+      f32_out ? static_cast<float*>(out) : nullptr, M, K, N, chunk);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <int BITS, bool VEC>
 int launch_mma_v(const void* x, const void* w, const void* scale, void* out,
-                 int M, int K, int N, int chunk, int n_split,
+                 bool f32_out, int M, int K, int N, int chunk, int n_split,
                  cudaStream_t s) {
   if (M <= 8)
-    return launch_mma_t<BITS, 1, VEC>(x, w, scale, out, M, K, N, chunk,
-                                      n_split, s);
+    return launch_mma_t<BITS, 1, VEC>(x, w, scale, out, f32_out, M, K, N,
+                                      chunk, n_split, s);
   if (M <= 16)
-    return launch_mma_t<BITS, 2, VEC>(x, w, scale, out, M, K, N, chunk,
-                                      n_split, s);
-  return launch_mma_t<BITS, 4, VEC>(x, w, scale, out, M, K, N, chunk,
-                                    n_split, s);
+    return launch_mma_t<BITS, 2, VEC>(x, w, scale, out, f32_out, M, K, N,
+                                      chunk, n_split, s);
+  return launch_mma_t<BITS, 4, VEC>(x, w, scale, out, f32_out, M, K, N,
+                                    chunk, n_split, s);
 }
 
 // The tensor-core route: x bf16 (16-byte aligned), planes (BITS, K/8, N).
 template <int BITS>
 int launch_mma(const void* x, const void* w, const void* scale, void* out,
-               int M, int K, int N, int chunk, cudaStream_t stream) {
+               bool f32_out, int M, int K, int N, int chunk,
+               cudaStream_t stream) {
   const int groups = (K / 8 + kGroupRows - 1) / kGroupRows;
   if (chunk < 1 || chunk > groups || reinterpret_cast<uintptr_t>(x) % 16)
     return (int)cudaErrorInvalidValue;
   const int n_split = (groups + chunk - 1) / chunk;
   if (n_split > kMaxSplit) return (int)cudaErrorInvalidValue;
   if (N % 4 || reinterpret_cast<uintptr_t>(w) % 4)
-    return launch_mma_v<BITS, false>(x, w, scale, out, M, K, N, chunk,
-                                     n_split, stream);
-  return launch_mma_v<BITS, true>(x, w, scale, out, M, K, N, chunk, n_split,
-                                  stream);
+    return launch_mma_v<BITS, false>(x, w, scale, out, f32_out, M, K, N,
+                                     chunk, n_split, stream);
+  return launch_mma_v<BITS, true>(x, w, scale, out, f32_out, M, K, N, chunk,
+                                  n_split, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -611,7 +627,8 @@ __global__ void __launch_bounds__(kMmaWarps * 32, NT == 1 ? 3 : 2)
 psi_gemm_codes_kernel(const __nv_bfloat16* __restrict__ x,
                       const uint8_t* __restrict__ codes,
                       const float* __restrict__ scale,
-                      __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ out32, int M, int K, int N,
                       int chunk) {
   constexpr int kTN = 32 * NW;                      // channels per block
   constexpr int kTiles = 2 * NW;                    // A tiles per warp
@@ -740,15 +757,15 @@ psi_gemm_codes_kernel(const __nv_bfloat16* __restrict__ x,
     float v = 0.f;
     for (int r = 0; r < n_split; ++r)
       v += cluster.map_shared_rank(&sum[0][0], r)[idx];
-    out[(size_t)row * N + col] = __float2bfloat16(v * scale[col]);
+    store_out(out, out32, (size_t)row * N + col, v * scale[col]);
   }
   cluster.sync();              // keep sum alive until the cluster has read it
 }
 
 template <int NT, int NW, bool VEC, bool XVEC>
 int launch_codes_t(const void* x, const void* w, const void* scale,
-                   void* out, int M, int K, int N, int chunk, int n_split,
-                   cudaStream_t stream) {
+                   void* out, bool f32_out, int M, int K, int N, int chunk,
+                   int n_split, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((M + 8 * NT - 1) / (8 * NT), n_split,
                      (N + 32 * NW - 1) / (32 * NW));
@@ -764,33 +781,36 @@ int launch_codes_t(const void* x, const void* w, const void* scale,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, psi_gemm_codes_kernel<NT, NW, VEC, XVEC>,
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M,
-      K, N, chunk);
+      static_cast<const float*>(scale),
+      f32_out ? nullptr : static_cast<__nv_bfloat16*>(out),
+      f32_out ? static_cast<float*>(out) : nullptr, M, K, N, chunk);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <int NW, bool XVEC>
 int launch_codes_v(const void* x, const void* w, const void* scale,
-                   void* out, int M, int K, int N, int chunk, int n_split,
-                   cudaStream_t s) {
+                   void* out, bool f32_out, int M, int K, int N, int chunk,
+                   int n_split, cudaStream_t s) {
   const bool vec =
       N % (4 * NW) == 0 && reinterpret_cast<uintptr_t>(w) % (4 * NW) == 0;
   if (M <= 8)
-    return vec ? launch_codes_t<1, NW, true, XVEC>(x, w, scale, out, M, K, N,
-                                                   chunk, n_split, s)
-               : launch_codes_t<1, NW, false, XVEC>(x, w, scale, out, M, K,
-                                                    N, chunk, n_split, s);
-  return vec ? launch_codes_t<2, NW, true, XVEC>(x, w, scale, out, M, K, N,
-                                                 chunk, n_split, s)
-             : launch_codes_t<2, NW, false, XVEC>(x, w, scale, out, M, K, N,
-                                                  chunk, n_split, s);
+    return vec ? launch_codes_t<1, NW, true, XVEC>(x, w, scale, out, f32_out,
+                                                   M, K, N, chunk, n_split, s)
+               : launch_codes_t<1, NW, false, XVEC>(x, w, scale, out,
+                                                    f32_out, M, K, N, chunk,
+                                                    n_split, s);
+  return vec ? launch_codes_t<2, NW, true, XVEC>(x, w, scale, out, f32_out,
+                                                 M, K, N, chunk, n_split, s)
+             : launch_codes_t<2, NW, false, XVEC>(x, w, scale, out, f32_out,
+                                                  M, K, N, chunk, n_split,
+                                                  s);
 }
 
 // The codes' tensor-core route: x bf16, codes (K, N) int8, any K and N;
 // channel tiles of `tile` (64 or 128) columns, K in `chunk`-step splits (16
 // K rows a step).
 int launch_codes(const void* x, const void* w, const void* scale, void* out,
-                 int M, int K, int N, int tile, int chunk,
+                 bool f32_out, int M, int K, int N, int tile, int chunk,
                  cudaStream_t stream) {
   const int steps = (K + kStepK - 1) / kStepK;
   if (chunk < 1 || chunk > steps || (tile != 64 && tile != 128))
@@ -798,13 +818,13 @@ int launch_codes(const void* x, const void* w, const void* scale, void* out,
   const int n_split = (steps + chunk - 1) / chunk;
   if (n_split > kMaxSplit) return (int)cudaErrorInvalidValue;
   const bool xvec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
-  using Fn = int (*)(const void*, const void*, const void*, void*, int, int,
-                     int, int, int, cudaStream_t);
+  using Fn = int (*)(const void*, const void*, const void*, void*, bool,
+                     int, int, int, int, int, cudaStream_t);
   const Fn fn = tile == 128 ? (xvec ? launch_codes_v<4, true>
                                     : launch_codes_v<4, false>)
                             : (xvec ? launch_codes_v<2, true>
                                     : launch_codes_v<2, false>);
-  return fn(x, w, scale, out, M, K, N, chunk, n_split, stream);
+  return fn(x, w, scale, out, f32_out, M, K, N, chunk, n_split, stream);
 }
 
 template <int BITS>
@@ -837,37 +857,43 @@ int launch_t(const void* x, const void* w, const void* scale, void* out,
 // dtype 0 (f32 x): the CUDA-core kernel; tile and chunk are unused.  dtype
 // 1 (bf16 x): the tensor-core kernel on `tile`-channel tiles, K split into
 // at most 8 chunks of `chunk` 16-K steps (kernels/psi_matmul.py::
-// codes_split_plan).  Returns the
-// launch's cudaError_t.
+// codes_split_plan).  out_dtype 0 writes f32, 1 bf16: f32 x writes f32
+// only; bf16 x writes either (the same sums; f32 skips the last rounding).
+// Returns the launch's cudaError_t.
 extern "C" int psi_matmul_codes(const void* x, const void* codes,
                                 const void* scale, void* out, int M, int K,
-                                int N, int dtype, int tile, int chunk,
-                                void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+                                int N, int dtype, int out_dtype, int tile,
+                                int chunk, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || out_dtype < 0 || out_dtype > 1 ||
+      (dtype == 0 && out_dtype != 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_t<8>(x, codes, scale, out, M, K, N, s);
   if (dtype == 1)
-    return launch_codes(x, codes, scale, out, M, K, N, tile, chunk, s);
+    return launch_codes(x, codes, scale, out, out_dtype == 0, M, K, N, tile,
+                        chunk, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // bits 2..7.  dtype 0 (f32 x): the CUDA-core kernel; chunk is unused.
 // dtype 1 (bf16 x, 16-byte aligned): the tensor-core kernel, K split into
 // at most 8 chunks of `chunk` 64-K groups (kernels/psi_matmul.py::
-// split_plan).
+// split_plan).  out_dtype as for psi_matmul_codes.
 extern "C" int psi_matmul_packed(const void* x, const void* planes,
                                  const void* scale, void* out, int M, int K,
-                                 int N, int bits, int dtype, int chunk,
-                                 void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || bits < 2 || bits > 7)
+                                 int N, int bits, int dtype, int out_dtype,
+                                 int chunk, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || bits < 2 || bits > 7 ||
+      out_dtype < 0 || out_dtype > 1 || (dtype == 0 && out_dtype != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    using Fn = int (*)(const void*, const void*, const void*, void*, int,
-                       int, int, int, cudaStream_t);
+    using Fn = int (*)(const void*, const void*, const void*, void*, bool,
+                       int, int, int, int, cudaStream_t);
     constexpr Fn kRoute[] = {launch_mma<2>, launch_mma<3>, launch_mma<4>,
                              launch_mma<5>, launch_mma<6>, launch_mma<7>};
-    return kRoute[bits - 2](x, planes, scale, out, M, K, N, chunk, s);
+    return kRoute[bits - 2](x, planes, scale, out, out_dtype == 0, M, K, N,
+                            chunk, s);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   switch (bits) {

@@ -45,24 +45,29 @@ def _route(t: torch.Tensor) -> str:
     raise ValueError(f"no kernel route for device {t.device}")
 
 
-def psi_matmul_2d(x2d: torch.Tensor, qt: psi.QuantizedTensor
-                  ) -> torch.Tensor:
-    """(M, K) x QuantizedTensor weight (K, N) -> (M, N)."""
+def psi_matmul_2d(x2d: torch.Tensor, qt: psi.QuantizedTensor,
+                  out_dtype=None) -> torch.Tensor:
+    """(M, K) x QuantizedTensor weight (K, N) -> (M, N), in x's dtype or
+    ``out_dtype`` (f32: the sums before their cast)."""
     scale = qt.scale.reshape(-1)
+    kw = {} if out_dtype is None else {"out_dtype": out_dtype}
     if _route(x2d) == "cuda":
         if qt.packed:
             return _pm.psi_matmul_packed_cuda(x2d, qt.data, scale,
-                                              qt.fmt.bits)
-        return _pm.psi_matmul_codes_cuda(x2d, qt.data, scale)
+                                              qt.fmt.bits, **kw)
+        return _pm.psi_matmul_codes_cuda(x2d, qt.data, scale, **kw)
     if qt.packed:
-        return _ref.psi_matmul_packed_ref(x2d, qt.data, scale, qt.fmt.bits)
-    return _ref.psi_matmul_codes_ref(x2d, qt.data, scale)
+        return _ref.psi_matmul_packed_ref(x2d, qt.data, scale, qt.fmt.bits,
+                                          **kw)
+    return _ref.psi_matmul_codes_ref(x2d, qt.data, scale, **kw)
 
 
-def psi_matmul(x: torch.Tensor, qt: psi.QuantizedTensor) -> torch.Tensor:
+def psi_matmul(x: torch.Tensor, qt: psi.QuantizedTensor, out_dtype=None
+               ) -> torch.Tensor:
     """(..., K) x QuantizedTensor weight -> (..., N)."""
     lead = x.shape[:-1]
-    y = psi_matmul_2d(x.reshape(-1, x.shape[-1]).contiguous(), qt)
+    y = psi_matmul_2d(x.reshape(-1, x.shape[-1]).contiguous(), qt,
+                      out_dtype)
     return y.reshape(*lead, y.shape[-1])
 
 

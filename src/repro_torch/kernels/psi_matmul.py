@@ -11,6 +11,10 @@ current stream, raises if the launch failed, and counts its launches in
 Both kernels have two routes, picked from x's dtype: f32 x runs on CUDA
 cores, bf16 x on tensor cores with K split across the blocks of a cluster
 as :func:`codes_split_plan` (codes) or :func:`split_plan` (planes) says.
+The output is x's dtype, or f32 when ``out_dtype=torch.float32`` is asked
+of a bf16 x: the same f32 sums times the scale, stored without the last
+rounding (a row-parallel shard's partial sum, added over the ranks in f32
+before its one cast); its cast to bf16 is the bf16 output bit for bit.
 """
 from __future__ import annotations
 
@@ -27,9 +31,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     lib = _build.load("psi_matmul")
     if not getattr(lib, "_argtypes_set", False):
-        lib.psi_matmul_codes.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+        lib.psi_matmul_codes.argtypes = [_P] * 4 + [_I] * 7 + [_P]
         lib.psi_matmul_codes.restype = _I
-        lib.psi_matmul_packed.argtypes = [_P] * 4 + [_I] * 6 + [_P]
+        lib.psi_matmul_packed.argtypes = [_P] * 4 + [_I] * 7 + [_P]
         lib.psi_matmul_packed.restype = _I
         lib._argtypes_set = True
     return lib
@@ -90,6 +94,16 @@ def codes_split_plan(K, N, n_sm=132):
     return (narrow,) + _plan(steps, -(-N // narrow), blocks)
 
 
+def _out_dtype(x, out_dtype):
+    """The output dtype of a launch: x's, or f32 asked of a bf16 x."""
+    if out_dtype is None or out_dtype == x.dtype:
+        return x.dtype
+    if out_dtype == torch.float32:
+        return out_dtype
+    raise TypeError(f"out_dtype must be x's dtype or float32, got "
+                    f"{out_dtype} for {x.dtype} x")
+
+
 def _check_common(x, w, scale, wdtype, N):
     if not x.is_cuda:
         raise ValueError("the CUDA psi_matmul takes CUDA tensors; a CPU "
@@ -110,8 +124,10 @@ def _check_common(x, w, scale, wdtype, N):
 
 
 def psi_matmul_codes_cuda(x: torch.Tensor, codes: torch.Tensor,
-                          scale: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ (codes (K, N) int8 * scale (N,)) -> (M, N) in x.dtype."""
+                          scale: torch.Tensor, out_dtype=None
+                          ) -> torch.Tensor:
+    """x (M, K) @ (codes (K, N) int8 * scale (N,)) -> (M, N) in x.dtype
+    (or f32: ``out_dtype``)."""
     if codes.dim() != 2 or codes.shape[0] != x.shape[-1]:
         raise ValueError(f"codes {tuple(codes.shape)} do not match x "
                          f"{tuple(x.shape)}")
@@ -122,10 +138,11 @@ def psi_matmul_codes_cuda(x: torch.Tensor, codes: torch.Tensor,
     if x.dtype == torch.bfloat16:
         tile, chunk, _ = codes_split_plan(
             K, N, _build.sm_count(x.device.index or 0))
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty((M, N), dtype=_out_dtype(x, out_dtype),
+                      device=x.device)
     err = _lib().psi_matmul_codes(
         x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, _DTYPE_CODE[x.dtype], tile, chunk,
+        M, K, N, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out.dtype], tile, chunk,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "psi_matmul_codes")
     psi_matmul_codes_cuda.launches += 1
@@ -136,8 +153,10 @@ psi_matmul_codes_cuda.launches = 0
 
 
 def psi_matmul_packed_cuda(x: torch.Tensor, planes: torch.Tensor,
-                           scale: torch.Tensor, bits: int) -> torch.Tensor:
-    """x (M, K) @ dequant(planes (bits, K//8, N) uint8, scale (N,))."""
+                           scale: torch.Tensor, bits: int, out_dtype=None
+                           ) -> torch.Tensor:
+    """x (M, K) @ dequant(planes (bits, K//8, N) uint8, scale (N,)) in
+    x.dtype (or f32: ``out_dtype``)."""
     if not 2 <= bits <= 7:
         raise ValueError(f"packed widths are 2..7 bits, got {bits}")
     if (planes.dim() != 3 or planes.shape[0] != bits
@@ -152,10 +171,12 @@ def psi_matmul_packed_cuda(x: torch.Tensor, planes: torch.Tensor,
         if x.data_ptr() % 16:                 # the kernel reads x in 16 bytes
             x = x.clone()
         chunk, _ = split_plan(K, N, _build.sm_count(x.device.index or 0))
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty((M, N), dtype=_out_dtype(x, out_dtype),
+                      device=x.device)
     err = _lib().psi_matmul_packed(
         x.data_ptr(), planes.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, int(bits), _DTYPE_CODE[x.dtype], chunk,
+        M, K, N, int(bits), _DTYPE_CODE[x.dtype], _DTYPE_CODE[out.dtype],
+        chunk,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "psi_matmul_packed")
     psi_matmul_packed_cuda.launches += 1

@@ -17,12 +17,34 @@ rank then serves the same trace alone on its own card from the whole
 params (``Model.init`` of the same seed) while the others wait, and the
 line says whether the tokens are identical (else where each request's
 part) and holds the logits of one forward of a fixed (4, 64) batch
-against the one card's: the largest difference and, where the argmax
-differs, the one card's top-2 margin there.
+against the one card's (``probe``): the largest difference and, where
+the argmax differs, the one card's top-2 margin there; for an MoE each
+layer's share of slots routed to another expert.  Where the slots do not
+split (a mesh of "model" only), ``decode_probe`` does the same for
+``DECODE_STEPS`` decode steps of slot 0 after a 64-token prefill, fed the
+same fixed tokens on both sides (the KV cache, a dense ring split over
+"model" included, and the decode read).  Beside them, ``replan_probe`` and
+``replan_decode_probe`` hold the one card against itself with the
+kernels planned for a card of half its SMs (``_replanned``): the same
+products, their f32 sums split and added in another order, as a rank's
+narrower weights are planned: the size of a difference that order alone
+makes in bf16 through the whole depth.
+
+On four cards, the runs of PERF.md (each with ``--against-one-card``):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.mesh_check \
+        --arch qwen3-8b --quant psi8 --mesh 1x4 --requests 8 \
+        --prompt-len 64 --prompt-jitter 8 --max-new 16 --min-new 8 \
+        --against-one-card
+    # ... --arch qwen3-moe-30b-a3b; --arch recurrentgemma-9b; --arch
+    # granite-34b --quant psi5 --cache-layout dense; and --arch qwen3-8b
+    # --mesh 4x1 with --prefix-cache on --shared-prefix-len 32, or with
+    # --speculative 3:4
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import hashlib
 import json
@@ -36,10 +58,14 @@ from repro_torch.launch import serve
 from repro_torch.runtime import parallel
 
 WINDOW = 10                     # decode steps timed after the serve
+DECODE_STEPS = 8                # the decode probe's steps
 KEEP = ("n_requests", "tokens", "wall_s", "tok_per_s", "p50_latency_s",
         "p99_latency_s", "p50_ttft_s", "p50_itl_s", "decode_steps",
         "prefill_forwards", "decode_compiles", "slot_shards", "collectives",
-        "macs_per_token", "mfu", "watts", "tokens_per_joule")
+        "macs_per_token", "mfu", "watts", "tokens_per_joule",
+        "prefilled_tokens", "prefix_tokens_reused", "prefix_cache",
+        "blocks_copied", "blocks_free_end", "n_blocks", "speculative",
+        "cache_layout")
 
 
 def _tokens(done) -> dict:
@@ -132,15 +158,22 @@ def main():
     if args.against_one_card:
         # one forward of a fixed (4, 64) batch on the mesh: its logits are
         # held against the one card's below
-        probe = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        rng = np.random.default_rng(args.seed)
+        probe = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, size=(4, 64)).astype(np.int32)).to(dev)
+        feed = rng.integers(0, cfg.vocab_size, size=(DECODE_STEPS,))
         mesh_probe = _probe(ex, probe)
+        mesh_decode = (_decode_probe(ex, probe[0].cpu().numpy(), feed)
+                       if ex.n_slot_shards == 1 else None)
     out = {"arch": args.arch, "quant": args.quant, "mesh": args.mesh,
            "layers": cfg.n_layers, "device": str(dev),
            "local_cfg": {"n_heads": ex.local_cfg.n_heads,
                          "n_kv_heads": ex.local_cfg.n_kv_heads,
                          "d_inner": (ex.local_cfg.d_inner
-                                     if cfg.family == "ssm" else None)},
+                                     if cfg.family == "ssm" else None),
+                         "d_rnn": (ex.local_cfg.resolved_d_rnn
+                                   if cfg.family == "hybrid" else None),
+                         "kv_ring_split": ex._ring_split},
            **{k: stats.get(k) for k in KEEP},
            "decode_step_ms": step_ms, "window": WINDOW,
            "rank_init_s": [float(p[0]) for p in parts],
@@ -155,8 +188,11 @@ def main():
         if first:
             one = argparse.Namespace(**dict(vars(args), mesh=None))
             alone, _ = serve.build_server(one)
-            done1, _ = alone.serve(serve.trace_from_args(args, cfg),
-                                   continuous=True)
+            done1, st1 = alone.serve(serve.trace_from_args(args, cfg),
+                                     continuous=True)
+            out["one_card"] = {k: st1.get(k) for k in (
+                "tok_per_s", "decode_steps", "prefilled_tokens",
+                "prefix_tokens_reused", "prefix_cache", "speculative")}
             alone_toks = _tokens(done1)
             out["one_card_tokens_digest"] = _digest(alone_toks)
             out["tokens_identical"] = alone_toks == toks
@@ -165,8 +201,18 @@ def main():
                 rid: next((i for i, (a, b) in enumerate(zip(t, toks[rid]))
                            if a != b), min(len(t), len(toks[rid])))
                 for rid, t in alone_toks.items() if t != toks.get(rid)}
-            out["probe"] = _compare(mesh_probe, _probe(alone.executor,
-                                                       probe))
+            one_probe = _probe(alone.executor, probe)
+            out["probe"] = _compare(mesh_probe, one_probe)
+            with _replanned():
+                out["replan_probe"] = _compare(
+                    _probe(alone.executor, probe), one_probe)
+            if mesh_decode is not None:
+                args1 = (alone.executor, probe[0].cpu().numpy(), feed)
+                one_decode = _decode_probe(*args1)
+                out["decode_probe"] = _compare(mesh_decode, one_decode)
+                with _replanned():
+                    out["replan_decode_probe"] = _compare(
+                        _decode_probe(*args1), one_decode)
         if host is not None:
             dist.barrier(group=host)
     if first:
@@ -194,6 +240,51 @@ def _probe(ex, tokens) -> dict:
     finally:
         moe.route = route
     return {"logits": logits, "routes": seen}
+
+
+@contextlib.contextmanager
+def _replanned():
+    """Kernels 1-3 planned for a card of half this one's SMs while the
+    block runs (their split plans read ``_build.sm_count`` at each
+    launch)."""
+    from repro_torch.kernels import _build
+    real = _build.sm_count
+    _build.sm_count = lambda index: max(1, real(index) // 2)
+    try:
+        yield
+    finally:
+        _build.sm_count = real
+
+
+def _decode_probe(ex, prompt, feed) -> dict:
+    """Slot 0's logits over ``len(feed)`` eager decode steps after a
+    prefill of ``prompt`` into it, fed the tokens ``feed`` (the same on
+    every side, so the logits compare at the same inputs), the other slots
+    idle; on a paged pool slot 0 holds blocks 0, 1, ... of the table."""
+    B, dev = ex.local_batch, ex.device
+    cache = ex.init_cache()
+    P = len(prompt)
+    brow = table = None
+    if ex.paged:
+        brow = np.arange(ex.n_bt, dtype=np.int32)
+        table = torch.full((B, ex.n_bt), -1, dtype=torch.int32, device=dev)
+        table[0] = torch.from_numpy(brow).to(dev)
+    rows = []
+    with torch.inference_mode():
+        ex.prefill_insert(prompt[None], np.asarray([P], np.int32), cache, 0,
+                          brow)
+        for j, t in enumerate(feed):
+            tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+            pos = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+            tok[0, 0], pos[0, 0] = int(t), P + j
+            act = torch.zeros((B,), dtype=torch.bool, device=dev)
+            act[0] = True
+            batch = {"token": tok, "pos": pos, "active": act}
+            if table is not None:
+                batch["block_table"] = table
+            lg, cache = ex.model.decode_step(ex.params, batch, cache)
+            rows.append(lg[0].float().cpu())
+    return {"logits": torch.stack(rows), "routes": []}
 
 
 def _compare(mesh, one) -> dict:

@@ -179,14 +179,18 @@ class PrefixCache:
         allocator.unref_block(blk)
         self.evicted_blocks += 1
 
-    def evict_until(self, allocator, need: int) -> int:
+    def evict_until(self, allocator, need: int, shard=None) -> int:
         """LRU-evict unreferenced entries (block refcount == 1, the cache's
-        own pin) until ``allocator.can_reserve(need)`` or nothing more is
-        evictable; returns how many entries were evicted."""
+        own pin) until ``allocator.can_reserve(need, shard)`` or nothing
+        more is evictable; with a ``shard`` (a pool split over mesh
+        shards) only entries whose blocks lie on that shard.  Returns how
+        many entries were evicted."""
         n = 0
-        while not allocator.can_reserve(need):
+        while not allocator.can_reserve(need, shard):
             victim = next((k for k, blk in self._entries.items()
-                           if allocator.refcount[blk] == 1), None)
+                           if allocator.refcount[blk] == 1
+                           and (shard is None
+                                or allocator.shard_of[blk] == shard)), None)
             if victim is None:
                 break                       # everything left is in use
             self._evict_entry(victim, allocator)

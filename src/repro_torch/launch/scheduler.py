@@ -414,16 +414,31 @@ class BlockAllocator:
         """Make ``rid``'s reference to ``blk`` exclusive: an exclusive
         block is returned as is, a shared one is swapped for a fresh
         allocation in the same logical position."""
-        held = self._held.get(rid, [])
-        if blk not in held:
+        if blk not in self._held.get(rid, []):
             raise ValueError(f"block {blk} not referenced by request {rid}")
         if self.refcount[blk] == 1:
             return blk
+        return self.relocate(rid, blk)
+
+    def relocate(self, rid: int, blk: int) -> int:
+        """Swap ``rid``'s reference to ``blk`` for a fresh block of its own
+        (from its reservation, on the shard it was booked against) in the
+        same logical position; the caller copies ``blk``'s contents there.
+        A prefix hit on another shard's block is relocated so that the
+        slot's rank holds all its context."""
+        held = self._held.get(rid, [])
+        if blk not in held:
+            raise ValueError(f"block {blk} not referenced by request {rid}")
         new = self.alloc(rid)
         held.pop()                       # alloc appended it at the end
         held[held.index(blk)] = new
         self._decref(blk)
         return new
+
+    def shard_of_request(self, rid: int) -> Optional[int]:
+        """The shard ``rid``'s reservation was booked against (None when
+        the allocator is not sharded)."""
+        return self._res_shard.get(rid)
 
     def _decref(self, blk: int) -> bool:
         if self.refcount[blk] <= 0:
@@ -525,14 +540,19 @@ class Scheduler:
                         self.blocks.attach(req.rid, hit)
                 need = self._blocks_needed(req) - len(hit)
                 if self.blocks.n_shards > 1:
-                    # the slot's shard must hold the whole reservation: the
-                    # first shard in slot preference whose pool can
-                    shard = next((i for i in self.slots.shard_order()
-                                  if self.blocks.can_reserve(need, i)), None)
+                    # the slot's shard must hold the whole reservation, and
+                    # a copy of each hit block another shard holds (the
+                    # slot's rank reads only its own blocks): the first
+                    # shard in slot preference whose pool can, after LRU
+                    # eviction of its unreferenced entries if need be
+                    shard = self._pick_shard(need, hit)
                     if shard is None:
+                        if hit:          # roll back the shared references
+                            self.blocks.release(req.rid)
                         self._hol_blocked = (req.rid,
                                              self.blocks.capacity_version)
                         break            # head-of-line waits for capacity
+                    need += self._foreign(hit, shard)
                 elif not self.blocks.can_reserve(need):
                     if self.prefix is not None:
                         self.prefix.evict_until(self.blocks, need)
@@ -556,6 +576,27 @@ class Scheduler:
             self.running[slot] = req
             admitted.append((slot, req))
         return admitted
+
+    def _foreign(self, hit: Sequence[int], shard: int) -> int:
+        """Hit blocks that lie on another shard than ``shard``."""
+        return sum(self.blocks.shard_of[b] != shard for b in hit)
+
+    def _pick_shard(self, need: int, hit: Sequence[int]) -> Optional[int]:
+        """The shard an admission's reservation (``need`` blocks, plus a
+        copy of each foreign hit block) is booked against: the first in
+        slot preference that can hold it, evicting on demand; None when
+        none can."""
+        order = self.slots.shard_order()
+        for evict in (False, True):
+            for i in order:
+                n = need + self._foreign(hit, i)
+                if evict and self.prefix is not None:
+                    self.prefix.evict_until(self.blocks, n, shard=i)
+                if self.blocks.can_reserve(n, i):
+                    return i
+            if self.prefix is None:
+                break
+        return None
 
     def preempt(self, slot: int, now: float,
                 covered: Optional[int] = None) -> Request:

@@ -266,13 +266,6 @@ class Server:
                                  decode_horizon=self.decode_horizon,
                                  speculative=self.spec, mesh=mesh,
                                  params_are_local=params_are_local)
-        if self.executor.n_slot_shards > 1 and (self._ctx_serving
-                                                or self.spec):
-            raise NotImplementedError(
-                "context serving (--prefix-cache, --slo, --prefill-chunk) "
-                "and --speculative are not ported to a mesh whose slots "
-                "split over ranks yet (ROADMAP queue 1, item 5): a prefix "
-                "hit or a restore can cross shards")
         # board power of the tokens-per-joule stat: the card's power
         # limit on a CUDA device unless given, 0 (no figure) on the CPU
         dev = self.executor.device
@@ -430,12 +423,31 @@ class Server:
         pos0 = len(req.prefix_blocks) * self.block_size
         bt[slot, :] = -1
         if req.prefix_blocks:
+            cache = self._localize_hit(cache, slot, req, sched)
             bt[slot, :len(req.prefix_blocks)] = req.prefix_blocks
         if (self.prefill_chunk
                 and len(req.full_seq) - pos0 > self.prefill_chunk):
             chunking[slot] = pos0
             return None, cache
         return self._fill_piece(cache, slot, req, sched, bt, pos0)
+
+    def _localize_hit(self, cache, slot, req, sched):
+        """On a pool split over mesh shards, copy each hit block another
+        shard holds into a block of the slot's shard (booked with the
+        reservation) and put the copy in its place: the slot's rank reads
+        only its own blocks, and the suffix prefill's context is then the
+        exact KV the hit named."""
+        ex = self.executor
+        if ex.n_block_shards == 1:
+            return cache
+        mine = int(ex.slot_shards[slot])
+        moves = []
+        for i, blk in enumerate(req.prefix_blocks):
+            if int(ex.block_shards[blk]) != mine:
+                new = sched.blocks.relocate(req.rid, blk)
+                moves.append((int(blk), new))
+                req.prefix_blocks[i] = new
+        return ex.copy_blocks(cache, moves) if moves else cache
 
     def _fill_piece(self, cache, slot, req, sched, bt, cur: int):
         """Prefill + insert one piece of ``full_seq`` from the block- and
@@ -646,6 +658,7 @@ class Server:
         headless0 = ex.prefill_headless
         launches0 = ops.launch_counts()
         colls0 = parallel.collective_counts()
+        copied0 = ex.blocks_copied
         # on a mesh every rank admits on rank 0's clock, so all take the
         # same decisions at the same iteration
         now_fn = ((lambda: clock() - t0) if ex.mesh is None
@@ -732,12 +745,17 @@ class Server:
             a lone runner always fits (the per-request fail-fast)."""
             if sched.blocks.reserved_of(req.rid) > 0:
                 return True
-            while not sched.blocks.can_reserve(1):
+            # a pool split over mesh shards: the request's own shard must
+            # make room (its blocks all live there)
+            shard = sched.blocks.shard_of_request(req.rid)
+            while not sched.blocks.can_reserve(1, shard):
                 if prefix is not None:
-                    prefix.evict_until(sched.blocks, 1)
-                    if sched.blocks.can_reserve(1):
+                    prefix.evict_until(sched.blocks, 1, shard)
+                    if sched.blocks.can_reserve(1, shard):
                         break
-                victims = [s for s in sched.running if s != req.slot]
+                victims = [s for s in sched.running if s != req.slot
+                           and (shard is None
+                                or int(ex.slot_shards[s]) == shard)]
                 if not victims:
                     preempt_slot(req.slot, clock() - t0)
                     return False
@@ -929,6 +947,9 @@ class Server:
                 "n_blocks": ex.n_blocks,
                 "block_table_transfers": dict(bt.stats),
                 "peak_blocks_in_use": blocks.high_watermark,
+                # prefix-hit blocks copied from another shard of a split
+                # pool into the slot's (0 off a mesh)
+                "blocks_copied": ex.blocks_copied - copied0,
                 "block_util_pct": round(
                     100.0 * blocks.high_watermark / max(ex.n_blocks, 1), 1)})
             if prefix is not None:

@@ -11,6 +11,13 @@ query chunks of ``Q_CHUNK`` so the live score tensor stays (B, H, Q_CHUNK,
 S).  The paged decode read side goes through
 ``kernels.ops.paged_decode_attention`` — the CUDA flash-decode kernel for
 a CUDA tensor.
+
+Under tensor parallelism an attention layer whose KV heads do not split
+over the model axis carries a ``runtime.parallel.KVHeads`` under
+"kv_heads": its K/V projection is gathered (every KV head on every rank),
+its query heads read their own KV heads, and a dense ring whose positions
+split over "model" is written by the owner of the new token's slot and
+read as a flash-decode merge across the ranks (:func:`_ring_read`).
 """
 from __future__ import annotations
 
@@ -96,6 +103,15 @@ def cache_extent(cfg, seq_len: int) -> int:
     return min(seq_len, cfg.window) if _window(cfg) else seq_len
 
 
+def _own_kv(p, k, v):
+    """The KV heads of this rank's query heads (all of them unless the
+    layer carries a ``KVHeads``)."""
+    kvh = p.get("kv_heads")
+    if kvh is None:
+        return k, v
+    return kvh.own_kv(k), kvh.own_kv(v)
+
+
 def _rowwise_sdpa(q, k, v, positions, row_lens, window):
     """A burst's attention, row by row: row i attends over its first
     ``row_lens[i]`` positions (its bucketed prompt), exactly the shapes its
@@ -128,7 +144,8 @@ def attention_block(p, x, cfg, positions, ctx=None, row_lens=None):
     q, k, v = _project_qkv(p, x, cfg, positions)
     positions = layers.positions_1d(positions)
     if row_lens is not None:
-        o = _rowwise_sdpa(q, k, v, positions, row_lens, _window(cfg))
+        o = _rowwise_sdpa(q, *_own_kv(p, k, v), positions, row_lens,
+                          _window(cfg))
         B, S = x.shape[:2]
         y = linear(p["wo"], o.reshape(B, S, -1), cfg.quant_mode)
         return y, (k, v, positions)
@@ -141,8 +158,8 @@ def attention_block(p, x, cfg, positions, ctx=None, row_lens=None):
         k_all = torch.cat([ck.to(k.dtype), k], dim=1)
         v_all = torch.cat([cv.to(v.dtype), v], dim=1)
         kpos_all = torch.cat([cpos, positions], dim=1)
-    o = sdpa(q, k_all, v_all, positions, kpos_all, causal=True,
-             window=_window(cfg))
+    o = sdpa(q, *_own_kv(p, k_all, v_all), positions, kpos_all,
+             causal=True, window=_window(cfg))
     B, S = x.shape[:2]
     y = linear(p["wo"], o.reshape(B, S, -1), cfg.quant_mode)
     return y, (k, v, positions)
@@ -212,6 +229,52 @@ def _masked_row_write(buf, bidx, slot, new_val, active):
     buf[bidx, slot] = new_val
 
 
+def ring_partial(q, k, v, q_pos, k_pos, window=0):
+    """One chunk's share of a decode read over a KV ring split by
+    position: q (B, 1, H, D) against this chunk's k, v (B, Cc, Hkv, D) and
+    k_pos (B, Cc).  Returns (B, H, D + 2) f32: per head the max score over
+    the chunk's valid slots, the sum of exp(score - max), and the
+    exp-weighted values (NEG_INF, 0 and zeros where no slot is valid)."""
+    B, _, H, D = q.shape
+    Hkv, Cc = k.shape[2], k.shape[1]
+    s = _grouped_scores(q, k)                                 # (B, H, 1, Cc)
+    valid = _mask(q_pos, k_pos, True, window)[:, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1)                                            # (B, H, 1)
+    e = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", e.reshape(B, Hkv, H // Hkv, 1, Cc),
+                     v.to(torch.float32)).reshape(B, H, D)
+    return torch.cat([m, e.sum(-1), o], -1)
+
+
+def merge_ring_partials(parts):
+    """The flash-decode merge of the chunks' :func:`ring_partial` outputs,
+    in chunk order (every rank adds them in the same order, so all hold
+    the same sums): (B, H, D) f32, normalised.  A row with no valid slot in
+    any chunk (an idle slot) reads zeros."""
+    M = parts[0][..., 0]
+    for p in parts[1:]:
+        M = torch.maximum(M, p[..., 0])
+    L = torch.zeros_like(M)
+    O = torch.zeros_like(parts[0][..., 2:])
+    for p in parts:
+        w = torch.exp(p[..., 0] - M)
+        L = L + w * p[..., 1]
+        O = O + w[..., None] * p[..., 2:]
+    return O / torch.clamp_min(L, 1e-30)[..., None]
+
+
+def _ring_read(kvh, q, k, v, q_pos, k_pos, window):
+    """The decode read of a KV ring whose slots split over the model group:
+    every rank's query heads (gathered) over this rank's slots
+    (:func:`ring_partial`), the ranks' partials gathered and merged
+    (:func:`merge_ring_partials`), the rank's own heads kept.  q (B, 1,
+    hq/m, D); k, v (B, C/m, Hkv, D) -> (B, 1, hq/m, D) in v's dtype."""
+    part = ring_partial(kvh.all_heads(q, 2), k, v, q_pos, k_pos, window)
+    out = merge_ring_partials(kvh.gather_partials(part))
+    return kvh.own_heads(out, 1)[:, None].to(v.dtype)
+
+
 def decode_attention_block(p, x, cfg, positions, cache, active=None):
     """Single-token decode against the dense per-slot slab, a ring buffer
     when the extent is below the position (SWA).
@@ -221,30 +284,62 @@ def decode_attention_block(p, x, cfg, positions, cache, active=None):
     kv_quant="int8").  The new token's KV goes to ring slot ``pos % C`` of
     its row, for active rows only.  The read is the plain ``sdpa`` over the
     whole slab, masked by ``k_pos`` (and the window).  The slab is updated
-    IN PLACE (the JAX package donated it); the same dict is returned."""
+    IN PLACE (the JAX package donated it); the same dict is returned.
+
+    A ring split over the model group (the layer's ``KVHeads`` says so)
+    holds slots [r C/m, (r+1) C/m) on rank r of m: only the owner of slot
+    ``pos % C`` writes it, and the read is :func:`_ring_read`."""
     q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     positions = layers.positions_1d(positions)
     B = x.shape[0]
     pos = positions[:, 0]
-    slot = (pos % cache["k"].shape[1]).long()
+    kvh = p.get("kv_heads")
+    split = kvh is not None and kvh.ring_split
+    Cl = cache["k"].shape[1]
+    slot = (pos % (Cl * kvh.size if split else Cl)).long()
+    write = active
+    if split:
+        lo = kvh.rank * Cl
+        mine = (slot >= lo) & (slot < lo + Cl)
+        slot = torch.where(mine, slot - lo, torch.zeros_like(slot))
+        write = mine if active is None else active & mine
     bidx = torch.arange(B, device=x.device)
-    _masked_row_write(cache["k_pos"], bidx, slot, pos, active)
+    _masked_row_write(cache["k_pos"], bidx, slot, pos, write)
     if "k_scale" in cache:
         kq, ks = _kv_quantize(k_new[:, 0])
         vq, vs = _kv_quantize(v_new[:, 0])
         for name, val in (("k", kq), ("v", vq), ("k_scale", ks),
                           ("v_scale", vs)):
-            _masked_row_write(cache[name], bidx, slot, val, active)
+            _masked_row_write(cache[name], bidx, slot, val, write)
         k = _kv_dequantize(cache["k"], cache["k_scale"], x.dtype)
         v = _kv_dequantize(cache["v"], cache["v_scale"], x.dtype)
     else:
-        _masked_row_write(cache["k"], bidx, slot, k_new[:, 0], active)
-        _masked_row_write(cache["v"], bidx, slot, v_new[:, 0], active)
+        _masked_row_write(cache["k"], bidx, slot, k_new[:, 0], write)
+        _masked_row_write(cache["v"], bidx, slot, v_new[:, 0], write)
         k, v = cache["k"], cache["v"]
-    o = sdpa(q, k, v, positions, cache["k_pos"], causal=True,
-             window=_window(cfg))
+    if split:
+        o = _ring_read(kvh, q, k, v, positions, cache["k_pos"],
+                       _window(cfg))
+    else:
+        o = sdpa(q, *_own_kv(p, k, v), positions, cache["k_pos"],
+                 causal=True, window=_window(cfg))
     y = linear(p["wo"], o.reshape(B, 1, -1), cfg.quant_mode)
     return y, cache
+
+
+def _paged_read(p, q, cache, tables, pos):
+    """The paged kernel over q (rows, hq, D).  Where the layer's KV heads
+    do not split and the rank's query heads do not all share one of them,
+    every rank's query heads are read (the pool holds every KV head) and
+    the rank keeps its own."""
+    kvh = p.get("kv_heads")
+    wide = kvh is not None and kvh.gathers_q
+    if wide:
+        q = kvh.all_heads(q, 1)
+    o = ops.paged_decode_attention(
+        q.contiguous(), cache["k"], cache["v"], tables, pos,
+        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    return kvh.own_heads(o, 1) if wide else o
 
 
 def paged_decode_attention_block(p, x, cfg, positions, cache, block_tables,
@@ -285,10 +380,8 @@ def paged_decode_attention_block(p, x, cfg, positions, cache, block_tables,
     else:
         cache["k"][dest, off] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][dest, off] = v_new[:, 0].to(cache["v"].dtype)
-    o = ops.paged_decode_attention(
-        q[:, 0].contiguous(), cache["k"], cache["v"], block_tables,
-        pos.to(torch.int32).contiguous(),
-        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    o = _paged_read(p, q[:, 0], cache, block_tables,
+                    pos.to(torch.int32).contiguous())
     y = linear(p["wo"], o.reshape(B, 1, -1), cfg.quant_mode)
     return y, cache
 
@@ -338,10 +431,8 @@ def paged_verify_attention_block(p, x, cfg, positions, cache, block_tables,
         scatter(cache["k"], k_new)
         scatter(cache["v"], v_new)
     tables = block_tables[:, None, :].expand(B, S, n_bt).reshape(B * S, n_bt)
-    o = ops.paged_decode_attention(
-        q.reshape(B * S, *q.shape[2:]).contiguous(), cache["k"], cache["v"],
-        tables, positions.reshape(-1).to(torch.int32).contiguous(),
-        k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    o = _paged_read(p, q.reshape(B * S, *q.shape[2:]), cache, tables,
+                    positions.reshape(-1).to(torch.int32).contiguous())
     y = linear(p["wo"], o.reshape(B, S, -1), cfg.quant_mode)
     return y, cache
 
@@ -349,10 +440,12 @@ def paged_verify_attention_block(p, x, cfg, positions, cache, block_tables,
 def init_kv_cache(cfg, batch, seq_len, dtype=torch.bfloat16, device=None):
     """Dense slab KV storage for one layer on ``device`` (CUDA unless the
     caller names another): extent ``seq_len``, or ``min(seq_len, window)``
-    for SWA; every ``k_pos`` -1 (empty)."""
+    for SWA (a rank's share of a ring split over the model axis: ``1 /
+    kv_seq_split`` of it); every ``k_pos`` -1 (empty)."""
     device = resolve_device(device)
     hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
-    shape = (batch, cache_extent(cfg, seq_len), hkv, hd)
+    extent = cache_extent(cfg, seq_len) // getattr(cfg, "kv_seq_split", 1)
+    shape = (batch, extent, hkv, hd)
     cache = {"k_pos": torch.full(shape[:2], -1, dtype=torch.int32,
                                  device=device)}
     if cfg.kv_quant == "int8":

@@ -13,6 +13,13 @@ RG-LRU, per channel::
   a_t = exp(-c * softplus(Lambda) * r_t)        in (0, 1), c = rglru_c
   h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
+Under tensor parallelism a rank holds ``d_rnn / m`` channels of every
+branch (the state, the conv and the column-parallel projections follow
+them); the gate projections W_a and W_x are dense over all ``d_rnn``
+inputs, so their input, the conv output, is all-gathered once a layer
+(the block's params carry a ``runtime.parallel.ChannelGather`` under
+"gather"), and ``w_out`` is row-parallel.
+
 The five projections go through :func:`repro_torch.quant.linear` (the PSI
 kernels); the conv, the gates and the recurrence are plain PyTorch in f32,
 as the JAX package leaves them to XLA.  The prefill recurrence is a
@@ -67,11 +74,14 @@ def _conv_causal(p, x, cw):
 
 
 def _gates(p, x, cfg):
-    """a_t (decay) and the gated input, both (B, S, dr) f32."""
+    """a_t (decay) and the gated input, both (B, S, dr) f32 (the rank's
+    channels of both under tensor parallelism)."""
     qm = cfg.quant_mode
-    r = torch.sigmoid(linear(p["rglru_wa"], x, qm).to(torch.float32)
+    gather = p.get("gather")
+    xin = x if gather is None else gather.whole(x)
+    r = torch.sigmoid(linear(p["rglru_wa"], xin, qm).to(torch.float32)
                       + p["rglru_ba"])
-    i = torch.sigmoid(linear(p["rglru_wx"], x, qm).to(torch.float32)
+    i = torch.sigmoid(linear(p["rglru_wx"], xin, qm).to(torch.float32)
                       + p["rglru_bx"])
     a = torch.exp(-cfg.rglru_c * _softplus(p["rglru_lambda"]) * r)
     gated = (torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12))

@@ -27,15 +27,21 @@ def maybe_fake_quant(w: torch.Tensor, quant_mode: str, axis
     return psi.fake_quant_ste(w, bits, axis)
 
 
-def linear(wleaf, x: torch.Tensor, quant_mode: str = "none") -> torch.Tensor:
-    """x (..., K) @ w (K, N) -> (..., N).  A tensor-parallel leaf
+def linear(wleaf, x: torch.Tensor, quant_mode: str = "none",
+           out_dtype=None) -> torch.Tensor:
+    """x (..., K) @ w (K, N) -> (..., N), in x's dtype, or in f32 with
+    ``out_dtype=torch.float32`` (the f32 sums before their cast, as a
+    row-parallel shard's partial needs them).  A tensor-parallel leaf
     (``runtime.parallel.TPLinear``) runs its shard and its collective."""
     if isinstance(wleaf, psi.QuantizedTensor):
-        return ops.psi_matmul(x, wleaf)
+        return ops.psi_matmul(x, wleaf, out_dtype)
     tp = getattr(wleaf, "tp_linear", None)
     if tp is not None:
         return tp(x, quant_mode)
     w = maybe_fake_quant(wleaf, quant_mode, axis=(wleaf.dim() - 2,))
+    if out_dtype is not None and out_dtype != x.dtype:
+        # the products of x's dtype are exact in f32: f32 accumulation
+        return torch.matmul(x.to(out_dtype), w.to(x.dtype).to(out_dtype))
     return torch.matmul(x, w.to(x.dtype))
 
 

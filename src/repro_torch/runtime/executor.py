@@ -23,13 +23,15 @@ tensor with a fixed address, written at insert and read in place.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import psi, quantizer
 from repro_torch.kernels import ops
-from repro_torch.models import build_model, kvcache as kvc
+from repro_torch.models import attention, build_model, kvcache as kvc
 from repro_torch.runtime import parallel
 from repro_torch.runtime import sharding as shr
 from repro_torch.runtime.elastic import make_mesh_from_plan, plan_remesh
@@ -259,17 +261,21 @@ class Executor:
         self.local_batch, self._local_blocks = max_batch, self.n_blocks
         self.local_cfg = cfg            # this rank's share of the model
         self.monitor = None
+        self._ring_split = 1            # ranks a dense KV ring splits over
+        self.draft_params = None
+        self.blocks_copied = 0          # pool blocks copied across shards
         if mesh is None:
             self.model = build_model(cfg)
             # a tied PSI table's head is transposed here, once, on the device
             self.params = self.model.serving_params(params_to(params,
                                                               self.device))
+            # derived on the device from the placed codes: one copy, no
+            # host trip
+            if self.speculative is not None:
+                self.draft_params = quantizer.draft_param_tree(
+                    self.params, self.spec_bits)
         else:
             self._place_on_mesh(cfg, params, mesh)
-        # derived on the device from the placed codes: one copy, no host trip
-        self.draft_params = (
-            quantizer.draft_param_tree(self.params, self.spec_bits)
-            if self.speculative is not None else None)
         self.prefill_calls = 0          # model forwards over a prompt batch
         self.prefill_headless = 0       # ... of them without the lm-head
         B, dev = self.local_batch, self.device
@@ -310,10 +316,6 @@ class Executor:
         maps the scheduler partitions over."""
         share = parallel.MeshShare(cfg, mesh, self.max_batch,
                                    self.n_blocks if self.paged else None)
-        if share.tp and self.speculative is not None:
-            raise NotImplementedError(
-                "speculative decoding with tensor parallelism is not ported "
-                "yet (ROADMAP queue 1, item 5); use a model axis of 1")
         self._share = share
         self._given_params = params
         self.mesh_size = share.size
@@ -325,6 +327,15 @@ class Executor:
         self.local_batch = share.local_batch
         self._local_blocks = share.local_blocks
         self.local_cfg = share.local_cfg(cfg)
+        if (share.tp and not self.paged and shr.kv_seq_axis(
+                cfg, mesh, self.max_batch,
+                attention.cache_extent(cfg, self.max_seq)) == "model"):
+            # KV heads that do not split over "model": the dense ring's
+            # positions do (sharding._kv_layout), rank r holding slots
+            # [r C/m, (r+1) C/m)
+            self._ring_split = share.tp_size
+            self.local_cfg = dataclasses.replace(
+                self.local_cfg, kv_seq_split=self._ring_split)
         self.model = build_model(self.local_cfg)
         # shr.LeafPlacer cuts what local_shard cuts, but for a mamba
         # in_proj: its (d, 2 d_inner) columns are two halves, x and z, and
@@ -342,7 +353,14 @@ class Executor:
             local = placer.place_tree(params)
         specs = placer.specs(glob)
         local = self.model.serving_params(params_to(local, self.device))
-        self.params = share.wrap_tp(cfg, local, specs)
+        split = self._ring_split > 1
+        self.params = share.wrap_tp(cfg, local, specs, ring_split=split)
+        if self.speculative is not None:
+            # the draft views of the rank's codes, wrapped exactly as the
+            # target's leaves (column, row, gather)
+            self.draft_params = share.wrap_tp(
+                cfg, quantizer.draft_param_tree(local, self.spec_bits),
+                specs, ring_split=split)
         self._check_cache_layout(cfg, mesh)
         if share.size > 1:
             self.monitor = StragglerMonitor(n_hosts=share.size)
@@ -393,9 +411,8 @@ class Executor:
 
     def _check_cache_layout(self, cfg, mesh) -> None:
         """The local cache must be :func:`sharding.local_shard` of the
-        global cache's specs (a paged pool plus its local scratch blocks);
-        a layout the port does not compute (a KV ring split over a mesh
-        axis) is refused here."""
+        global cache's specs (a paged pool plus its local scratch blocks; a
+        dense KV ring split over "model" included)."""
         B, share = self.max_batch, self._share
         glob = build_model(cfg).init_cache(
             B, self.max_seq, device="meta",
@@ -420,10 +437,9 @@ class Executor:
             if self.paged and self.n_block_shards > 1:
                 got = (got[0] - self.local_batch,) + got[1:]
             if want != got:
-                raise NotImplementedError(
+                raise RuntimeError(
                     f"cache leaf {name}: spec {spec} gives this rank "
-                    f"{want}, the port computes {got}: that layout is not "
-                    f"ported (ROADMAP queue 1, item 5)")
+                    f"{want}, the port computes {got}")
 
     # ------------------------------------------------------------ elastic
     @classmethod
@@ -752,6 +768,21 @@ class Executor:
         return self._prefill_insert_local(tokens, true_lens, cache, slot,
                                           block_row, ctx_ids, emit)
 
+    def _ring_cut(self, seq_cache: kvc.KVCache) -> kvc.KVCache:
+        """This rank's slots of a prefill's dense cache when the KV ring
+        splits over "model" (rank r: slots [r C/m, (r+1) C/m) of every KV
+        leaf, wrap included: the prefill's cache is already the ring)."""
+        if self._ring_split == 1:
+            return seq_cache
+        r, m = self._share.tp_rank, self._ring_split
+        kv = []
+        for layer in seq_cache.kv:
+            if "k_pos" in layer:
+                c = layer["k_pos"].shape[1] // m
+                layer = {n: t.narrow(1, r * c, c) for n, t in layer.items()}
+            kv.append(layer)
+        return kvc.KVCache(kv, enc_out=seq_cache.enc_out)
+
     def _prefill_insert_local(self, tokens, true_lens, cache, slot,
                               block_row, ctx_ids, emit):
         if not self.paged:
@@ -759,7 +790,8 @@ class Executor:
                 raise ValueError("prefix context is gathered from a paged "
                                  "cache; this executor is dense")
             first, seq_cache = self.prefill(tokens, true_lens)
-            return first, self.model.insert_cache(cache, seq_cache, slot)
+            return first, self.model.insert_cache(
+                cache, self._ring_cut(seq_cache), slot)
         row = self._t(block_row, torch.int64)
         pos0, ctx_kv = 0, None
         if ctx_ids is not None and len(ctx_ids):
@@ -774,6 +806,51 @@ class Executor:
                                         ctx_kv=ctx_kv, emit=emit)
         cache = self.model.insert_cache(cache, seq_cache, slot, row)
         return first, cache
+
+    @torch.inference_mode()
+    def copy_blocks(self, cache, moves):
+        """Copy pool blocks from shard to shard, exactly, on a mesh whose
+        pool splits over the slot axes: ``moves`` are (source, destination)
+        global block ids, the same list on every rank (every rank calls
+        this at the same point of the serve loop).  Each source shard's
+        blocks (every layer's leaves, as raw bytes) are broadcast once over
+        the slot group at each model coordinate; the ranks of a
+        destination's shard write them into their own blocks.  Returns the
+        cache; ``blocks_copied`` counts the blocks."""
+        self._check_pool(cache)
+        share = self._share
+        if share is None or self.n_block_shards == 1:
+            raise ValueError("copy_blocks moves blocks between the shards "
+                             "of a split pool")
+        by_src = {}
+        for src, dst in moves:
+            by_src.setdefault(int(self.block_shards[src]), []).append(
+                (int(src), int(dst)))
+        leaves = [t for layer in cache.kv for _, t in sorted(layer.items())]
+        for shard in sorted(by_src):
+            pairs = by_src[shard]
+            n = len(pairs)
+            sizes = [n * t[0].numel() * t.element_size() for t in leaves]
+            if share.shard == shard:
+                ids = self._t(share.local_block_ids([a for a, _ in pairs]),
+                              torch.int64)
+                buf = torch.cat([t[ids].reshape(-1).view(torch.uint8)
+                                 for t in leaves])
+            else:
+                buf = torch.empty((sum(sizes),), dtype=torch.uint8,
+                                  device=self.device)
+            share.broadcast_from_shard(buf, shard)
+            mine = [b for _, b in pairs
+                    if int(self.block_shards[b]) == share.shard]
+            if mine:
+                if len(mine) != n:
+                    raise ValueError("one source shard's moves must all go "
+                                     "to one destination shard")
+                ids = self._t(share.local_block_ids(mine), torch.int64)
+                for t, part in zip(leaves, torch.split(buf, sizes)):
+                    t[ids] = part.view(t.dtype).reshape(n, *t.shape[1:])
+            self.blocks_copied += n
+        return cache
 
     @torch.inference_mode()
     def insert_burst(self, cache, seq_cache, slots, valid, block_rows=None):
@@ -793,7 +870,7 @@ class Executor:
             if share is not None:
                 # ``seq_cache`` holds this rank's rows of the burst only
                 slot = int(slot) - share.row0
-            row = self.model.slice_cache(seq_cache, i)
+            row = self._ring_cut(self.model.slice_cache(seq_cache, i))
             brow = None
             if self.paged:
                 brow = (block_rows[i] if share is None

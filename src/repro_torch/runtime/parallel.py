@@ -14,13 +14,18 @@ its own heads and FFN channels.  The collectives:
 * a broadcast of rank 0's clock at every loop iteration when the mesh has
   more than one rank (``agree_time``), so arrivals are admitted at the same
   iteration everywhere;
-* inside the model, with TP: an all-reduce after each row-parallel
+* inside the model, with TP: an f32 all-reduce after each row-parallel
   projection (``wo``, ``w_down``; a mamba layer's ``x_proj`` and
-  ``out_proj``) and after the vocab-parallel embedding, and an all-gather
-  of the vocab-parallel logits and of a K/V projection whose columns cut
-  a head (MQA); in an MoE layer an all-gather of the experts' outputs
+  ``out_proj``; a rec layer's ``w_out``) and an all-reduce after the
+  vocab-parallel embedding, and an all-gather of the vocab-parallel
+  logits and of a K/V projection whose KV heads do not split over the
+  model axis; in an MoE layer an all-gather of the experts' outputs
   (expert parallelism) or an all-reduce of their partial sums (tensor
-  parallelism inside each expert): see :class:`ExpertShard`.
+  parallelism inside each expert): see :class:`ExpertShard`; in a rec
+  layer an all-gather of the conv output, the input of its dense gate
+  projections (:class:`ChannelGather`); and, when a dense KV ring splits
+  its positions over "model", an all-gather of the decode query heads and
+  one of the partial softmax sums (:class:`KVHeads`).
 
 Sharded training (``runtime/fsdp.py``) adds reduce-scatters and the
 pipeline (``runtime/pipeline_par.py``) sends and receives.  Every
@@ -99,8 +104,11 @@ class TPLinear:
     * "column": N split; the local columns are the output (no collective);
     * "gather": N split; the columns are all-gathered into the whole N
       (vocab-parallel logits, a K/V projection that cuts a head);
-    * "row": K split; the partial sums are all-reduced (the order of the
-      sum changes, so results match the single process to a tolerance)."""
+    * "row": K split; each rank's partial sum stays f32, the partials are
+      all-reduced in f32 and cast once to the activation dtype, as the
+      reference's f32 accumulation sums the K-split partials before its
+      one cast (the order of the sum changes, so results match the single
+      process to f32 rounding before that cast)."""
 
     def __init__(self, w, kind: str, group):
         if kind not in ("column", "gather", "row"):
@@ -109,9 +117,10 @@ class TPLinear:
 
     def tp_linear(self, x, quant_mode="none"):
         from repro_torch.quant import linear
-        y = linear(self.w, x, quant_mode)
         if self.kind == "row":
-            return all_reduce_(y, self.group)
+            y = linear(self.w, x, quant_mode, out_dtype=torch.float32)
+            return all_reduce_(y, self.group).to(x.dtype)
+        y = linear(self.w, x, quant_mode)
         if self.kind == "gather":
             return torch.cat(all_gather(y, self.group), dim=-1)
         return y
@@ -171,12 +180,86 @@ class ExpertShard:
         return all_reduce_(ye, self.group).to(dtype)
 
 
+class ChannelGather:
+    """A rec layer's channels split over the model group: ``whole`` gives
+    every rank the whole (..., d_rnn) conv output from its (..., d_rnn/m)
+    chunk, the input of the dense (d_rnn, d_rnn) gate projections, whose
+    columns (the rank's gate channels) are split.  An all-gather: exact."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat(all_gather(x, self.group), dim=-1)
+
+
+class KVHeads:
+    """How this rank's query heads meet KV heads that do not split over the
+    model axis (an attention layer's params carry it under "kv_heads";
+    ``models.attention`` reads it).  The K/V projection is gathered, so
+    every rank holds all ``n_kv_heads``; rank r's query heads are [r hq/m,
+    (r+1) hq/m) of the ``n_heads`` global ones.
+
+    * ``own_kv``: the KV heads of the rank's query heads, in the order its
+      grouped attention reads them (the one head they share, or each query
+      head's own head where they straddle groups);
+    * a dense KV ring whose positions split over "model" (``ring_split``):
+      rank r holds ring slots [r C/m, (r+1) C/m).  A decode step gathers
+      every rank's query heads, attends all of them over its own slots, and
+      merges the ranks' partial softmax sums (a max, a sum, the
+      unnormalised values, f32) in rank order (:meth:`gather_partials`,
+      ``attention.merge_ring_partials``);
+    * the paged pool (heads replicated): a decode or verify read gathers
+      the query heads, reads all of them, and keeps the rank's own."""
+
+    def __init__(self, group, rank: int, size: int, n_heads: int,
+                 n_kv_heads: int, ring_split: bool = False):
+        self.group, self.rank, self.size = group, int(rank), int(size)
+        self.n_heads, self.n_kv_heads = int(n_heads), int(n_kv_heads)
+        self.ring_split = bool(ring_split)
+        self.local_heads = self.n_heads // self.size
+        self.h0 = self.rank * self.local_heads
+
+    @property
+    def gathers_q(self) -> bool:
+        """Whether a paged read needs every rank's query heads: it does
+        unless all query heads share the one KV head."""
+        return self.n_kv_heads > 1
+
+    def own_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """(B, S, n_kv_heads, ...) -> the KV heads of this rank's query
+        heads: one head when they all fall in one group (MQA, or a group
+        count that divides the axis), else one head per query head."""
+        g = self.n_heads // self.n_kv_heads        # query heads per KV head
+        if g % self.local_heads == 0:
+            j = self.h0 // g
+            return t[:, :, j:j + 1]
+        return t.repeat_interleave(g, dim=2)[
+            :, :, self.h0:self.h0 + self.local_heads]
+
+    def all_heads(self, q: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's query heads along ``dim``, in global head order."""
+        return torch.cat(all_gather(q, self.group), dim=dim)
+
+    def own_heads(self, o: torch.Tensor, dim: int) -> torch.Tensor:
+        return o.narrow(dim, self.h0, self.local_heads)
+
+    def gather_partials(self, part: torch.Tensor) -> list:
+        """Every rank's partial softmax sums over its ring slots
+        (``attention.ring_partial``), in rank order: one all-gather."""
+        return all_gather(part, self.group)
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardConfig(ModelConfig):
-    """A rank's share of a config whose SSM channels split over "model":
-    ``d_inner`` is the rank's channel count (the state, the conv and the
-    projections follow it); every other field is the global config's."""
+    """A rank's share of a config under tensor parallelism: its heads, FFN
+    and RG-LRU channels are plain fields; ``d_inner`` is the rank's SSM
+    channel count (the state, the conv and the projections follow it); a
+    dense KV ring whose positions split over "model" holds ``1 /
+    kv_seq_split`` of them (``attention.init_kv_cache``).  Every other
+    field is the global config's."""
     local_d_inner: int = 0
+    kv_seq_split: int = 1
 
     @property
     def d_inner(self) -> int:
@@ -185,25 +268,23 @@ class ShardConfig(ModelConfig):
 
 def tp_local_config(cfg, m: int):
     """The config of one rank's share of ``cfg`` tensor-parallel over a
-    model axis of ``m``: its query heads, KV heads and FFN channels (the
-    head width pinned); for MoE the heads only (the experts and the
-    routing stay global: ``ExpertShard`` holds the split); for the SSM
-    its ``d_inner`` channels (:class:`ShardConfig`)."""
+    model axis of ``m`` (a :class:`ShardConfig`): its query heads, its KV
+    heads when they split (else all of them: the K/V projection is
+    gathered, see :class:`KVHeads`), its FFN channels (the head width
+    pinned); for MoE the heads only (the experts and the routing stay
+    global: ``ExpertShard`` holds the split); for the SSM its ``d_inner``
+    channels; for the RG-LRU hybrid its heads, FFN and ``d_rnn``
+    channels."""
     if m == 1:
         return cfg
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "tensor-parallel execution of the hybrid family is not ported "
-            "yet (ROADMAP queue 1, item 5: its attention is MQA on the "
-            "dense SWA ring, whose sequence dim then splits over \"model\", "
-            "and its RG-LRU channels go with it); serve it on a mesh with a "
-            "model axis of 1")
-    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"tensor-parallel execution of the {cfg.family!r} family is not "
             f"ported (ROADMAP queue 1, item 4: its one config is narrower "
             f"than TP_MIN_D_MODEL, so it serves data-parallel); serve it on "
             f"a mesh with a model axis of 1")
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(ModelConfig)}
     bad = [f"vocab_size={cfg.vocab_size}"] if cfg.vocab_size % m else []
     if cfg.family == "ssm":
         if cfg.d_inner % m:
@@ -212,28 +293,28 @@ def tp_local_config(cfg, m: int):
             raise NotImplementedError(
                 f"tensor parallelism over model={m} needs "
                 f"{', '.join(bad)} to split {m} ways")
-        fields = {f.name: getattr(cfg, f.name)
-                  for f in dataclasses.fields(ModelConfig)}
         return ShardConfig(**fields, local_d_inner=cfg.d_inner // m)
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     if hq % m:
         bad.append(f"n_heads={hq}")
-    if hkv % m and hkv != 1:
-        bad.append(f"n_kv_heads={hkv} (neither a multiple of the model axis "
-                   f"nor 1)")
     if cfg.family == "moe":
         if cfg.n_experts % m and cfg.d_ff % m:
             bad.append(f"n_experts={cfg.n_experts} or d_ff={cfg.d_ff}")
     elif cfg.d_ff % m:
         bad.append(f"d_ff={cfg.d_ff}")
+    if cfg.family == "hybrid" and cfg.resolved_d_rnn % m:
+        bad.append(f"d_rnn={cfg.resolved_d_rnn}")
     if bad:
         raise NotImplementedError(
             f"tensor parallelism over model={m} needs "
             f"{', '.join(bad)} to split {m} ways")
-    return dataclasses.replace(
-        cfg, n_heads=hq // m, n_kv_heads=hkv // m if hkv % m == 0 else 1,
+    fields.update(
+        n_heads=hq // m, n_kv_heads=hkv // m if hkv % m == 0 else hkv,
         d_ff=cfg.d_ff if cfg.family == "moe" else cfg.d_ff // m,
         head_dim=cfg.resolved_head_dim)
+    if cfg.family == "hybrid":
+        fields["d_rnn"] = cfg.resolved_d_rnn // m
+    return ShardConfig(**fields)
 
 
 class MeshShare:
@@ -310,6 +391,23 @@ class MeshShare:
         self.group = mesh.flat_group
         # rank 0's clock travels on the host (gloo); None on one rank
         self.host_group = mesh.host_group
+        # the group of the ranks that differ from this one only on the
+        # slot axes (one rank a slot shard, at this rank's other
+        # coordinates): a pool block moves from shard to shard through it
+        self.slot_group = None
+        if len(self.bax) == len(self.axes):
+            self.slot_group = mesh.flat_group
+        elif len(self.bax) == 1:
+            self.slot_group = mesh.get_group(self.bax[0])
+        elif self.bax:
+            self.slot_group = mesh.axis_groups[tuple(self.bax)]
+        self._slot_peers = {}
+        for p in range(len(self.ranks)):
+            c = dict(zip(self.axes, np.unravel_index(p, shape)))
+            if all(c[a] == self.coord[a] for a in self.axes
+                   if a not in self.bax):
+                i = shr.shard_index(mesh, self.bax or None, c)[0]
+                self._slot_peers[i] = self.ranks[p]
         m = self.axes.get("model", 1)
         self.tp = shr.tp_enabled(cfg) and m > 1
         self.tp_size = m if self.tp else 1
@@ -338,6 +436,16 @@ class MeshShare:
         parts = all_gather(t, self.group)
         return torch.cat([parts[p] for p in self.rep], dim=dim)
 
+    def broadcast_from_shard(self, buf: torch.Tensor, shard: int
+                             ) -> torch.Tensor:
+        """``buf`` of the rank that holds slot shard ``shard`` at this
+        rank's other coordinates, on every rank of the slot group (in
+        place)."""
+        _dist().broadcast(buf, src=self._slot_peers[int(shard)],
+                          group=self.slot_group)
+        _COUNTS["broadcast"] += 1
+        return buf
+
     def agree_time(self, t: float) -> float:
         """Rank 0's ``t`` on every rank of the mesh."""
         if self.host_group is None:
@@ -353,11 +461,16 @@ class MeshShare:
         (:func:`tp_local_config` over the model axis)."""
         return tp_local_config(cfg, self.tp_size) if self.tp else cfg
 
-    def wrap_tp(self, cfg, params, specs):
+    def wrap_tp(self, cfg, params, specs, ring_split: bool = False):
         """The local param tree with its TP leaves wrapped: column-parallel
         wq / w_gate / w_up (and wk / wv when the KV heads split), row-
         parallel wo / w_down, a vocab-parallel embed, gathered logits
-        (lm_head, a tied head) and, for MQA, a gathered K/V projection."""
+        (lm_head, a tied head) and, where the KV heads do not split, a
+        gathered K/V projection and a :class:`KVHeads` in each attention
+        layer (``ring_split``: the dense KV ring's positions split over
+        "model"); a rec layer's w_in_rec / w_in_gate / rglru_wa /
+        rglru_wx column-parallel, its w_out row-parallel and a
+        :class:`ChannelGather` for the gate projections' input."""
         if not self.tp:
             return params
         m, g = self.tp_size, self.tp_group
@@ -388,7 +501,11 @@ class MeshShare:
                     # channels, x_proj and out_proj row-parallel, dt_proj
                     # column-parallel (two all-reduces a layer)
                     "in_proj": "N", "x_proj": "K", "dt_proj_w": "N",
-                    "out_proj": "K"}
+                    "out_proj": "K",
+                    # rg-lru: the gate projections read the gathered conv
+                    # output (ChannelGather) and give the rank's channels
+                    "w_in_rec": "N", "w_in_gate": "N", "rglru_wa": "N",
+                    "rglru_wx": "N", "w_out": "K"}
             if name not in want:
                 return leaf
             got = split_dim(spec)
@@ -419,4 +536,11 @@ class MeshShare:
             for layer in out["layers"]:
                 layer["moe"] = dict(layer["moe"], shard=ExpertShard(
                     kind, g, self.tp_rank, m))
+        for layer in out["layers"]:
+            if "rec" in layer:
+                layer["rec"] = dict(layer["rec"], gather=ChannelGather(g))
+            if "attn" in layer and not kv_split:
+                layer["attn"] = dict(layer["attn"], kv_heads=KVHeads(
+                    g, self.tp_rank, m, cfg.n_heads, cfg.n_kv_heads,
+                    ring_split))
         return out

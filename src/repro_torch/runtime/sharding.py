@@ -371,6 +371,13 @@ def _kv_layout(cfg, mesh, B, C, Hkv):
     return bax, seq_ax, head_ax
 
 
+def kv_seq_axis(cfg, mesh, B: int, C: int):
+    """The axis a dense KV ring of ``B`` slots and ``C`` positions splits
+    its positions over (None: they replicate), the choice k, v, their
+    scales and k_pos share."""
+    return _kv_layout(cfg, mesh, B, C, max(cfg.n_kv_heads, 1))[1]
+
+
 def _serve_leaf_spec(cfg, mesh, name: str, shape, paged=False) -> P:
     """Spec for one layer's cache leaf (batch/slot dim on axis 0).
     Leaf shapes (dense layout):

@@ -22,10 +22,12 @@ process computes the references.  Params come from the JAX package
 * the same (2, 2) mesh at horizon 4 for a reduced qwen3-moe burst and
   reduced recurrentgemma: tokens identical to the single process and the
   JAX Server;
-* ``from_devices`` / ``remesh`` on four ranks, and the refusals (the
-  RG-LRU hybrid on a model axis > 1, context serving over split slots, a
-  ``max_batch`` the data axis does not divide).  The MoE and SSM families'
-  tensor and expert parallelism is tested in ``test_torch_tp_families.py``.
+* ``from_devices`` / ``remesh`` on four ranks, and the refusal of a
+  ``max_batch`` the data axis does not divide.  The MoE and SSM families'
+  tensor and expert parallelism is tested in ``test_torch_tp_families.py``,
+  the hybrid's, KV heads that do not split and speculation with TP in
+  ``test_torch_tp_ring.py``, context serving and speculation on split
+  slots in ``test_torch_mesh_context.py``.
 """
 import dataclasses
 import json
@@ -164,9 +166,6 @@ if job == "dp":
     out["elastic"] = el
     out["refuse_batch"] = refused(lambda: Server(
         cfg, params, max_batch=3, max_seq=64, device="cpu", mesh=mesh))
-    out["refuse_prefix"] = refused(lambda: Server(
-        dataclasses.replace(cfg, prefix_cache=True), params, max_batch=4,
-        max_seq=64, device="cpu", mesh=mesh))
 elif job == "tp":
     mesh = make_mesh((1, 2), ("data", "model"))
     for name in SPECS["tp_cases"]:
@@ -182,13 +181,6 @@ elif job == "tp":
         res["local_heads"] = [ex.local_cfg.n_heads, ex.local_cfg.n_kv_heads,
                               ex.local_cfg.d_ff]
         out[name] = res
-    from repro_torch.models import build_model
-    hcfg = reduced_config(get_config("recurrentgemma-9b"), d_model=1024,
-                          n_layers=3, n_heads=8, head_dim=128, d_ff=256,
-                          vocab_size=512, quant_mode="psi8")
-    hparams = build_model(hcfg).init(seed=0, device="cpu", bits=8)
-    out["refuse_hybrid"] = refused(lambda: Server(
-        hcfg, hparams, max_batch=2, max_seq=64, device="cpu", mesh=mesh))
 with open(f"{tmp}/{job}.{rank}.json", "w") as f:
     json.dump(out, f)
 dist.destroy_process_group()
@@ -466,12 +458,9 @@ def test_elastic_hooks(runs):
 
 
 def test_mesh_refusals(runs):
+    """A max_batch the data axis does not divide is refused.  (Context
+    serving on split slots and the hybrid's tensor parallelism are served:
+    test_torch_mesh_context.py and test_torch_tp_ring.py.)"""
     _, got, _ = runs
     for res in got["dp"]:
         assert res["refuse_batch"].startswith("ValueError: max_batch=3")
-        assert res["refuse_prefix"].startswith("NotImplementedError")
-    for res in got["tp"]:
-        # the RG-LRU hybrid stays refused on a model axis > 1: its MQA
-        # ring would split over "model" (ROADMAP queue 1, item 5)
-        assert res["refuse_hybrid"].startswith("NotImplementedError")
-        assert "ROADMAP queue 1, item 5" in res["refuse_hybrid"]
