@@ -220,6 +220,23 @@ printing one JSON line; any failure exits non-zero before the result line:
                          psi5 against the CPU, their ms, 3 qat5 SGD steps;
                          LeNet-5 with examples/train_lenet_qat.py's recipe
                          at fp32 and qat8, test accuracy card vs CPU;
+  5e. PSI arithmetic (psi_arith) — the paper's multiplier-less arithmetic
+                         on CUDA tensors: the SAM over all 65536 INT8 x
+                         INT8 pairs equal to w * x, its INT5 error rows
+                         exactly {-13, -11, 11, 13}, the MOA over seeded
+                         18-operand sets equal to the plain sum, INT8
+                         activations bit-equal to the CPU's; the INT5
+                         entry point ops.psi_matmul_int5 (kernel 2 at bits
+                         5, one launch a call) against its plain version
+                         at qwen3-8b's wq shape, bf16 and f32 x, M 4 and
+                         288;
+  5f. examples         — the four example twins (examples/*_torch.py) on
+                         the card at shortened steps, their printed lines
+                         as JSON lines, their kernel launches added to the
+                         kernels line (quickstart's psi5 generation:
+                         kernel 2; serve_quantized: kernels 1-3); AlexNet's
+                         INT5-vs-FP32 relative error on the card against
+                         the same example on the CPU;
   6. summary           — {"kernels": [...]}, the card line, then the result
                          {"ok": true, "device": {...}} as the last line.
 
@@ -350,6 +367,18 @@ LENET_PP = 2.0
 ALEXNET_BATCH = 4                # the paper's Fig. 8 batch
 ALEXNET_LR = 1e-3                # 3 qat5 SGD steps (momentum 0.9)
 LENET_STEPS, LENET_BATCH, LENET_LR = 300, 128, 0.05
+# psi_arith: MOA operand sets (operands, sets) at (in_bits, out_bits);
+# the INT8 activations' length; psi_matmul_int5's rows at qwen3-8b's wq
+MOA_SHAPE, MOA_BITS = (18, 4096), ((5, 18), (13, 18))
+ACT_LEN = 1 << 16
+INT5_MS = (DECODE_M, 288)
+# examples: each twin's shortened steps (quickstart: QAT steps; serve:
+# the trace's decode budget; LeNet-5: SGD steps a run; AlexNet trains
+# nothing); AlexNet's INT5-vs-FP32 relative error on the card within
+# ALEXNET_REL_ATOL of the CPU's
+EXAMPLE_STEPS = {"quickstart_torch": 20, "serve_quantized_torch": 4,
+                 "train_lenet_qat_torch": 30, "alexnet_tma_torch": None}
+ALEXNET_REL_ATOL = 1e-3
 
 
 def emit(obj):
@@ -547,6 +576,8 @@ def main():
     timed("train_mesh", phase_train_mesh, torch, dev)
     timed("train_resume", phase_train_resume, torch, dev)
     timed("cnn", phase_cnn, torch, dev)
+    timed("psi_arith", phase_psi_arith, torch, dev)
+    timed("examples", phase_examples, torch, dev, launches, card_line)
     emit({"phase": "phase_seconds", **seconds})
 
     # ---------------------------------------------------------- 6. summary
@@ -4316,6 +4347,168 @@ def phase_cnn(torch, dev):
           "alexnet_forward": fwd, "alexnet_qat5_sgd_losses": alex,
           "alexnet_qat5_sgd_s": round(alex_s, 3),
           "lenet5": {f"{m}_{d}": v for (m, d), v in lenet.items()},
+          "phase_s": round(time.perf_counter() - t_phase, 3)})
+
+
+def phase_psi_arith(torch, dev):
+    """The paper's arithmetic on CUDA tensors (plain PyTorch ops on the
+    card, no kernel of its own): the SAM over every INT8 x INT8 pair equal
+    to w * x, its INT5 error rows Table I's four codes, the MOA over
+    seeded operand sets equal to the plain sum, INT8 activations bit-equal
+    to the CPU's.  Then ``ops.psi_matmul_int5`` at qwen3-8b's wq shape
+    against ``psi_matmul_int5_ref`` on the same card tensors, bf16 and f32
+    x at INT5_MS rows, each call one kernel-2 launch (a comparison: not
+    added to the kernels line), at the kernel phase's tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import psi
+    from repro_torch.kernels import ops, ref
+    t_phase = time.perf_counter()
+    w8 = torch.arange(-128, 128, dtype=torch.int32, device=dev)
+    x8 = w8.to(torch.int8)[None, :]
+    sam = psi.sam_multiply(x8, *psi.psi_decompose_int(w8[:, None], 8))
+    check(sam.is_cuda and torch.equal(sam, w8[:, None] * w8[None, :]),
+          "SAM: INT8 x INT8 differs from w * x")
+    w5 = torch.arange(-16, 16, dtype=torch.int32, device=dev)
+    sam5 = psi.sam_multiply(x8, *psi.psi_decompose_int(w5[:, None], 5))
+    rows = w5[(sam5 != w5[:, None] * w8[None, :]).any(1)].tolist()
+    check(rows == [-13, -11, 11, 13], f"SAM: INT5 error rows {rows}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for in_bits, out_bits in MOA_BITS:
+        lim = 1 << (in_bits - 1)
+        operands = torch.randint(-lim, lim, MOA_SHAPE, generator=gen,
+                                 dtype=torch.int32, device=dev)
+        got = psi.moa_sign_extension_sum(operands, in_bits, out_bits)
+        check(torch.equal(got, operands.sum(0).to(torch.int32)),
+              f"MOA ({in_bits}, {out_bits}) differs from the plain sum")
+    act = torch.randn(ACT_LEN, generator=gen, device=dev) * 3.0
+    q, scale = psi.quantize_activations_int8(act)
+    q_cpu, scale_cpu = psi.quantize_activations_int8(act.cpu())
+    check(torch.equal(q.cpu(), q_cpu) and torch.equal(scale.cpu(),
+                                                      scale_cpu),
+          "INT8 activations: card and CPU differ")
+
+    cfg = get_config(MAIN_ARCH)
+    K, N = cfg.d_model, cfg.n_heads * cfg.resolved_head_dim
+    w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
+    qt = psi.quantize_weights(w, 5, axis=(0,)).pack()
+    int5 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst_err, worst_ratio = 0.0, 0.0
+        for M in INT5_MS:
+            x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+            before = ops.launch_counts()["psi_matmul_packed"]
+            got = ops.psi_matmul_int5(x, qt.data, qt.scale)
+            check(ops.launch_counts()["psi_matmul_packed"] == before + 1,
+                  "psi_matmul_int5 did not launch kernel 2")
+            want = ref.psi_matmul_int5_ref(x, qt.data, qt.scale)
+            check(got.is_cuda and got.dtype == dtype
+                  and got.shape == (M, N)
+                  and bool(torch.isfinite(got).all()),
+                  f"psi_matmul_int5 {dtype} M={M}: bad output")
+            err = float((got.float() - want.float()).abs().max())
+            amax = float(want.float().abs().max())
+            # the kernel phase's: one bf16 ulp of the largest output, or
+            # ~1e-5 relative in f32
+            tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * max(
+                amax, 1.0)
+            worst_err = max(worst_err, err)
+            worst_ratio = max(worst_ratio, err / tol)
+        check(worst_ratio <= 1.0,
+              f"psi_matmul_int5 {dtype}: error {worst_err} over tolerance")
+        int5[str(dtype).split(".")[-1]] = {"max_abs_err": worst_err,
+                                           "err_over_tol": worst_ratio}
+    emit({"phase": "psi_arith", "sam_pairs": int(sam.numel()),
+          "int5_error_rows": rows,
+          "moa": {"operands": MOA_SHAPE[0], "sets": MOA_SHAPE[1],
+                  "bits": MOA_BITS},
+          "int8_activations": {"n": ACT_LEN, "scale": float(scale)},
+          "psi_matmul_int5": {"shape": [K, N], "rows": INT5_MS, **int5},
+          "phase_s": round(time.perf_counter() - t_phase, 3)})
+
+
+def _example(name):
+    """The example twin ``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch, dev, launches, card_line):
+    """The four example twins on the card through their ``main`` at
+    EXAMPLE_STEPS, each a main path: the launch counts set to 0 just
+    before it and read just after (added to ``launches``), its printed
+    lines emitted.  quickstart: 2 x 13 tokens in the vocabulary, kernel 2
+    launched once a matmul of each of its 13 forwards (15 a forward of
+    the 2-layer reduced model) and nothing else; serve_quantized: every format's
+    requests served, kernels 1-3 launched, each line naming the card as
+    ``card_line`` and never "(CPU)"; LeNet-5: five accuracies; AlexNet:
+    its INT5-vs-FP32 relative error within ALEXNET_REL_ATOL of the same
+    example's on the CPU, and the same accelerator-model lines."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    _free(torch)
+    mods, results, counts, printed = {}, {}, {}, {}
+    for name, steps in EXAMPLE_STEPS.items():
+        mod = mods[name] = _example(name)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()                         # the main path starts
+        with contextlib.redirect_stdout(buf):
+            results[name] = mod.main(device=dev, steps=steps)
+        torch.cuda.synchronize()
+        counts[name] = got = ops.launch_counts()          # ... and ends here
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        printed[name] = buf.getvalue().splitlines()
+        emit({"phase": "example", "name": name, "steps": steps,
+              "lines": printed[name], "launches": got,
+              "s": round(time.perf_counter() - t0, 3)})
+        _free(torch)
+
+    gen = results["quickstart_torch"]
+    check(gen.shape == (2, 1 + mods["quickstart_torch"].NEW_TOKENS)
+          and 0 <= int(gen.min()) and int(gen.max()) < 256,
+          f"quickstart: generated {gen.tolist()}")
+    per_fwd = counts_per_step(reduced_config(get_config(MAIN_ARCH)))[0]
+    want = {"psi_matmul_codes": 0,
+            "psi_matmul_packed": per_fwd * gen.shape[1],
+            "paged_attention": 0}
+    check(counts["quickstart_torch"] == want,
+          f"quickstart launches {counts['quickstart_torch']}, want {want}")
+    served = results["serve_quantized_torch"]
+    check(all(len(done) == 4 and all(len(r.out) >= 1 for r in done)
+              for done, _ in served.values()),
+          "serve_quantized: a request was not served")
+    check(all(n > 0 for n in counts["serve_quantized_torch"].values()),
+          f"serve_quantized launches {counts['serve_quantized_torch']}")
+    lines = printed["serve_quantized_torch"]
+    check(len(lines) == len(served)
+          and all(f"tok/s ({card_line})" in ln for ln in lines),
+          f"serve_quantized: lines do not name the card: {lines}")
+    accs = results["train_lenet_qat_torch"]
+    check(set(accs) == {"fp32", "ptq8", "qat8", "ptq5", "qat5"}
+          and all(0.0 <= a <= 1.0 for a in accs.values()),
+          f"lenet5: accuracies {accs}")
+    rel = results["alexnet_tma_torch"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rel_cpu = mods["alexnet_tma_torch"].main(device="cpu")
+    check(abs(rel - rel_cpu) <= ALEXNET_REL_ATOL,
+          f"alexnet: INT5 relative error {rel} on the card, {rel_cpu} on "
+          f"the CPU")
+    cpu_lines = buf.getvalue().splitlines()
+    check(printed["alexnet_tma_torch"][1:] == cpu_lines[1:],
+          "alexnet: the accelerator model's lines differ card vs CPU")
+    emit({"phase": "examples", "launches": counts,
+          "alexnet_int5_rel_err": {"cuda": rel, "cpu": rel_cpu},
+          "lenet5_acc": accs,
           "phase_s": round(time.perf_counter() - t_phase, 3)})
 
 

@@ -1,7 +1,8 @@
 """Architecture registry of the port: every config of the JAX package
 (dense, MoE, VLM, hybrid, SSM and encoder-decoder)."""
 from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
-                                      get_config, reduced_config, register,
+                                      get_config, list_configs,
+                                      reduced_config, register,
                                       shape_applicable)
 from repro_torch.configs import (chatglm3_6b, falcon_mamba_7b,  # noqa: F401
                                  granite_34b, mixtral_8x22b, phi3_medium_14b,
@@ -15,4 +16,5 @@ ASSIGNED_ARCHS = (
 )
 
 __all__ = ["ASSIGNED_ARCHS", "SHAPES", "ModelConfig", "ShapeConfig",
-           "get_config", "reduced_config", "register", "shape_applicable"]
+           "get_config", "list_configs", "reduced_config", "register",
+           "shape_applicable"]

@@ -257,6 +257,12 @@ def get_config(name: str, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
+def list_configs():
+    """The registered config names, sorted."""
+    import repro_torch.configs  # noqa: F401  (populates the registry)
+    return sorted(_REGISTRY)
+
+
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Tiny same-family config for CPU tests: the JAX package's reduced
     widths (float32, 2 layers or one block pattern, d_model 64, 4 q heads,

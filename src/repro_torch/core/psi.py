@@ -35,6 +35,10 @@ class PsiFormat:
     worst_case_rel_error: float
 
     @property
+    def name(self) -> str:
+        return f"psi{self.bits}"
+
+    @property
     def qmax(self) -> int:
         return self.w_max
 
@@ -163,6 +167,69 @@ def psi_project_int(w: torch.Tensor, bits: FormatLike) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The multiplier-less arithmetic of the accelerator (paper Fig. 2, Fig. 6
+# and the Appendix), bit for bit: plain PyTorch ops on the tensors' device.
+# Every integer sum runs in int32, as the JAX package's does.
+# ---------------------------------------------------------------------------
+def psi_value_table(bits: FormatLike, n_psi: Optional[int] = None
+                    ) -> np.ndarray:
+    """The integer the hardware multiplies by for every code of the
+    INT<bits> range (int32, indexed by ``w - w_min``): ``w`` everywhere
+    but, at INT5, +-11 -> +-10 and +-13 -> +-12 (Table I's ~9 % worst
+    case).  ``n_psi`` overrides the format's term budget."""
+    fmt = get_format(bits)
+    return _value_table(fmt.bits, n_psi or fmt.n_psi, fmt.max_exp)
+
+
+def psi_decompose_int(w: torch.Tensor, bits: FormatLike
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(signs, exps), each int32 ``(n_psi,) + w.shape`` on w's device: the
+    per-PSI (s, n) register values the weight-decomposition block (Fig. 6)
+    feeds to the SAMs."""
+    fmt = get_format(bits)
+    tab = torch.as_tensor(fmt.decomposition_table(), device=w.device)
+    rows = tab[w.to(torch.int64) - fmt.w_min]
+    signs = rows[..., 0::2].movedim(-1, 0).to(torch.int32)
+    exps = rows[..., 1::2].movedim(-1, 0).to(torch.int32)
+    return signs, exps
+
+
+def psi_reconstruct(signs: torch.Tensor, exps: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`psi_decompose_int`, the sum of signed shifts that
+    one SAM and the PSI-accumulation block compute (int32)."""
+    return torch.sum(signs * (1 << exps), dim=0, dtype=torch.int32)
+
+
+def sam_multiply(x: torch.Tensor, signs: torch.Tensor, exps: torch.Tensor
+                 ) -> torch.Tensor:
+    """One SAM block (Fig. 2): mux(X, -X, 0) by the sign, a barrel shift
+    by the exponent, one partial sub-integer per (sign, exp) pair, summed
+    (the MOA's job) in int32.  ``x`` is the INT8 activation, broadcast
+    against ``signs[0]``."""
+    x = x.to(torch.int32)
+    psis = torch.where(signs == 0, 0, torch.where(signs > 0, x, -x)) << exps
+    return torch.sum(psis, dim=0, dtype=torch.int32)
+
+
+def moa_sign_extension_sum(operands: torch.Tensor, in_bits: int,
+                           out_bits: int) -> torch.Tensor:
+    """The Appendix's MOA trick: summing sign-extended two's-complement
+    operands (along dim 0) equals summing their raw low ``in_bits``
+    fields and adding ``-(number negative) * 2^in_bits``.  The sum,
+    computed the hardware's way and wrapped to ``out_bits`` two's
+    complement (int32)."""
+    operands = operands.to(torch.int32)
+    neg = operands < 0
+    num_neg = torch.sum(neg, dim=0, dtype=torch.int32)
+    low = torch.sum(torch.where(neg, operands + (1 << in_bits), operands),
+                    dim=0, dtype=torch.int32)
+    total = low - (num_neg << in_bits)
+    mod = 1 << out_bits
+    wrapped = total % mod                     # floor mod: in [0, mod)
+    return torch.where(wrapped >= (mod >> 1), wrapped - mod, wrapped)
+
+
+# ---------------------------------------------------------------------------
 # QuantizedTensor: the serving-format weight leaf.
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(eq=False)
@@ -174,6 +241,10 @@ class QuantizedTensor:
     scale: torch.Tensor
     fmt: PsiFormat
     packed: bool = False
+
+    @property
+    def bits(self) -> int:
+        return self.fmt.bits
 
     @property
     def codes(self) -> torch.Tensor:
@@ -189,6 +260,10 @@ class QuantizedTensor:
             *lead, _, kb, n = self.data.shape
             return (*lead, kb * 8, n)
         return tuple(self.data.shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
 
     @property
     def nbytes(self) -> int:
@@ -236,8 +311,7 @@ class QuantizedTensor:
         dfmt = get_format(bits)
         if dfmt.bits > self.fmt.bits:
             raise ValueError(
-                f"draft_view narrows only: psi{self.fmt.bits} -> "
-                f"psi{dfmt.bits}")
+                f"draft_view narrows only: {self.fmt.name} -> {dfmt.name}")
         if dfmt.bits == self.fmt.bits:
             return self
         # Python scalars enter as f32, as the JAX package's weak floats do
@@ -295,6 +369,20 @@ def fake_quant_ste(w: torch.Tensor, bits: FormatLike, axis=None
     return _FakeQuantSTE.apply(w, bits, axis)
 
 
+def quantize_activations_int8(x: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor INT8 activations (the paper's 8-bit
+    activations): (codes int8, 0-d scale = max|x| / 127).  Both divisions
+    are tensor by tensor, true divisions on every device (CUDA divides by
+    a Python scalar as a product with its reciprocal), so the codes and
+    the scale are bit-equal on the card, on the CPU and in the JAX
+    package."""
+    amax = torch.clamp_min(x.abs().amax(), 1e-8)
+    scale = amax / amax.new_full((), 127.0)
+    q = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
+    return q, scale
+
+
 # ---------------------------------------------------------------------------
 # Sub-byte bit-plane packing.
 # ---------------------------------------------------------------------------
@@ -349,6 +437,16 @@ def unpack_rows(packed: torch.Tensor, rows: torch.Tensor,
         plane = packed[b][byte].to(torch.int64)
         val += (((plane >> bit) & 1) << b).to(torch.int32)
     return (val - fmt.offset).to(torch.int8)
+
+
+def pack_int5(codes: torch.Tensor) -> torch.Tensor:
+    """INT5 instance of :func:`pack_codes` (0.625 bytes a weight)."""
+    return pack_codes(codes, 5)
+
+
+def unpack_int5(packed: torch.Tensor) -> torch.Tensor:
+    """INT5 instance of :func:`unpack_codes`."""
+    return unpack_codes(packed, 5)
 
 
 for _bits in sorted(DEFAULT_N_PSI):

@@ -48,6 +48,14 @@ def parse_quant_mode(mode: str) -> Tuple[Optional[str], Optional[int]]:
     return kind, bits
 
 
+def quant_mode_choices() -> Tuple[str, ...]:
+    """Every valid quant mode: "none", then qatN and psiN for each
+    registered width."""
+    bits = psi.registered_bits()
+    return (("none",) + tuple(f"qat{b}" for b in bits)
+            + tuple(f"psi{b}" for b in bits))
+
+
 def serving_mode_choices() -> Tuple[str, ...]:
     return ("none",) + tuple(f"psi{b}" for b in psi.registered_bits())
 
@@ -216,6 +224,18 @@ def draft_param_tree(params: Dict, draft_bits: int) -> Dict:
         return leaf
 
     return _walk(params, convert)
+
+
+def dequantize(leaf: Any, dtype=torch.bfloat16):
+    """The one shared dequantize: a QuantizedTensor leaf expanded to a
+    dense ``dtype`` tensor (codes * scale in f32, then the cast); any other
+    leaf passes through."""
+    if isinstance(leaf, psi.QuantizedTensor):
+        return leaf.dequantize(dtype)
+    return leaf
+
+
+dequantize_leaf = dequantize
 
 
 def fake_quant_leaf(path: str, leaf: torch.Tensor, bits: int

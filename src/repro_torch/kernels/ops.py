@@ -71,6 +71,17 @@ def psi_matmul(x: torch.Tensor, qt: psi.QuantizedTensor, out_dtype=None
     return y.reshape(*lead, y.shape[-1])
 
 
+def psi_matmul_int5(x: torch.Tensor, planes: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """The paper's INT5 width by name: x (M, K) @ dequant(planes (5, K//8,
+    N) uint8, scale (N,) or (1, N)) -> (M, N) in x's dtype; kernel 2 at
+    bits 5 on a CUDA tensor, its plain version on a CPU one."""
+    scale = scale.reshape(-1).contiguous()
+    if _route(x) == "cuda":
+        return _pm.psi_matmul_packed_cuda(x, planes, scale, 5)
+    return _ref.psi_matmul_int5_ref(x, planes, scale)
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, pos,
                            k_scale=None, v_scale=None):
     """Paged-decode attention read side: q (B, Hq, D), pools

@@ -1103,7 +1103,7 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--prompt-jitter", type=int, default=0)
     ap.add_argument("--cache-layout", default="auto",
-                    choices=["auto", "dense", "paged"],
+                    choices=["auto", *kvc.LAYOUTS],
                     help="decode-cache layout: paged = block pool + per-slot "
                          "block tables (the default for full attention); "
                          "dense = per-slot slabs (required for SWA rings)")

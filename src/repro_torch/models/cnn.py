@@ -104,7 +104,7 @@ def init_cnn(cfg: CNNConfig, seed: int = 0, device=None) -> dict:
 
 def _maybe_q(w, quant_mode, conv=False):
     if isinstance(w, psi.QuantizedTensor):
-        return w.dequantize(torch.float32)
+        return quantizer.dequantize(w, torch.float32)
     kind, bits = quantizer.parse_quant_mode(quant_mode)
     if kind is None:
         return w

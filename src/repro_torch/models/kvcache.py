@@ -25,6 +25,7 @@ import torch
 
 DENSE = "dense"
 PAGED = "paged"
+LAYOUTS = (DENSE, PAGED)
 
 
 @dataclasses.dataclass

@@ -32,7 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import psi
+from repro_torch.core import psi, quantizer
 from repro_torch.quant.linear import maybe_fake_quant
 
 
@@ -105,9 +105,7 @@ def route(p, x, cfg, capacity_override=None):
     aux scalar f32, C)."""
     B, S, _ = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    router = p["router"]
-    if isinstance(router, psi.QuantizedTensor):
-        router = router.dequantize(torch.float32)
+    router = quantizer.dequantize(p["router"], torch.float32)
     logits = torch.matmul(x.to(torch.float32), router.to(torch.float32))
     probs = torch.softmax(logits, dim=-1)                     # (B, S, E)
     # a stable descending sort: on ties the lower expert id comes first,

@@ -74,6 +74,50 @@ def test_psi_matmul_matches_plain(cuda, dtype, bits, M, K, N):
     torch.testing.assert_close(got, want, **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(3, 40, 36), (4, 4096, 4096),
+                                   (288, 4096, 4096)])
+def test_psi_matmul_int5_launches_kernel_2(cuda, dtype, M, K, N):
+    """The INT5 entry point on CUDA tensors: one kernel-2 launch, within
+    the tolerance of test_psi_matmul_matches_plain of its plain version."""
+    g = torch.Generator().manual_seed(M + K + N)
+    q = psi.quantize_weights(torch.randn(K, N, generator=g), 5,
+                             axis=(0,)).pack()
+    x = torch.randn(M, K, generator=g).to(dtype)
+    want = ops.psi_matmul_int5(x, q.data, q.scale).float()
+    before = ops.launch_counts()["psi_matmul_packed"]
+    got = ops.psi_matmul_int5(x.to(cuda), q.data.to(cuda),
+                              q.scale.to(cuda)).float().cpu()
+    assert ops.launch_counts()["psi_matmul_packed"] == before + 1
+    if dtype == torch.float32:
+        tol = dict(rtol=1e-5, atol=1e-5 * max(1.0, float(want.abs().max())))
+    else:
+        tol = dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_psi_arithmetic_on_the_card_equals_the_cpu(cuda):
+    """The paper's arithmetic (plain ops) gives the same bits on the card
+    as on the CPU: decomposition, SAM over every INT8 x INT8 pair, MOA,
+    INT8 activations."""
+    w = torch.arange(-128, 128, dtype=torch.int32)
+    x = w.to(torch.int8)[None, :]
+    g = torch.Generator().manual_seed(0)
+    operands = torch.randint(-4096, 4096, (18, 512), generator=g,
+                             dtype=torch.int32)
+    act = torch.randn(4096, generator=g) * 3.0
+
+    def run(dev):
+        signs, exps = psi.psi_decompose_int(w[:, None].to(dev), 8)
+        return (signs, exps, psi.psi_reconstruct(signs, exps),
+                psi.sam_multiply(x.to(dev), signs, exps),
+                psi.moa_sign_extension_sum(operands.to(dev), 13, 14),
+                *psi.quantize_activations_int8(act.to(dev)))
+
+    for got, want in zip(run(cuda), run(torch.device("cpu"))):
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
 def _case(seed, B, n_bt, mode, hq, hkv, hd, bs):
     """Pools of garbage; permuted tables with holes, an inactive slot and
     boundary positions {0, bs-1, bs, n_bt*bs-1}."""
