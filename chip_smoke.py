@@ -325,6 +325,13 @@ PREFILL_M = 64                   # one admission's bucketed prompt
 # forwards ran at these rows only.
 CTX_LONG_SEQ = 448 + 24 + 8 + 16
 PREFILL_MS = tuple(range(16, CTX_LONG_SEQ + 1, 16))
+# kernel 1's prefill route at qwen3-8b's weights: timed at these rows (an
+# admission's bucketed prompt, the prefill window's 288, the longest
+# bucket), every row held against an M = DECODE_M launch bit for bit; and
+# the two bf16 routes side by side at ROUTE_MS, around CODES_ROWS_MIN_M
+# (at every config's weights too, one card's and a model axis's)
+CODES_ROWS_MS = (64, 288, CTX_LONG_SEQ)
+ROUTE_MS = (32, 48, 64, 80, 96, 128, 288)
 L2_BYTES = 50e6                  # H100 L2: rotate weight copies past it
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 # train_qwen3_8b: qwen3-8b at full width, its depth cut to TRAIN_LAYERS
@@ -547,6 +554,9 @@ def main():
           "psi8_mma_ptxas": _ptxas_report(
               (build / "psi_matmul.log").read_text(),
               "psi_gemm_codes_kernelI"),
+          "psi8_rows_ptxas": _ptxas_report(
+              (build / "psi_rows.log").read_text(),
+              "psi_gemm_codes_rows_kernelI"),
           "psi5_mma_ptxas": _ptxas_report(
               (build / "psi_matmul.log").read_text(),
               "psi_gemm_mma_kernelILi5E"),
@@ -587,7 +597,13 @@ def main():
         row["launches"] = launches[k]
         check(row["launches"] > 0, f"{k} never launched on its main path")
         kernels.append(row)
-    check(set(launches) == set(ops.KERNELS), "a kernel has no main path")
+    # kernel 1's prefill route (csrc/psi_rows.cu), its launches among them
+    rows_n = launches["psi_matmul_codes_rows"]
+    kernels[0]["prefill_route_launches"] = rows_n
+    check(0 < rows_n < kernels[0]["launches"],
+          "kernel 1's prefill route never launched on its main path")
+    check(set(launches) == set(ops.KERNELS) | set(ops.ROUTES),
+          "a kernel has no main path")
     emit({"kernels": kernels})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -595,19 +611,33 @@ def main():
     return 0
 
 
+def _path_end(ops, launches, codes=True):
+    """The kernels' launch counts where a main path ends.  Where the path's
+    kernel-1 launches count (``codes``), its launches on kernel 1's prefill
+    route (counted since the path's reset) are added to ``launches``."""
+    if codes:
+        for k, n in ops.route_launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+    return ops.launch_counts()
+
+
 def _ptxas_report(log, key):
-    """{"template arguments": "N registers, ... smem"} from ptxas -v for the
-    kernels whose mangled names contain ``key``: psi_gemm_mma_kernel
-    <BITS, NT, VEC> (ILi5ELi1ELb1 -> "5,1,1") and psi_gemm_codes_kernel
-    <NT, VEC, XVEC> (ILi1ELb1ELb1 -> "1,1,1")."""
-    out, fn = {}, None
+    """{"template arguments": "N registers, ... smem; S bytes spill
+    stores"} from ptxas -v for the kernels whose mangled names contain
+    ``key``: psi_gemm_mma_kernel <BITS, NT, VEC> (ILi5ELi1ELb1 -> "5,1,1"),
+    psi_gemm_codes_kernel <NT, NW, VEC, XVEC> (ILi8ELi2ELb1ELb1 ->
+    "8,2,1,1"), psi_gemm_codes_rows_kernel <NW, VEC, XVEC, CL>."""
+    out, fn, spill = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if key in line else None
+            spill = ""
+        elif fn and "spill stores" in line:
+            spill = "; " + line.split(",")[1].strip()
         elif fn and "Used " in line:
             args = fn.split("_kernelI", 1)[1].split("EE")[0]
             label = ",".join(c for c in args if c.isdigit())
-            out[label] = line.split("Used ", 1)[1].strip()
+            out[label] = line.split("Used ", 1)[1].strip() + spill
             fn = None
     return out
 
@@ -848,6 +878,7 @@ def phase_kernels(torch, dev, bw, peak):
         del w
         torch.cuda.empty_cache()
 
+    _codes_rows(torch, dev, bw, peak, gen, main_cfg)
     _arch_gemm_rows(torch, dev, bw, peak, gen, max_err)
     _local_gemm_rows(torch, dev, bw, peak, gen, max_err)
 
@@ -859,6 +890,9 @@ def phase_kernels(torch, dev, bw, peak):
         out[key] = {
             "name": key, "route": "cuda",
             "source": "src/repro_torch/csrc/psi_matmul.cu",
+            # kernel 1 at prefill rows (M > CODES_ROWS_MIN_M)
+            **({"prefill_source": "src/repro_torch/csrc/psi_rows.cu"}
+               if key == "psi_matmul_codes" else {}),
             "replaces": replaces[key], "launches": 0,
             "max_abs_err": max_err[key], "ms": a["ms"],
             "plain_ms": a["plain_ms"], "bound_ms": bound,
@@ -1339,6 +1373,83 @@ def _rows_times(torch, qt, M, dtype, gen, dev, bw, peak):
     return t
 
 
+def _codes_route_sweep(torch, qt, Ms, gen, dev):
+    """Kernel 1's two bf16 routes on ``qt`` side by side at each M of
+    ``Ms``, on the same x: the decode route and the prefill route in the
+    layout the wrapper picks (codes_rows_cluster) and, where the split plan
+    has more than one split, in the other layout too; each must give the
+    decode route's output bit for bit.  {M: {route: device ms}} from
+    CUDA-graph replays (weights warm); T (CODES_ROWS_MIN_M) and the
+    cluster rule were picked from such rows."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import psi_matmul as pm
+    K, N = qt.shape
+    scale = qt.scale.reshape(-1)
+    n_sm = _build.sm_count(0)
+    tile, chunk, n_split = pm.codes_split_plan(K, N, n_sm)
+    out = {}
+    for M in Ms:
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        cl = pm.codes_rows_cluster(M, N, tile, chunk, n_split, n_sm)
+        run = lambda rows, c: (lambda i: pm._codes_launch(
+            x, qt.data, scale, None, tile, chunk, rows, c))
+        want = run(0, 0)(0)
+        out[M] = {"decode": _graph_ms(torch, run(0, 0), 1, iters=10, reps=3),
+                  "rows_cluster": cl}
+        for c in ((cl, 1 - cl) if n_split > 1 else (cl,)):
+            check(torch.equal(run(1, c)(0), want),
+                  f"kernel 1 ({K}, {N}) at M = {M}: the prefill route "
+                  f"(cluster {c}) is not the decode route's output bit for "
+                  f"bit")
+            out[M]["prefill" if c == cl else "prefill_other_cluster"] = (
+                _graph_ms(torch, run(1, c), 1, iters=10, reps=3))
+    return out
+
+
+def _codes_rows(torch, dev, bw, peak, gen, cfg):
+    """Kernel 1's prefill route at ``cfg``'s weights (qwen3-8b): at each M
+    of CODES_ROWS_MS every row equals that row of an M = DECODE_M launch
+    and of the decode route at the same M, bit for bit (a mismatch fails),
+    and the launch is timed (:func:`_rows_times`: device ms, bf16
+    torch.matmul, bound); then the two routes side by side at ROUTE_MS.
+    One line a weight, with T (CODES_ROWS_MIN_M) and the plan."""
+    from repro_torch.core import psi
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import psi_matmul as pm
+    bf16 = torch.bfloat16
+    n_sm = _build.sm_count(0)
+    for label, ((K, N), _) in weight_shapes(cfg).items():
+        w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
+        qt = psi.quantize_weights(w, 8, axis=(0,))
+        del w
+        row = {"phase": "kernel_codes_rows", "weight": label, "K": K, "N": N,
+               "rows_min_m": pm.CODES_ROWS_MIN_M,
+               "plan": dict(zip(("tile", "chunk", "n_split"),
+                                pm.codes_split_plan(K, N, n_sm)))}
+        for M in CODES_ROWS_MS:
+            x = torch.randn(M, K, generator=gen, device=dev).to(bf16)
+            y = ops.psi_matmul_2d(x, qt)
+            for i in range(0, M, DECODE_M):
+                check(torch.equal(ops.psi_matmul_2d(
+                    x[i:i + DECODE_M].contiguous(), qt), y[i:i + DECODE_M]),
+                    f"kernel 1 {label} at M = {M}: rows {i}.. differ from "
+                    f"an M = {DECODE_M} launch's")
+            tile, chunk, _, cl = pm.codes_launch_plan(M, K, N, n_sm)
+            check(torch.equal(pm._codes_launch(
+                x, qt.data, qt.scale.reshape(-1), None, tile, chunk, 0), y),
+                f"kernel 1 {label} at M = {M}: not the decode route's bits")
+            t = _rows_times(torch, qt, M, bf16, gen, dev, bw, peak)
+            t["rows_cluster"] = cl
+            t["bit_equal_to_M4_and_decode_route"] = True
+            t["library_share"] = t["library_device_ms"] / t["device_ms"]
+            row[f"M{M}"] = t
+        row["routes_device_ms"] = _codes_route_sweep(torch, qt, ROUTE_MS,
+                                                     gen, dev)
+        emit(row)
+        del qt
+        torch.cuda.empty_cache()
+
+
 def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
     """Kernels 1 (psi8) and 2 (psi5) at the weight shapes of each other
     config: held against their plain versions at ARCH_MS rows in bf16
@@ -1348,8 +1459,9 @@ def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
     and cross K/V rows), then timed alone at M = DECODE_M with the
     weights cold (eager, graph replay, plain version, bf16 torch.matmul)
     and at M = 64 (graph replay), and at psi8 at the largest extra row
-    count.  One row per shape, then one per config and width with the
-    sums over a decode step."""
+    count and kernel 1's two bf16 routes at ROUTE_MS (bit-equal).  One
+    row per shape, then one per config and width with the sums over a
+    decode step."""
     from repro_torch.configs import get_config
     from repro_torch.core import psi
     from repro_torch.kernels import ops, ref
@@ -1413,6 +1525,9 @@ def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
                     extra["rows_time"] = _rows_times(
                         torch, qt, max(xb) if xb else ARCH_PREFILL_ROWS,
                         bf16 if xb else torch.float32, gen, dev, bw, peak)
+                if bits == 8:
+                    extra["routes_device_ms"] = _codes_route_sweep(
+                        torch, qt, ROUTE_MS, gen, dev)
                 max_err[key] = max(max_err[key], err)
                 t, kern, datas = _decode_times(torch, qt, gen, dev, bw, peak,
                                                host=False)
@@ -1509,6 +1624,10 @@ def _local_gemm_rows(torch, dev, bw, peak, gen, max_err):
                     row["psi8"]["f32_rows_time"] = _rows_times(
                         torch, qt, ARCH_PREFILL_ROWS, torch.float32, gen,
                         dev, bw, peak)
+                if bits == 8:
+                    # a mesh serve's prefill rows reach these shapes in bf16
+                    row["psi8"]["routes_device_ms"] = _codes_route_sweep(
+                        torch, qt, ROUTE_MS, gen, dev)
             emit(row)
             del w
             torch.cuda.empty_cache()
@@ -1737,7 +1856,7 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
         undo()
         undo_route()
     torch.cuda.synchronize()
-    got = ops.launch_counts()                         # ... and ends here
+    got = _path_end(ops, launches, key == "psi_matmul_codes")  # ends here
     held = _check_prefill_rows(torch, rows, name, server.executor.params,
                                PREFILL_MS if main else ARCH_MS)
     _check_bursts(name, {m: runs[m][1] for m in runs}, admitted,
@@ -2274,7 +2393,7 @@ def phase_serve_mesh(torch, dev, paged_server, args, cfg, paged_tokens,
         done, st = server.serve(serve.trace_from_args(args, cfg),
                                 continuous=True, warmup=False)
         torch.cuda.synchronize()
-        got = ops.launch_counts()                     # ... and ends here
+        got = _path_end(ops, launches)                # ... and ends here
         colls = parallel.collective_counts()
         toks = {r.rid: r.tokens for r in done}
         check(toks == paged_tokens, "serve_psi8_mesh: tokens differ from "
@@ -2398,7 +2517,7 @@ def phase_serve_dense(torch, dev, paged_server, args, cfg, paged_done,
         finally:
             undo_rows()
         torch.cuda.synchronize()
-        got = ops.launch_counts()                     # ... and ends here
+        got = _path_end(ops, launches)                # ... and ends here
         label = f"horizon_{horizon}"
         report[f"{label}_prefill_rows_held_here"] = _check_prefill_rows(
             torch, rows, f"serve_psi8_dense {label}", params)
@@ -2511,7 +2630,7 @@ def phase_serve_horizon(torch, server, args, cfg, want_tokens, launches,
                                    warmup=False)
         runs[mode] = ({r.rid: r.tokens for r in done}, stats)
     torch.cuda.synchronize()
-    got = ops.launch_counts()                         # ... and ends here
+    got = _path_end(ops, launches)                    # ... and ends here
     check(all(t == want_tokens for t, _ in runs.values()),
           f"{name}: tokens differ from horizon 1")
     stats = [st for _, st in runs.values()]
@@ -2603,7 +2722,7 @@ def phase_serve_spec(torch, dev, launches):
             out[mode] = (done, stats, log)
             rows += got_rows
         torch.cuda.synchronize()
-        got = ops.launch_counts()                     # ... and ends here
+        got = _path_end(ops, launches)                # ... and ends here
         held = _check_prefill_rows(torch, rows, f"{label} psi5 spec phase",
                                    server.executor.params)
         steps = sum(out[m][1]["decode_steps"] for m in out)
@@ -3116,7 +3235,7 @@ def phase_serve_ctx(torch, dev, launches):
             undo_rows()
             undo()
         torch.cuda.synchronize()
-        got = ops.launch_counts()                     # ... and ends here
+        got = _path_end(ops, launches)                # ... and ends here
         held = _check_prefill_rows(torch, rows, f"ctx ({label})", params)
         fwd, headless, chunks = _fills_expect(log, server.prefill_chunk)
         check((stats["prefill_forwards"],
@@ -3825,7 +3944,7 @@ def phase_train(torch, dev, launches):
     finally:
         undo()
     torch.cuda.synchronize()
-    got = ops.launch_counts()                         # ... and ends here
+    got = _path_end(ops, launches)                    # ... and ends here
     held = _check_prefill_rows(torch, rows, "train_qwen3_8b_psi8",
                                server.executor.params)
     per_fwd, per_step = counts_per_step(cfg8)
@@ -4463,7 +4582,7 @@ def phase_examples(torch, dev, launches, card_line):
         with contextlib.redirect_stdout(buf):
             results[name] = mod.main(device=dev, steps=steps)
         torch.cuda.synchronize()
-        counts[name] = got = ops.launch_counts()          # ... and ends here
+        counts[name] = got = _path_end(ops, launches)    # ... and ends here
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         printed[name] = buf.getvalue().splitlines()

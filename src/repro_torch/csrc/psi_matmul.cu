@@ -18,10 +18,16 @@
 // psi8, 1.42 ms at psi5, whose planes are 5/8 of that).  At 3.35 TB/s an SM
 // must take in ~14.5 bytes a clock, so the work per byte has to stay well
 // inside the integer pipe's 64 lanes a clock, and the reads must keep
-// enough whole lines in flight.  Prefill (M = prompt tokens) is the only
-// place the arithmetic (2*M*K*N) could matter.
+// enough whole lines in flight.  At prefill rows (M = a prompt's or a
+// burst's 16-496 tokens, whisper's 1500-6000 encoder and cross K/V rows)
+// the arithmetic (2*M*K*N at 989 TFLOP/s bf16) is the bound: wq at M = 288
+// 9.8 us against 5.0 for its bytes.
 //
-// Three kernels live here; x's dtype picks the route.
+// Three kernels live here; x's dtype picks the route.  A fourth, kernel
+// 1's route for bf16 prefill rows, is design (4) in csrc/psi_rows.cu: M
+// picks between it and (3) (kernels/psi_matmul.py::codes_launch_plan), and
+// the two give the same bits (they share csrc/psi_common.cuh and sum in one
+// order).
 //
 // (1) psi_gemm_kernel, CUDA cores: x f32 (the reduced configurations; a TF32
 // product would miss their 1e-5 tolerance), for codes and planes alike.
@@ -132,6 +138,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "psi_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -263,23 +271,8 @@ psi_gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
 // ---------------------------------------------------------------------------
 // (2) Tensor-core route of kernel 2 (bf16 x).
 // ---------------------------------------------------------------------------
-constexpr int kMmaWarps = 8;            // warps per block, one channel tile
 constexpr int kMmaBN = 32;              // channels per block (two A tiles)
 constexpr int kGroupRows = 8;           // plane rows per group (64 K)
-constexpr int kMaxSplit = 8;            // K splits: a portable cluster
-
-// The epilogue's store of one output: the f32 sum times its scale, rounded
-// to bf16 into `out`, or as it is into `out32` when the caller asked for an
-// f32 output (a row-parallel partial sum, added over ranks before its one
-// cast).  Rounding is round-to-nearest-even either way, so the f32 output
-// cast to bf16 is the bf16 output bit for bit.
-__device__ __forceinline__ void store_out(__nv_bfloat16* out, float* out32,
-                                          size_t i, float y) {
-  if (out32 != nullptr)
-    out32[i] = y;
-  else
-    out[i] = __float2bfloat16(y);
-}
 
 // One step of an 8 x 8 bit transpose (Hacker's Delight, transpose8),
 // done in four byte lanes at once: bits j + S of `lo` (j in the lower half
@@ -290,23 +283,6 @@ __device__ __forceinline__ void transpose_step(uint32_t& lo, uint32_t& hi) {
   const uint32_t l = (lo & ~(MASK << S)) | ((hi << S) & (MASK << S));
   hi = (hi & ~MASK) | ((lo >> S) & MASK);
   lo = l;
-}
-
-// bf16x2 a - b (exact here: small integers)
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The 32-bit word at p: columns n .. n+3 of a plane row (0 past the edges;
@@ -553,18 +529,6 @@ int launch_mma(const void* x, const void* w, const void* scale, void* out,
 // ---------------------------------------------------------------------------
 // (3) Tensor-core route of kernel 1 (int8 codes, bf16 x).
 // ---------------------------------------------------------------------------
-constexpr int kStepK = 16;              // K rows per step (one MMA k-step)
-
-// Byte c of code words p and q (two K rows of one channel) as a bf16 pair
-// {code of p, code of q}.  r holds the two bytes in the low byte of each
-// 16-bit lane; M = 0x43 | (c & 0x7f) is bf16 128 + (c & 127) and S = 0x43 |
-// (c & 0x80) is 128 or 256 by the sign bit, so M - S is the code, exactly.
-__device__ __forceinline__ uint32_t code_pair(uint32_t p, uint32_t q, int c) {
-  const uint32_t r = __byte_perm(p, q, (4u + c) * 0x1100u | c * 0x11u);
-  return bf16x2_sub((r & 0x007F007Fu) | 0x43004300u,
-                    (r & 0x00800080u) | 0x43004300u);
-}
-
 // Columns n .. n+4*NW-1 (NW = 2 or 4) of one code row as NW words (0 past
 // the edges; bytewise where rows are not 4*NW-byte aligned).  The codes are
 // read once: no L1 allocation, and L2 fetches 256 bytes at a time (the

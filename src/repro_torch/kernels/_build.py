@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own,
-with one ``nvcc`` process per source, all started together::
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+(with the ``csrc/*.cuh`` headers it includes), one ``nvcc`` process per
+source, all started together::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o <name>.so csrc/<name>.cu
@@ -25,7 +26,7 @@ from typing import Dict
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "_build"
-SOURCES = ("psi_matmul", "paged_attention")
+SOURCES = ("psi_matmul", "psi_rows", "paged_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

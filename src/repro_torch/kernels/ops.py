@@ -22,21 +22,38 @@ KERNELS = {
 }
 
 
+# a kernel's second route, by name: (wrapper, attribute counting its
+# launches, which the wrapper's ``launches`` count too)
+ROUTES = {"psi_matmul_codes_rows": (_pm.psi_matmul_codes_cuda,
+                                    "rows_launches")}
+
+
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def route_launch_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in ROUTES.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn, attr in ROUTES.values():
+        setattr(fn, attr, 0)
 
 
 def add_launches(counts: dict) -> None:
-    """Add ``counts`` (by kernel name) to the launch counts.  A CUDA-graph
-    replay runs the launches its capture recorded without calling the
-    wrappers, so the executor adds them here on every replay."""
+    """Add ``counts`` (by kernel or route name) to the launch counts.  A
+    CUDA-graph replay runs the launches its capture recorded without
+    calling the wrappers, so the executor adds them here on every
+    replay."""
     for name, n in counts.items():
-        KERNELS[name].launches += n
+        if name in ROUTES:
+            fn, attr = ROUTES[name]
+            setattr(fn, attr, getattr(fn, attr) + n)
+        else:
+            KERNELS[name].launches += n
 
 
 def _route(t: torch.Tensor) -> str:

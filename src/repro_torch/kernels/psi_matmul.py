@@ -1,4 +1,5 @@
-"""Wrappers of the CUDA PSI matmul kernels (``csrc/psi_matmul.cu``).
+"""Wrappers of the CUDA PSI matmul kernels (``csrc/psi_matmul.cu``, and
+``csrc/psi_rows.cu`` for kernel 1's prefill rows).
 
 ``psi_matmul_codes_cuda`` replaces the Pallas ``psi_matmul_int8`` (alias
 ``psi_matmul_codes``) and ``psi_matmul_packed_cuda`` replaces the Pallas
@@ -11,6 +12,17 @@ current stream, raises if the launch failed, and counts its launches in
 Both kernels have two routes, picked from x's dtype: f32 x runs on CUDA
 cores, bf16 x on tensor cores with K split across the blocks of a cluster
 as :func:`codes_split_plan` (codes) or :func:`split_plan` (planes) says.
+Kernel 1's bf16 launches of more than ``CODES_ROWS_MIN_M`` rows (T = 64,
+measured on the H100) take a third route, ``psi_gemm_codes_rows_kernel``,
+built for prefill rows: a block owns 32 tokens over the whole of K and
+decodes each code step once for all of them, its splits summed one after
+another (or one a block of a cluster where that grid is small).  It runs
+the decode route's split plan, chains, tree and split order, so a row's
+outputs are bit for bit the same whichever route M picks
+(:func:`codes_launch_plan`).  The wrapper counts its launches in
+``psi_matmul_codes_cuda.launches`` with the decode route's, and again in
+``psi_matmul_codes_cuda.rows_launches``.
+
 The output is x's dtype, or f32 when ``out_dtype=torch.float32`` is asked
 of a bf16 x: the same f32 sums times the scale, stored without the last
 rounding (a row-parallel shard's partial sum, added over the ranks in f32
@@ -39,6 +51,15 @@ def _lib():
     return lib
 
 
+def _rows_lib():
+    lib = _build.load("psi_rows")
+    if not getattr(lib, "_argtypes_set", False):
+        lib.psi_matmul_codes_rows.argtypes = [_P] * 4 + [_I] * 7 + [_P]
+        lib.psi_matmul_codes_rows.restype = _I
+        lib._argtypes_set = True
+    return lib
+
+
 # the packed tensor-core route's tiles (csrc/psi_matmul.cu): a block is
 # WARPS warps on TILE_N output channels; K goes in groups of GROUP_K (8
 # plane rows), the warps of a block taking the groups of its split in turn;
@@ -53,6 +74,11 @@ MAX_SPLIT = 8
 CODES_TILES = (128, 64)
 CODES_STEP_K = 16
 CODES_BLOCKS_PER_SM = 2
+# the codes route at prefill rows: bf16 launches of M > CODES_ROWS_MIN_M
+# rows (T, measured on the H100; PERF.md) take it, a block owning
+# CODES_ROWS_TOKENS tokens
+CODES_ROWS_MIN_M = 64
+CODES_ROWS_TOKENS = 32
 
 
 def _plan(units, tiles, blocks):
@@ -92,6 +118,41 @@ def codes_split_plan(K, N, n_sm=132):
     if -(-N // wide) >= blocks:
         return wide, steps, 1
     return (narrow,) + _plan(steps, -(-N // narrow), blocks)
+
+
+def codes_rows_cluster(M, N, tile, chunk, n_split, n_sm=132):
+    """rows_cluster of the prefill route, speed only (a row's sums do
+    not depend on it): 1, one split a block of a cluster, where the blocks
+    of whole K would cover less than 2/5 of the SMs, or less than 3/4 with
+    splits of 16 steps or more; else 0, the splits one after another in
+    each block (a 128-channel tile's plan has one split, so never there).
+    (Fitted to both layouts' times on the H100 at every served weight, one
+    card's and a model axis's: ``chip_smoke.py``'s ``routes_device_ms``;
+    PERF.md.)"""
+    blocks = -(-M // CODES_ROWS_TOKENS) * -(-N // tile)
+    few = blocks < 2 * n_sm // 5 or (blocks < 3 * n_sm // 4 and chunk >= 16)
+    return int(n_split > 1 and few)
+
+
+def codes_launch_plan(M, K, N, n_sm=132):
+    """(tile, chunk, rows, rows_cluster) of a bf16 codes launch: the
+    split plan :func:`codes_split_plan` gives for the weight, whatever M,
+    and the route, from M alone: rows 0 (the decode route) at M <=
+    CODES_ROWS_MIN_M, else 1 (the prefill route), laid out as
+    :func:`codes_rows_cluster` says."""
+    tile, chunk, n_split = codes_split_plan(K, N, n_sm)
+    if M <= CODES_ROWS_MIN_M:
+        return tile, chunk, 0, 0
+    return tile, chunk, 1, codes_rows_cluster(M, N, tile, chunk, n_split,
+                                              n_sm)
+
+
+def codes_rows_grid(M, N, tile, n_split, rows_cluster):
+    """(token tiles, split blocks, channel tiles) of a prefill-route
+    launch: blocks of CODES_ROWS_TOKENS rows x ``tile`` channels, each over
+    the whole of K, or over one split of it in a cluster of n_split."""
+    return (-(-M // CODES_ROWS_TOKENS), n_split if rows_cluster else 1,
+            -(-N // tile))
 
 
 def _out_dtype(x, out_dtype):
@@ -134,22 +195,42 @@ def psi_matmul_codes_cuda(x: torch.Tensor, codes: torch.Tensor,
     M, K = x.shape
     N = codes.shape[1]
     _check_common(x, codes, scale, torch.int8, N)
-    tile = chunk = 0
+    plan = (0, 0, 0, 0)
     if x.dtype == torch.bfloat16:
-        tile, chunk, _ = codes_split_plan(
-            K, N, _build.sm_count(x.device.index or 0))
+        plan = codes_launch_plan(M, K, N,
+                                 _build.sm_count(x.device.index or 0))
+    out = _codes_launch(x, codes, scale, out_dtype, *plan)
+    psi_matmul_codes_cuda.launches += 1
+    psi_matmul_codes_cuda.rows_launches += plan[2]
+    return out
+
+
+def _codes_launch(x, codes, scale, out_dtype, tile, chunk, rows,
+                  rows_cluster=0):
+    """One launch of kernel 1 at the plan given (checked tensors).  The
+    wrapper passes :func:`codes_launch_plan`'s; the card's checks also pass
+    other layouts at the same M (rows 0: the decode route), to hold the
+    routes side by side."""
+    M, K = x.shape
+    N = codes.shape[1]
     out = torch.empty((M, N), dtype=_out_dtype(x, out_dtype),
                       device=x.device)
-    err = _lib().psi_matmul_codes(
-        x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out.dtype], tile, chunk,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), codes.data_ptr(), scale.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if rows:
+        err = _rows_lib().psi_matmul_codes_rows(
+            *ptrs, M, K, N, _DTYPE_CODE[out.dtype], tile, chunk,
+            rows_cluster, stream)
+    else:
+        err = _lib().psi_matmul_codes(
+            *ptrs, M, K, N, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out.dtype],
+            tile, chunk, stream)
     _build.check(err, "psi_matmul_codes")
-    psi_matmul_codes_cuda.launches += 1
     return out
 
 
 psi_matmul_codes_cuda.launches = 0
+psi_matmul_codes_cuda.rows_launches = 0
 
 
 def psi_matmul_packed_cuda(x: torch.Tensor, planes: torch.Tensor,

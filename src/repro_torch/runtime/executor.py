@@ -687,12 +687,12 @@ class Executor:
             body()
         stream.wait_stream(side)
         self._inp.copy_(saved)
-        before = ops.launch_counts()
+        before = {**ops.launch_counts(), **ops.route_launch_counts()}
         cbefore = parallel.collective_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             body()
-        after = ops.launch_counts()
+        after = {**ops.launch_counts(), **ops.route_launch_counts()}
         launches = {k: after[k] - before[k] for k in after}
         ops.add_launches({k: -n for k, n in launches.items()})
         cafter = parallel.collective_counts()

@@ -356,9 +356,13 @@ def _check_tight(cuda, K, N, bits, M, misaligned=False, x_misaligned=False):
     packed = bits < 8
     key = "psi_matmul_packed" if packed else "psi_matmul_codes"
     before = ops.launch_counts()[key]
+    rows0 = ops.route_launch_counts()["psi_matmul_codes_rows"]
     got = ops.psi_matmul_2d(x, psi.QuantizedTensor(
         data, scale, psi.get_format(bits), packed)).float()
     assert ops.launch_counts()[key] == before + 1
+    from repro_torch.kernels import psi_matmul as pm
+    assert ops.route_launch_counts()["psi_matmul_codes_rows"] == rows0 + (
+        not packed and M > pm.CODES_ROWS_MIN_M)
     codes = psi.unpack_codes(data, bits) if packed else data
     x32 = x.float()
     want = ref.psi_matmul_codes_ref(x32, codes, scale)
@@ -369,10 +373,12 @@ def _check_tight(cuda, K, N, bits, M, misaligned=False, x_misaligned=False):
     assert bool((d <= tol).all()), float((d - tol).max())
 
 
-def _check_batch_invariant(K, N, bits):
+def _check_batch_invariant(K, N, bits, Ms=()):
     """A row's output depends only on its own x row and W: computed alone,
     in an M = 4 launch and in an M = 16 launch it is the same, bit for bit
-    (the K split is planned from K and N only)."""
+    (the K split is planned from K and N only).  Each M of ``Ms`` (kernel
+    1's prefill route above CODES_ROWS_MIN_M) is launched too, and every
+    row of it equals that row of an M = 4 launch, bit for bit."""
     data, scale = _packed_weight(K, N, bits)
     qt = psi.QuantizedTensor(data, scale, psi.get_format(bits), bits < 8)
     x = _x(16, K, K + N + bits)
@@ -382,6 +388,12 @@ def _check_batch_invariant(K, N, bits):
     for i in range(16):
         assert torch.equal(ops.psi_matmul_2d(x[i:i + 1].contiguous(), qt)[0],
                            y16[i]), i
+    for M in Ms:
+        x = _x(M, K, M + K + N + bits)
+        y = ops.psi_matmul_2d(x, qt)
+        for i in range(0, M, 4):
+            assert torch.equal(ops.psi_matmul_2d(x[i:i + 4].contiguous(), qt),
+                               y[i:i + 4]), (M, i)
 
 
 @pytest.mark.parametrize("M", [1, 4, 16, 64, 72])
@@ -410,7 +422,7 @@ def test_psi_matmul_codes_bf16_tight(cuda, K, N, M):
     _check_tight(cuda, K, N, 8, M)
 
 
-@pytest.mark.parametrize("M", [1, 4, 16, 72])
+@pytest.mark.parametrize("M", [1, 4, 16, 72, 288])
 @pytest.mark.parametrize("which", ["codes", "x"])
 @pytest.mark.parametrize("K,N", [(4096, 1024), (1032, 1000), (37, 33)])
 def test_psi_matmul_codes_bf16_misaligned(cuda, K, N, which, M):
@@ -422,6 +434,57 @@ def test_psi_matmul_codes_bf16_misaligned(cuda, K, N, which, M):
                                                (37, 33)])
 def test_psi_matmul_codes_batch_invariant(cuda, K, N):
     _check_batch_invariant(K, N, 8)
+
+
+# kernel 1's prefill route (M > CODES_ROWS_MIN_M): a qwen3-8b prompt or
+# burst (288, 320 rows), whisper's encoder (1500) and cross K/V (6000 rows
+# a decode step) at qwen3-8b's, the ragged and whisper's 512-wide shapes
+ROWS_KN = QWEN_KN + CODES_RAGGED_KN + [(512, 512), (512, 2048), (2048, 512)]
+
+
+@pytest.mark.parametrize("M", [288, 320, 1500])
+@pytest.mark.parametrize("K,N", ROWS_KN)
+def test_psi_matmul_codes_bf16_tight_prefill_rows(cuda, K, N, M):
+    _check_tight(cuda, K, N, 8, M)
+
+
+@pytest.mark.parametrize("K,N", ROWS_KN)
+def test_psi_matmul_codes_prefill_rows_batch_invariant(cuda, K, N):
+    _check_batch_invariant(K, N, 8, Ms=(288, 320, 6000))
+
+
+@pytest.mark.parametrize("K,N", ROWS_KN)
+def test_psi_matmul_codes_prefill_rows_f32_out_casts_bit_equal(cuda, K, N):
+    """The prefill route's f32 output (a row-parallel partial, cast after
+    its all-reduce) at M = 288: its cast to bf16 is the bf16 output bit for
+    bit, and its rows are those of an M = 4 f32 launch."""
+    data, scale = _packed_weight(K, N, 8)
+    qt = psi.QuantizedTensor(data, scale, psi.get_format(8), False)
+    x = _x(288, K, K * 3 + N)
+    y32 = ops.psi_matmul_2d(x, qt, out_dtype=torch.float32)
+    assert y32.dtype == torch.float32
+    assert torch.equal(y32.to(torch.bfloat16), ops.psi_matmul_2d(x, qt))
+    for i in (0, 140, 284):
+        assert torch.equal(ops.psi_matmul_2d(
+            x[i:i + 4].contiguous(), qt, out_dtype=torch.float32),
+            y32[i:i + 4]), i
+
+
+@pytest.mark.parametrize("M", [33, 64, 288])
+@pytest.mark.parametrize("K,N", QWEN_KN + [(1032, 1000), (37, 33)])
+def test_psi_matmul_codes_routes_bit_equal_at_the_same_rows(cuda, K, N, M):
+    """At the same M, the prefill route, with its splits in one block or
+    in a cluster (at 64-channel tiles; a 128-channel tile's plan has one
+    split), and the decode route give the same bits (the wrapper picks the
+    route by M alone)."""
+    from repro_torch.kernels import psi_matmul as pm
+    data, scale = _packed_weight(K, N, 8)
+    x = _x(M, K, M * 5 + K)
+    tile, chunk, _ = pm.codes_split_plan(K, N, _build.sm_count(0))
+    want = pm._codes_launch(x, data, scale, None, tile, chunk, 0)
+    for cluster in ((0, 1) if tile == 64 else (0,)):
+        assert torch.equal(pm._codes_launch(
+            x, data, scale, None, tile, chunk, 1, cluster), want), cluster
 
 
 # ---------------------------------------------------------------------------

@@ -267,6 +267,72 @@ def test_codes_split_plan_depends_on_the_weight_only():
         "K", "N", "n_sm"]
 
 
+@pytest.mark.parametrize("K,N,plan", [
+    (4096, 4096, (64, 52, 5)), (4096, 1024, (64, 32, 8)),
+    (4096, 12288, (64, 128, 2)), (12288, 4096, (64, 154, 5)),
+    (4096, 151936, (128, 256, 1))])
+def test_codes_split_plan_pinned_at_qwen3_8b_shapes(K, N, plan):
+    """The codes plan at qwen3-8b's five weights on 132 SMs, as the card
+    has it: both bf16 routes sum in its order, so a change here changes
+    every served row's bits."""
+    assert tpm.codes_split_plan(K, N, 132) == plan
+
+
+@pytest.mark.parametrize("K,N", CODES_PLAN_SHAPES)
+def test_codes_route_is_picked_from_M_alone(K, N):
+    """The decode route (rows 0) at M <= CODES_ROWS_MIN_M and the prefill
+    route (rows 1) above, with the split plan of codes_split_plan whatever
+    M (so a row's sums run in one order in both routes); the prefill
+    route's layout is one the kernel has."""
+    T = tpm.CODES_ROWS_MIN_M
+    for n_sm in (132, 114, 1):
+        tile, chunk, _ = tpm.codes_split_plan(K, N, n_sm)
+        for M in (1, 4, 16, T - 1, T, T + 1, 64, 288, 320, 6000):
+            got_tile, got_chunk, rows, cluster = tpm.codes_launch_plan(
+                M, K, N, n_sm)
+            assert (got_tile, got_chunk) == (tile, chunk)
+            assert rows == int(M > T), M
+            assert cluster in (0, 1) and (rows or not cluster)
+            if tile == 128:
+                assert not cluster
+    import inspect
+    assert list(inspect.signature(tpm.codes_launch_plan).parameters) == [
+        "M", "K", "N", "n_sm"]
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 1])
+@pytest.mark.parametrize("K,N", CODES_PLAN_SHAPES)
+def test_codes_rows_grid_covers_every_row_and_column(K, N, n_sm):
+    """The prefill route's blocks (CODES_ROWS_TOKENS rows x ``tile`` channels,
+    over the whole of K in the split plan's order, or over one split each
+    in a cluster of the tile's splits) cover every row of M and every N
+    column exactly once, with no empty block, and its splits cover K as
+    :func:`_check_plan` says, at M = T + 1, 288, 320, 6000.  The clusters
+    are taken only where the blocks of whole K would cover less than 3/4
+    of the SMs."""
+    for M in (tpm.CODES_ROWS_MIN_M + 1, 288, 320, 6000):
+        tile, chunk, rows, cluster = tpm.codes_launch_plan(M, K, N, n_sm)
+        assert rows == 1
+        n_split = -(-(-(-K // tpm.CODES_STEP_K)) // chunk)
+        gm, gs, gn = tpm.codes_rows_grid(M, N, tile, n_split, cluster)
+        assert gs == (n_split if cluster else 1) <= tpm.MAX_SPLIT
+        if cluster:
+            assert gm * gn < 3 * n_sm // 4 and n_split > 1
+        rows = tpm.CODES_ROWS_TOKENS
+        m_hits = np.zeros(M, np.int64)
+        for b in range(gm):
+            assert b * rows < M
+            m_hits[b * rows:(b + 1) * rows] += 1
+        assert (m_hits == 1).all()
+        n_hits = np.zeros(N, np.int64)
+        for b in range(gn):
+            assert b * tile < N
+            n_hits[b * tile:(b + 1) * tile] += 1
+        assert (n_hits == 1).all()
+        _check_plan(chunk, n_split, K, N, tpm.CODES_BLOCKS_PER_SM * n_sm,
+                    tpm.CODES_STEP_K, tile)
+
+
 def test_packed_split_plan_depends_on_the_weight_only():
     """The plan takes K, N and the SM count, never M: a row's sums run in
     the same order whatever the batch it is launched in."""
@@ -290,6 +356,20 @@ def test_cpu_tensors_take_the_plain_versions():
     case = _torch_args(_case(1, 2, 3, "f32"))
     torch.testing.assert_close(ops.paged_decode_attention(*case),
                                tpa.paged_attention_ref(*case), rtol=0, atol=0)
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def test_route_launch_counts_reset_and_add():
+    """Kernel 1's prefill-route count: zeroed with the kernels' counts,
+    and added to by name (as a graph replay adds its capture's) without
+    moving the kernels' counts."""
+    ops.reset_launch_counts()
+    assert ops.route_launch_counts() == {"psi_matmul_codes_rows": 0}
+    ops.add_launches({"psi_matmul_codes": 3, "psi_matmul_codes_rows": 2})
+    assert ops.route_launch_counts() == {"psi_matmul_codes_rows": 2}
+    assert ops.launch_counts()["psi_matmul_codes"] == 3
+    ops.reset_launch_counts()
+    assert ops.route_launch_counts() == {"psi_matmul_codes_rows": 0}
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
