@@ -86,7 +86,7 @@ printing one JSON line; any failure exits non-zero before the result line:
                          its macs_per_token, mfu and tokens_per_joule at
                          the card's power limit and the roofline terms of
                          qwen3-8b's decode_32k cell on one H100; then
-                         10 alternating pairs of plain and mesh serves
+                         4 alternating pairs of plain and mesh serves
                          (tok/s of each, tokens identical).  Every
                          serve phase's line carries macs_per_token, mfu,
                          watts and tokens_per_joule;
@@ -114,20 +114,23 @@ printing one JSON line; any failure exits non-zero before the result line:
                          acceptance above 0; a profiled window of one draft
                          graph, one verify graph and one plain psi5 step;
   4c. other configs (serve_phi3_psi8, serve_granite_psi5,
-                         serve_chatglm3_psi8) — each at full width and
-                         depth, the psi8 trace of 3 (granite at psi5):
-                         identical tokens across modes, exact launch counts
-                         (281 / 529 / 197 matmuls per forward, 40 / 88 / 28
-                         attention calls per step), one decode graph, no
+                         serve_chatglm3_psi8) — each at full width, granite
+                         at all 88 layers, phi3 and chatglm3 cut to 8 and 7
+                         (SERVE_LAYERS; every phase of 4d-4f likewise, at
+                         the depth named there), the psi8 trace of 3
+                         (granite at psi5): identical tokens across modes,
+                         exact launch counts (57 / 529 / 50 matmuls per
+                         forward, 8 / 88 / 7 attention calls per step),
+                         one decode graph, no
                          leaked block, a decode window (eager, graph) and
                          one 288-row prefill forward;
   4d. MoE (serve_qwen3moe_psi8, serve_qwen3moe_psi8_horizon) — full-width
-                         qwen3-moe-30b-a3b, all 48 layers, psi8: 8
+                         qwen3-moe-30b-a3b, 8 of its 48 layers, psi8: 8
                          requests arriving at once (the same two bursts of
                          four in every run), continuous and static at
                          horizon 1 and continuous at horizon 8, tokens
-                         identical across the three; 193 matmuls per
-                         forward (none from the experts), 48 attention
+                         identical across the three; 33 matmuls per
+                         forward (none from the experts), 8 attention
                          calls per step; one decode and one round graph;
                          no leaked block; tokens dropped in the prefills
                          (slots kept < k x S summed over the forwards); a
@@ -136,11 +139,12 @@ printing one JSON line; any failure exits non-zero before the result line:
                          MoE time split into expert dequantize and expert
                          GEMMs;
   4e. VLM and hybrid (serve_qwen2vl_psi8, serve_recurrentgemma_psi8 and
-                         their _horizon phases) — full width and depth,
-                         the psi8 trace: qwen2-vl on the paged pool (197
-                         matmuls a forward, 28 attention calls a step),
-                         recurrentgemma on the dense 2048-ring (293
-                         matmuls, no kernel 3; exact-length prefills:
+                         their _horizon phases) — full width, 7 and 8
+                         layers, the psi8 trace: qwen2-vl on the paged
+                         pool (50 matmuls a forward, 7 attention calls a
+                         step), recurrentgemma on the dense 2048-ring (two
+                         groups and the tail: 63 matmuls, no kernel 3;
+                         exact-length prefills:
                          one forward a request where an admission's
                          prompt lengths differ); continuous and static at
                          horizon 1 and continuous at horizon 8, tokens
@@ -151,10 +155,10 @@ printing one JSON line; any failure exits non-zero before the result line:
                          blocks' non-PSI time at decode and prefill (the
                          scan's share) split out (rec_layer_split);
   4f. SSM and encoder-decoder (serve_falconmamba_psi8, serve_whisper_psi8
-                         and their _horizon phases) — full width and
-                         depth (64 mamba layers; 6 + 6 layers over 1500
-                         stub frames), dense, the psi8 trace at horizons 1
-                         and 8, tokens identical; 257 matmuls a forward
+                         and their _horizon phases) — full width (8 of
+                         falcon-mamba's 64 layers; whisper's 6 + 6 layers
+                         over 1500 stub frames), dense, the psi8 trace at horizons 1
+                         and 8, tokens identical; 33 matmuls a forward
                          and step for falcon-mamba, 61 a step and 97 a
                          prefill forward for whisper (its encoder), no
                          kernel 3; exact-length prefills; one decode and
@@ -219,6 +223,7 @@ printing one JSON line; any failure exits non-zero before the result line:
   5d. CNNs (cnn)       — AlexNet at batch 4: forwards at fp32, psi8 and
                          psi5 against the CPU, their ms, 3 qat5 SGD steps;
                          LeNet-5 with examples/train_lenet_qat.py's recipe
+                         (100 of its 300 steps)
                          at fp32 and qat8, test accuracy card vs CPU;
   5e. PSI arithmetic (psi_arith) — the paper's multiplier-less arithmetic
                          on CUDA tensors: the SAM over all 65536 INT8 x
@@ -268,6 +273,14 @@ ARCHS = {"phi3-medium-14b": ("phi3", "psi8"),
          "recurrentgemma-9b": ("recurrentgemma", "psi8"),
          "falcon-mamba-7b": ("falconmamba", "psi8"),
          "whisper-base": ("whisper", "psi8")}
+# the depth each of those phases serves at: granite-34b (kernel 2's
+# prefill route at psi5) at all its layers, the others cut to a few
+# layers of their published block (recurrentgemma two (rec, rec, attn)
+# groups and its (rec, rec) tail), so that the script stays well inside
+# its time limit; every width stays the published one
+SERVE_LAYERS = {"phi3-medium-14b": 8, "chatglm3-6b": 7,
+                "qwen3-moe-30b-a3b": 8, "qwen2-vl-2b": 7,
+                "recurrentgemma-9b": 8, "falcon-mamba-7b": 8}
 # configs whose phase also serves the trace at horizon 8 (continuous)
 HORIZON_ARCHS = ("qwen3-moe-30b-a3b", "qwen2-vl-2b", "recurrentgemma-9b",
                  "falcon-mamba-7b", "whisper-base")
@@ -281,6 +294,7 @@ CARD_VS_CPU_LAYERS = {"recurrentgemma-9b": 3}
 # widths and top-8 over 32 experts, so a 3-token verify still has C = 1
 MOE_CARD_VS_CPU_EXPERTS = 32
 MOE_SPEC_K = 3                   # the MoE card-vs-CPU serve's --speculative
+MOE_SPEC_NEW = 4                 # ... and its requests' new tokens
 # the rows kernels 1 and 2 are held at for those configs' weights: decode,
 # the 16-row prefill of the card-vs-CPU serve, the serve's bucketed
 # prompts (64 +- 8 -> 64, 80) and the prefill window's 288 (a burst's
@@ -300,7 +314,7 @@ TP_LOCAL_MS = (1, 4, 16, 64, 288)
 TP_RING_ARCHS = ("recurrentgemma-9b", "granite-34b")
 RING_B, RING_C = 4, 2048         # the split-ring merge's slots and ring
 HORIZON = 8                      # decode steps per round, serve_psi8_horizon
-MESH_PAIRS = 10                  # serve_psi8_mesh's plain / mesh serve pairs
+MESH_PAIRS = 4                   # serve_psi8_mesh's plain / mesh serve pairs
 # serve_psi8_ctx: the bursty trace's seed (its first burst holds two long
 # requests), its pool (two long requests' optimistic reservations, 2 x 29
 # blocks: the second long request is preempted when the first outgrows
@@ -332,6 +346,9 @@ PREFILL_MS = tuple(range(16, CTX_LONG_SEQ + 1, 16))
 # (at every config's weights too, one card's and a model axis's)
 CODES_ROWS_MS = (64, 288, CTX_LONG_SEQ)
 ROUTE_MS = (32, 48, 64, 80, 96, 128, 288)
+# kernel 2's routes side by side: on either side of PACKED_ROWS_MIN_M
+# and of PACKED_ROWS_ALL_M, and a 288-row prompt
+PACKED_ROUTE_MS = (64, 80, 224, 256, 288)
 L2_BYTES = 50e6                  # H100 L2: rotate weight copies past it
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 # train_qwen3_8b: qwen3-8b at full width, its depth cut to TRAIN_LAYERS
@@ -373,7 +390,7 @@ CNN_REL = 1e-4
 LENET_PP = 2.0
 ALEXNET_BATCH = 4                # the paper's Fig. 8 batch
 ALEXNET_LR = 1e-3                # 3 qat5 SGD steps (momentum 0.9)
-LENET_STEPS, LENET_BATCH, LENET_LR = 300, 128, 0.05
+LENET_STEPS, LENET_BATCH, LENET_LR = 100, 128, 0.05
 # psi_arith: MOA operand sets (operands, sets) at (in_bits, out_bits);
 # the INT8 activations' length; psi_matmul_int5's rows at qwen3-8b's wq
 MOA_SHAPE, MOA_BITS = (18, 4096), ((5, 18), (13, 18))
@@ -488,11 +505,11 @@ def weight_shapes(cfg, m=1):
     return out
 
 
-def check_full(cfg, arch):
+def check_full(cfg, arch, n_layers=0):
     """The served config is ``arch``'s published one: every width and the
-    whole depth."""
+    whole depth, or ``n_layers`` of it where given."""
     from repro_torch.configs import get_config
-    want = get_config(arch)
+    want = get_config(arch, **({"n_layers": n_layers} if n_layers else {}))
     keys = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
             "vocab_size", "head_dim", "act", "rope", "n_experts", "top_k",
             "capacity_factor", "block_pattern", "d_rnn", "rglru_c",
@@ -500,7 +517,15 @@ def check_full(cfg, arch):
             "ssm_state", "ssm_expand", "ssm_conv", "ssm_dt_rank",
             "n_enc_layers", "enc_frames")
     check(all(getattr(cfg, k) == getattr(want, k) for k in keys),
-          f"{arch}: not full width and depth")
+          f"{arch}: not full width and depth ({n_layers or 'all'} "
+          f"layers)")
+
+
+def cpu_threads():
+    """The CPU references' intra-op threads: half the cores.  The card's
+    machine shares its cores with its host's other work, and an op split
+    over every core waits at each barrier for the slowest of them."""
+    return max(1, (os.cpu_count() or 2) // 2)
 
 
 def card_rates(name):
@@ -557,6 +582,9 @@ def main():
           "psi8_rows_ptxas": _ptxas_report(
               (build / "psi_rows.log").read_text(),
               "psi_gemm_codes_rows_kernelI"),
+          "psi5_rows_ptxas": _ptxas_report(
+              (build / "psi_rows.log").read_text(),
+              "psi_gemm_packed_rows_kernelILi5E"),
           "psi5_mma_ptxas": _ptxas_report(
               (build / "psi_matmul.log").read_text(),
               "psi_gemm_mma_kernelILi5E"),
@@ -597,11 +625,15 @@ def main():
         row["launches"] = launches[k]
         check(row["launches"] > 0, f"{k} never launched on its main path")
         kernels.append(row)
-    # kernel 1's prefill route (csrc/psi_rows.cu), its launches among them
-    rows_n = launches["psi_matmul_codes_rows"]
-    kernels[0]["prefill_route_launches"] = rows_n
-    check(0 < rows_n < kernels[0]["launches"],
-          "kernel 1's prefill route never launched on its main path")
+    # kernels 1 and 2's prefill routes (csrc/psi_rows.cu), their launches
+    # among the kernels'
+    for i, route in enumerate(("psi_matmul_codes_rows",
+                               "psi_matmul_packed_rows")):
+        rows_n = launches[route]
+        kernels[i]["prefill_route_launches"] = rows_n
+        check(0 < rows_n < kernels[i]["launches"],
+              f"kernel {i + 1}'s prefill route never launched on its main "
+              f"path, or took every launch")
     check(set(launches) == set(ops.KERNELS) | set(ops.ROUTES),
           "a kernel has no main path")
     emit({"kernels": kernels})
@@ -611,12 +643,13 @@ def main():
     return 0
 
 
-def _path_end(ops, launches, codes=True):
-    """The kernels' launch counts where a main path ends.  Where the path's
-    kernel-1 launches count (``codes``), its launches on kernel 1's prefill
-    route (counted since the path's reset) are added to ``launches``."""
-    if codes:
-        for k, n in ops.route_launch_counts().items():
+def _path_end(ops, launches, key=None):
+    """The kernels' launch counts where a main path ends.  The launches on
+    the kernels' prefill routes (counted since the path's reset) are added
+    to ``launches``: every route's, or, where the path counts one kernel's
+    launches (``key``), that kernel's routes only."""
+    for k, n in ops.route_launch_counts().items():
+        if key is None or ops.ROUTES[k][0] is ops.KERNELS[key]:
             launches[k] = launches.get(k, 0) + n
     return ops.launch_counts()
 
@@ -626,7 +659,8 @@ def _ptxas_report(log, key):
     stores"} from ptxas -v for the kernels whose mangled names contain
     ``key``: psi_gemm_mma_kernel <BITS, NT, VEC> (ILi5ELi1ELb1 -> "5,1,1"),
     psi_gemm_codes_kernel <NT, NW, VEC, XVEC> (ILi8ELi2ELb1ELb1 ->
-    "8,2,1,1"), psi_gemm_codes_rows_kernel <NW, VEC, XVEC, CL>."""
+    "8,2,1,1"), psi_gemm_codes_rows_kernel <NW, VEC, XVEC, CL>,
+    psi_gemm_packed_rows_kernel <BITS, VEC>."""
     out, fn, spill = {}, None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -878,7 +912,9 @@ def phase_kernels(torch, dev, bw, peak):
         del w
         torch.cuda.empty_cache()
 
-    _codes_rows(torch, dev, bw, peak, gen, main_cfg)
+    _prefill_rows(torch, dev, bw, peak, gen, main_cfg, 8)
+    _prefill_rows(torch, dev, bw, peak, gen, main_cfg, 5)
+    _prefill_rows(torch, dev, bw, peak, gen, get_config("granite-34b"), 5)
     _arch_gemm_rows(torch, dev, bw, peak, gen, max_err)
     _local_gemm_rows(torch, dev, bw, peak, gen, max_err)
 
@@ -890,9 +926,9 @@ def phase_kernels(torch, dev, bw, peak):
         out[key] = {
             "name": key, "route": "cuda",
             "source": "src/repro_torch/csrc/psi_matmul.cu",
-            # kernel 1 at prefill rows (M > CODES_ROWS_MIN_M)
-            **({"prefill_source": "src/repro_torch/csrc/psi_rows.cu"}
-               if key == "psi_matmul_codes" else {}),
+            # kernels 1 and 2 at prefill rows (M > CODES_ROWS_MIN_M, M >
+            # PACKED_ROWS_MIN_M)
+            "prefill_source": "src/repro_torch/csrc/psi_rows.cu",
             "replaces": replaces[key], "launches": 0,
             "max_abs_err": max_err[key], "ms": a["ms"],
             "plain_ms": a["plain_ms"], "bound_ms": bound,
@@ -1373,78 +1409,114 @@ def _rows_times(torch, qt, M, dtype, gen, dev, bw, peak):
     return t
 
 
-def _codes_route_sweep(torch, qt, Ms, gen, dev):
-    """Kernel 1's two bf16 routes on ``qt`` side by side at each M of
-    ``Ms``, on the same x: the decode route and the prefill route in the
-    layout the wrapper picks (codes_rows_cluster) and, where the split plan
-    has more than one split, in the other layout too; each must give the
-    decode route's output bit for bit.  {M: {route: device ms}} from
-    CUDA-graph replays (weights warm); T (CODES_ROWS_MIN_M) and the
-    cluster rule were picked from such rows."""
+def _route_sweep(torch, qt, Ms, gen, dev):
+    """Kernel 1's (codes) or kernel 2's (planes) two bf16 routes on ``qt``
+    side by side at each M of ``Ms``, on the same x: the decode route and
+    the prefill route (kernel 1's in the layout codes_rows_cluster picks
+    and, where the split plan has more than one split, in the other
+    layout too; kernel 2's has one, its splits a cluster); each must give
+    the decode route's output bit for bit.  {M: {route: device ms}} from
+    CUDA-graph replays (weights warm); the thresholds (CODES_ROWS_MIN_M;
+    PACKED_ROWS_MIN_M, PACKED_ROWS_MIN_N) and kernel 1's cluster rule were
+    picked from such rows."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import psi_matmul as pm
     K, N = qt.shape
     scale = qt.scale.reshape(-1)
     n_sm = _build.sm_count(0)
-    tile, chunk, n_split = pm.codes_split_plan(K, N, n_sm)
+    if qt.packed:
+        # one layout: a split a block, a tile's splits one cluster
+        bits = qt.fmt.bits
+        chunk, n_split = pm.split_plan(K, N, n_sm)
+        rule = lambda M: int(n_split > 1)
+        launch = lambda x, rows, c: pm._packed_launch(
+            x, qt.data, scale, bits, None, chunk, rows)
+    else:
+        tile, chunk, n_split = pm.codes_split_plan(K, N, n_sm)
+        rule = lambda M: pm.codes_rows_cluster(M, N, tile, chunk, n_split,
+                                               n_sm)
+        launch = lambda x, rows, c: pm._codes_launch(
+            x, qt.data, scale, None, tile, chunk, rows, c)
     out = {}
     for M in Ms:
         x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-        cl = pm.codes_rows_cluster(M, N, tile, chunk, n_split, n_sm)
-        run = lambda rows, c: (lambda i: pm._codes_launch(
-            x, qt.data, scale, None, tile, chunk, rows, c))
+        cl = rule(M)
+        run = lambda rows, c: (lambda i: launch(x, rows, c))
         want = run(0, 0)(0)
         out[M] = {"decode": _graph_ms(torch, run(0, 0), 1, iters=10, reps=3),
                   "rows_cluster": cl}
-        for c in ((cl, 1 - cl) if n_split > 1 else (cl,)):
+        for c in ((cl, 1 - cl) if n_split > 1 and not qt.packed else (cl,)):
             check(torch.equal(run(1, c)(0), want),
-                  f"kernel 1 ({K}, {N}) at M = {M}: the prefill route "
-                  f"(cluster {c}) is not the decode route's output bit for "
-                  f"bit")
+                  f"kernel {2 if qt.packed else 1} ({K}, {N}) at M = {M}: "
+                  f"the prefill route (cluster {c}) is not the decode "
+                  f"route's output bit for bit")
             out[M]["prefill" if c == cl else "prefill_other_cluster"] = (
                 _graph_ms(torch, run(1, c), 1, iters=10, reps=3))
     return out
 
 
-def _codes_rows(torch, dev, bw, peak, gen, cfg):
-    """Kernel 1's prefill route at ``cfg``'s weights (qwen3-8b): at each M
-    of CODES_ROWS_MS every row equals that row of an M = DECODE_M launch
-    and of the decode route at the same M, bit for bit (a mismatch fails),
-    and the launch is timed (:func:`_rows_times`: device ms, bf16
-    torch.matmul, bound); then the two routes side by side at ROUTE_MS.
-    One line a weight, with T (CODES_ROWS_MIN_M) and the plan."""
+def _prefill_rows(torch, dev, bw, peak, gen, cfg, bits):
+    """Kernel 1's (bits 8) or kernel 2's (bits 2-7) prefill route at
+    ``cfg``'s weights (qwen3-8b; granite-34b): at each M of CODES_ROWS_MS
+    every row equals that row of an M = DECODE_M launch and of the decode
+    route at the same M, bit for bit (a mismatch fails), and the launch is
+    timed (:func:`_rows_times`: device ms, bf16 torch.matmul, bound); then
+    the two routes side by side at ROUTE_MS.  One line a weight, with the
+    thresholds, the plan and the wrapper's route at each M."""
     from repro_torch.core import psi
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import psi_matmul as pm
     bf16 = torch.bfloat16
     n_sm = _build.sm_count(0)
-    for label, ((K, N), _) in weight_shapes(cfg).items():
+    packed = bits < 8
+    for label, ((K, N), per_step) in weight_shapes(cfg).items():
         w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
-        qt = psi.quantize_weights(w, 8, axis=(0,))
+        qt = psi.quantize_weights(w, bits, axis=(0,))
+        if packed:
+            qt = qt.pack()
         del w
-        row = {"phase": "kernel_codes_rows", "weight": label, "K": K, "N": N,
-               "rows_min_m": pm.CODES_ROWS_MIN_M,
-               "plan": dict(zip(("tile", "chunk", "n_split"),
-                                pm.codes_split_plan(K, N, n_sm)))}
+        scale = qt.scale.reshape(-1)
+        if packed:
+            row = {"phase": "kernel_packed_rows", "arch": cfg.name,
+                   "bits": bits, "weight": label, "K": K, "N": N,
+                   "launches_per_forward": per_step,
+                   "rows_min_m": pm.PACKED_ROWS_MIN_M,
+                   "rows_min_n": pm.PACKED_ROWS_MIN_N,
+                   "plan": dict(zip(("chunk", "n_split"),
+                                    pm.split_plan(K, N, n_sm)))}
+        else:
+            row = {"phase": "kernel_codes_rows", "weight": label, "K": K,
+                   "N": N, "rows_min_m": pm.CODES_ROWS_MIN_M,
+                   "plan": dict(zip(("tile", "chunk", "n_split"),
+                                    pm.codes_split_plan(K, N, n_sm)))}
         for M in CODES_ROWS_MS:
             x = torch.randn(M, K, generator=gen, device=dev).to(bf16)
             y = ops.psi_matmul_2d(x, qt)
             for i in range(0, M, DECODE_M):
                 check(torch.equal(ops.psi_matmul_2d(
                     x[i:i + DECODE_M].contiguous(), qt), y[i:i + DECODE_M]),
-                    f"kernel 1 {label} at M = {M}: rows {i}.. differ from "
-                    f"an M = {DECODE_M} launch's")
-            tile, chunk, _, cl = pm.codes_launch_plan(M, K, N, n_sm)
-            check(torch.equal(pm._codes_launch(
-                x, qt.data, qt.scale.reshape(-1), None, tile, chunk, 0), y),
-                f"kernel 1 {label} at M = {M}: not the decode route's bits")
+                    f"kernel {2 if packed else 1} {label} at M = {M}: rows "
+                    f"{i}.. differ from an M = {DECODE_M} launch's")
+            if packed:
+                chunk, rows = pm.packed_launch_plan(M, K, N, n_sm)
+                cl = int(rows and row["plan"]["n_split"] > 1)
+                decode = pm._packed_launch(x, qt.data, scale, bits, None,
+                                           chunk, 0)
+            else:
+                tile, chunk, rows, cl = pm.codes_launch_plan(M, K, N, n_sm)
+                decode = pm._codes_launch(x, qt.data, scale, None, tile,
+                                          chunk, 0)
+            check(torch.equal(decode, y),
+                  f"kernel {2 if packed else 1} {label} at M = {M}: not the "
+                  f"decode route's bits")
             t = _rows_times(torch, qt, M, bf16, gen, dev, bw, peak)
+            t["route"] = "prefill" if rows else "decode"
             t["rows_cluster"] = cl
             t["bit_equal_to_M4_and_decode_route"] = True
             t["library_share"] = t["library_device_ms"] / t["device_ms"]
             row[f"M{M}"] = t
-        row["routes_device_ms"] = _codes_route_sweep(torch, qt, ROUTE_MS,
-                                                     gen, dev)
+        row["routes_device_ms"] = _route_sweep(
+            torch, qt, PACKED_ROUTE_MS if packed else ROUTE_MS, gen, dev)
         emit(row)
         del qt
         torch.cuda.empty_cache()
@@ -1526,7 +1598,7 @@ def _arch_gemm_rows(torch, dev, bw, peak, gen, max_err):
                         torch, qt, max(xb) if xb else ARCH_PREFILL_ROWS,
                         bf16 if xb else torch.float32, gen, dev, bw, peak)
                 if bits == 8:
-                    extra["routes_device_ms"] = _codes_route_sweep(
+                    extra["routes_device_ms"] = _route_sweep(
                         torch, qt, ROUTE_MS, gen, dev)
                 max_err[key] = max(max_err[key], err)
                 t, kern, datas = _decode_times(torch, qt, gen, dev, bw, peak,
@@ -1624,10 +1696,12 @@ def _local_gemm_rows(torch, dev, bw, peak, gen, max_err):
                     row["psi8"]["f32_rows_time"] = _rows_times(
                         torch, qt, ARCH_PREFILL_ROWS, torch.float32, gen,
                         dev, bw, peak)
-                if bits == 8:
+                if bits == 8 or ARCHS.get(arch, ("", ""))[1] == f"psi{bits}":
                     # a mesh serve's prefill rows reach these shapes in bf16
-                    row["psi8"]["routes_device_ms"] = _codes_route_sweep(
-                        torch, qt, ROUTE_MS, gen, dev)
+                    # (kernel 2's: granite-34b's psi5 on the split ring)
+                    row[f"psi{bits}"]["routes_device_ms"] = _route_sweep(
+                        torch, qt, ROUTE_MS if bits == 8 else PACKED_ROUTE_MS,
+                        gen, dev)
             emit(row)
             del w
             torch.cuda.empty_cache()
@@ -1775,11 +1849,12 @@ def _free(torch):
 
 
 def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
-    """Server.serve of full-width ``arch`` (all its layers) from ``quant``
+    """Server.serve of full-width ``arch`` (all its layers, or the
+    SERVE_LAYERS of them the config has there) from ``quant``
     codes, continuous then static: identical tokens, the config's
     PSI-matmul launches per forward (kernel 1 at psi8, kernel 2 at psi5:
-    253 for qwen3-8b, 281 phi3-medium-14b, 529 granite-34b, 197
-    chatglm3-6b) and one attention launch per layer and decode step, each
+    253 for qwen3-8b, 529 granite-34b; 57 phi3-medium-14b and 50
+    chatglm3-6b at their cut depths) and one attention launch per layer and decode step, each
     decode step a replay of the captured horizon-1 graph, no leaked block;
     then a profiled decode window: for qwen3-8b three ways (eager step,
     horizon-1 graph, horizon-8 round) and, at psi8, the same trace served
@@ -1788,32 +1863,34 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     ARCH_PREFILL_ROWS rows.  The other configs serve the psi8 trace (8
     requests, prompts 64 +- 8, 8-16 new tokens).
 
-    An MoE config (qwen3-moe-30b-a3b: 193 matmuls per forward, none from
-    its experts) serves the same trace with every request arriving at
-    once and 16 new tokens each, and is served at horizon 8 too (phase
-    serve_qwen3moe_psi8_horizon); the routing of its prefills is logged
-    (capacities, slots kept, which must fall short of the slots routed:
-    tokens drop), and one decode step's MoE time is split into the
-    expert dequantize and the expert GEMMs (moe_layer_split).
+    An MoE config (qwen3-moe-30b-a3b: 33 matmuls per forward at 8
+    layers, none from its experts) serves the same trace with every
+    request arriving at once and 16 new tokens each, and is served at
+    horizon 8 too (phase serve_qwen3moe_psi8_horizon); the routing of its
+    prefills is logged (capacities, slots kept, which must fall short of
+    the slots routed: tokens drop), and one decode step's MoE time is
+    split into the expert dequantize and the expert GEMMs
+    (moe_layer_split).
 
-    qwen2-vl-2b (paged, M-RoPE's equal streams, 197 matmuls a forward)
-    and recurrentgemma-9b (the dense 2048-ring, 293 matmuls, no kernel 3;
-    one prefill forward a request where an admission's prompt lengths
-    differ) serve the psi8 trace and, like MoE, at horizon 8
-    (continuous); both time their tied head built once against a
-    transpose per call (tied_head), and the hybrid splits its rec blocks
-    into PSI and other time at decode and prefill (rec_layer_split).
-    falcon-mamba-7b (dense, 257 matmuls a forward and step) and
-    whisper-base (dense, 61 a step, 97 a prefill forward: its encoder)
-    serve the same way, exact-length prefills both; falcon-mamba splits
-    its mamba blocks (mamba_layer_split), whisper its cross K/V
-    projection and encoder (xattn_split)."""
+    qwen2-vl-2b (paged, M-RoPE's equal streams, 50 matmuls a forward at 7
+    layers) and recurrentgemma-9b (the dense 2048-ring, 63 matmuls at 8
+    layers, no kernel 3; one prefill forward a request where an
+    admission's prompt lengths differ) serve the psi8 trace and, like
+    MoE, at horizon 8 (continuous); both time their tied head built once
+    against a transpose per call (tied_head), and the hybrid splits its
+    rec blocks into PSI and other time at decode and prefill
+    (rec_layer_split).  falcon-mamba-7b (dense, 33 matmuls a forward and
+    step at 8 layers) and whisper-base (dense, 61 a step, 97 a prefill
+    forward: its encoder) serve the same way, exact-length prefills both;
+    falcon-mamba splits its mamba blocks (mamba_layer_split), whisper its
+    cross K/V projection and encoder (xattn_split)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     main = arch == MAIN_ARCH
     family = get_config(arch).family
     moe = family == "moe"
+    depth = SERVE_LAYERS.get(arch, 0)
     if main and quant != "psi8":
         args = _serve_args(quant=quant, requests=4, max_new=8, min_new=4)
     elif moe:
@@ -1823,9 +1900,9 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
         # are comparable token for token, every request arrives at once
         # with one budget and all three admit the same two bursts of four
         args = _serve_args(arch=arch, quant=quant, arrival_rate=1e9,
-                           min_new=16)
+                           min_new=16, n_layers=depth)
     else:
-        args = _serve_args(arch=arch, quant=quant)
+        args = _serve_args(arch=arch, quant=quant, n_layers=depth)
     name = f"serve_{quant}" if main else f"serve_{ARCHS[arch][0]}_{quant}"
     key = "psi_matmul_codes" if quant == "psi8" else "psi_matmul_packed"
     t_phase = time.perf_counter()
@@ -1835,7 +1912,7 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
     server, cfg = serve.build_server(args)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    check_full(cfg, arch)
+    check_full(cfg, arch, depth)
     per_fwd, per_step = counts_per_step(cfg)
     server.warmup(serve.trace_from_args(args, cfg))
     rows, undo = _record_prefill_rows(server.executor)
@@ -1856,7 +1933,7 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
         undo()
         undo_route()
     torch.cuda.synchronize()
-    got = _path_end(ops, launches, key == "psi_matmul_codes")  # ends here
+    got = _path_end(ops, launches, key)               # ... and ends here
     held = _check_prefill_rows(torch, rows, name, server.executor.params,
                                PREFILL_MS if main else ARCH_MS)
     _check_bursts(name, {m: runs[m][1] for m in runs}, admitted,
@@ -1915,7 +1992,7 @@ def phase_serve(torch, dev, launches, quant, arch=MAIN_ARCH):
         else None
     # the serve's peak, before a split resets the counter to read its own
     peak = torch.cuda.max_memory_allocated()
-    if not main:
+    if not main or quant == "psi5":
         # one prefill forward of ARCH_PREFILL_ROWS rows: a table (or a
         # slab) that covers them, one slot, no decode graph
         bs = cfg.cache_block_size
@@ -3394,12 +3471,12 @@ def _window(torch, fn, per_call, calls):
     t0 = time.perf_counter()
     run(calls)
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the kernels' own events, each once (a CPU
+    # op's row would repeat the time of the kernels it launched), and no
+    # host events to record and sort, which took most of a serve phase's
+    # time in eager windows
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(calls)
-    # each kernel once, from its own device event: a CPU op's row repeats
-    # the time of the kernels it launched as its self device time, so
-    # summing every row would count each eager aten kernel twice
     by = {"psi_gemm": 0.0, "paged_attn": 0.0, "other": 0.0}
     for ev in prof.key_averages():
         if (ev.device_type != DeviceType.CUDA
@@ -3458,7 +3535,7 @@ def phase_card_vs_cpu(torch, dev):
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import build_model
     from repro_torch.runtime.executor import params_to
-    torch.set_num_threads(os.cpu_count() or 1)
+    torch.set_num_threads(cpu_threads())
     cfg = get_config("qwen3-8b", n_layers=2, dtype="float32",
                      quant_mode="psi8")
     model = build_model(cfg)
@@ -3664,8 +3741,8 @@ def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
     be identical; on the card exact launch counts and one decode graph;
     no leaked block on either.  An MoE config also cuts its experts to
     MOE_CARD_VS_CPU_EXPERTS (the cut is on the line) and adds a
-    --speculative 3:MOE_SPEC_K serve, whose verifies drop tokens (C = 1
-    at S = k)."""
+    --speculative 3:MOE_SPEC_K serve of MOE_SPEC_NEW new tokens a
+    request, whose verifies drop tokens (C = 1 at S = k)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import scheduler, serve
@@ -3714,7 +3791,7 @@ def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
     spec = None
     if family == "moe":
         spec = _spec_card_vs_cpu(torch, dev, cfg, build_model(cfg),
-                                 k=MOE_SPEC_K)
+                                 k=MOE_SPEC_K, new=MOE_SPEC_NEW)
         check(spec["cpu_routing"]["verify"]["slots_kept"]
               < spec["cpu_routing"]["verify"]["slots_routed"],
               f"{arch} card vs CPU: no token dropped in a verify "
@@ -3725,10 +3802,11 @@ def _arch_card_vs_cpu(torch, dev, arch, n_layers=2):
             "wall_s": time.perf_counter() - t0}
 
 
-def _spec_card_vs_cpu(torch, dev, cfg, model, k=SPEC_K):
+def _spec_card_vs_cpu(torch, dev, cfg, model, k=SPEC_K, new=8):
     """A speculative serve (--speculative SPEC_BITS:k over psi8 codes
     with the QAT precondition at SPEC_BITS, so drafts are accepted) of the
-    2-layer float32 model on the CPU and on the card: the same tokens, or a
+    2-layer float32 model on the CPU and on the card (2 requests of 16
+    prompt tokens, ``new`` new tokens each): the same tokens, or a
     divergence only under the token rule; one draft and one verify graph
     on the card; no leaked block on either.  For MoE the CPU run's routing
     is logged (cpu_routing: prefills, and verifies at S = k)."""
@@ -3737,7 +3815,7 @@ def _spec_card_vs_cpu(torch, dev, cfg, model, k=SPEC_K):
     params = model.init(seed=1, device=dev, bits=8,
                         qat_precondition=SPEC_BITS)
     trace = lambda: scheduler.poisson_trace(
-        2, rate_rps=1e9, prompt_len=16, max_new=8, min_new=8,
+        2, rate_rps=1e9, prompt_len=16, max_new=new, min_new=new,
         vocab_size=cfg.vocab_size, seed=2)
     t0 = time.perf_counter()
     servers, done, logs, out = [], [], [], {}
@@ -4316,7 +4394,7 @@ def phase_train_resume(torch, dev):
     from repro_torch.models import build_model
     from repro_torch.core.quantizer import tree_map
     t_phase = time.perf_counter()
-    torch.set_num_threads(os.cpu_count() or 1)
+    torch.set_num_threads(cpu_threads())
     cfg = reduced_config(get_config(MAIN_ARCH), quant_mode="qat8")
     init = build_model(cfg).init(0, "cpu")
     kw = dict(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, save_every=3,
@@ -4374,8 +4452,8 @@ def phase_cnn(torch, dev):
     against the port on the CPU (CNN_REL), and its ms; 3 qat5 SGD steps
     on a fixed random batch, the loss falling at each.  LeNet-5 with the
     recipe of examples/train_lenet_qat.py (plain SGD lr 0.05, batch 128,
-    300 steps on synthetic_mnist(4096, 1); test on synthetic_mnist(2048,
-    2)) at fp32 and qat8 (tested at psi8, as the recipe does), on the
+    its 300 steps cut to LENET_STEPS on synthetic_mnist(4096, 1); test on
+    synthetic_mnist(2048, 2)) at fp32 and qat8 (tested at psi8, as the recipe does), on the
     card and on the CPU from the same init: accuracies within LENET_PP
     points."""
     from repro_torch.data import synthetic_mnist
@@ -4383,7 +4461,7 @@ def phase_cnn(torch, dev):
     from repro_torch.optim import sgd
     from repro_torch.core.quantizer import tree_map
     t_phase = time.perf_counter()
-    torch.set_num_threads(os.cpu_count() or 1)
+    torch.set_num_threads(cpu_threads())
     _free(torch)
 
     def to(tree, d):

@@ -1,8 +1,9 @@
 // Pieces shared by the PSI matmuls' tensor-core kernels (csrc/psi_matmul.cu
 // and csrc/psi_rows.cu): the block's warps and its largest cluster, the
-// MMA and its operands' conversions, and the epilogue's store.  Kernel 1's
-// two bf16 routes give the same bits because they share these and sum in
-// one order.
+// MMA and its operands' conversions (codes, and bit-planes' words, their
+// transpose and their weights), and the epilogue's store.  Each kernel's
+// two bf16 routes give the same bits because they share these, put the
+// same K rows in the same k slots and sum in one order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,6 +54,93 @@ __device__ __forceinline__ uint32_t code_pair(uint32_t p, uint32_t q, int c) {
   const uint32_t r = __byte_perm(p, q, (4u + c) * 0x1100u | c * 0x11u);
   return bf16x2_sub((r & 0x007F007Fu) | 0x43004300u,
                     (r & 0x00800080u) | 0x43004300u);
+}
+
+// One step of an 8 x 8 bit transpose (Hacker's Delight, transpose8),
+// done in four byte lanes at once: bits j + S of `lo` (j in the lower half
+// of each 2S-bit field, the bits MASK selects) trade places with bits j of
+// `hi`.  A shift and a lop3 for each word.
+template <int S, uint32_t MASK>
+__device__ __forceinline__ void transpose_step(uint32_t& lo, uint32_t& hi) {
+  const uint32_t l = (lo & ~(MASK << S)) | ((hi << S) & (MASK << S));
+  hi = (hi & ~MASK) | ((lo >> S) & MASK);
+  lo = l;
+}
+
+// The 32-bit word at p: columns n .. n+3 of a plane row (0 past the edges;
+// bytewise where rows are not word aligned).
+template <bool VEC>
+__device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ p,
+                                              bool row_ok, int n, int N) {
+  if (!row_ok || n >= N) return 0u;
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    uint32_t v = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (n + c < N) v |= (uint32_t)__ldg(p + c) << (8 * c);
+    return v;
+  }
+}
+
+// The bit-plane decode of kernel 2 (csrc/psi_matmul.cu, design (2)), in
+// three steps for lane (g, t) of a 64-K group: P[b] and Q[b] are plane b's
+// words at plane rows ra = 8*grp + t and rb = ra + 4, channels n .. n+3.
+// (a) tile_words: A tile a's words (a = 0: channels n, n+1; a = 1: n+2,
+//     n+3), byte lanes [ch @ ra, ch+1 @ ra, ch @ rb, ch+1 @ rb]; planes
+//     past BITS are 0.
+template <int BITS>
+__device__ __forceinline__ void tile_words(const uint32_t (&P)[BITS],
+                                           const uint32_t (&Q)[BITS], int a,
+                                           uint32_t (&W)[8]) {
+  const uint32_t sel = a ? 0x7632u : 0x5410u;
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    W[b] = b < BITS ? __byte_perm(P[b % BITS], Q[b % BITS], sel) : 0u;
+}
+
+// (b) per byte lane, an 8 x 8 bit transpose (plane b, bit j) -> (j, b):
+//     afterwards W[j] holds in each byte lane the offset-binary weight of
+//     K row 8*(ra or rb) + j.
+__device__ __forceinline__ void transpose_words(uint32_t (&W)[8]) {
+  transpose_step<4, 0x0F0F0F0Fu>(W[0], W[4]);
+  transpose_step<4, 0x0F0F0F0Fu>(W[1], W[5]);
+  transpose_step<4, 0x0F0F0F0Fu>(W[2], W[6]);
+  transpose_step<4, 0x0F0F0F0Fu>(W[3], W[7]);
+  transpose_step<2, 0x33333333u>(W[0], W[2]);
+  transpose_step<2, 0x33333333u>(W[1], W[3]);
+  transpose_step<2, 0x33333333u>(W[4], W[6]);
+  transpose_step<2, 0x33333333u>(W[5], W[7]);
+  transpose_step<1, 0x55555555u>(W[0], W[1]);
+  transpose_step<1, 0x55555555u>(W[2], W[3]);
+  transpose_step<1, 0x55555555u>(W[4], W[5]);
+  transpose_step<1, 0x55555555u>(W[6], W[7]);
+}
+
+// (c) the signed weights of word v = W[2q + h] as two A fragment
+//     registers of MMA k-step q: rows g (bytes 0, 2: channel ch) and g+8
+//     (bytes 1, 3: ch+1), each the bf16 pair {K row 8ra + 2q + h, 8rb +
+//     2q + h} (k slots 2t, 2t+1 for h = 0, 2t+8, 2t+9 for h = 1).  0x43vv
+//     is bf16 128 + v (v < 128); one subtract of 128 + 2^(BITS-1) leaves
+//     the weight, exactly.
+template <int BITS>
+__device__ __forceinline__ void tile_weights(uint32_t v, uint32_t& row_g,
+                                             uint32_t& row_g8) {
+  constexpr uint32_t kBias = (0x4300u | (1u << (BITS - 1))) * 0x10001u;
+  constexpr uint32_t kExp = 0x43434343u;
+  row_g = bf16x2_sub(__byte_perm(v, kExp, 0x4240), kBias);
+  row_g8 = bf16x2_sub(__byte_perm(v, kExp, 0x4341), kBias);
+}
+
+// The B fragment of MMA k-step q for one token: wa, wb are word q of x's
+// 16 bytes at K rows 8ra .. 8ra+7 and 8rb .. 8rb+7; b0 holds K rows 8ra +
+// 2q, 8rb + 2q (k slots 2t, 2t+1), b1 rows 8ra + 2q + 1, 8rb + 2q + 1
+// (2t+8, 2t+9): the k slots of tile_weights.
+__device__ __forceinline__ void x_pair(uint32_t wa, uint32_t wb,
+                                       uint32_t& b0, uint32_t& b1) {
+  b0 = __byte_perm(wa, wb, 0x5410);
+  b1 = __byte_perm(wa, wb, 0x7632);
 }
 
 }  // namespace

@@ -23,11 +23,12 @@
 // the arithmetic (2*M*K*N at 989 TFLOP/s bf16) is the bound: wq at M = 288
 // 9.8 us against 5.0 for its bytes.
 //
-// Three kernels live here; x's dtype picks the route.  A fourth, kernel
-// 1's route for bf16 prefill rows, is design (4) in csrc/psi_rows.cu: M
-// picks between it and (3) (kernels/psi_matmul.py::codes_launch_plan), and
-// the two give the same bits (they share csrc/psi_common.cuh and sum in one
-// order).
+// Three kernels live here; x's dtype picks the route.  Kernel 1's and
+// kernel 2's routes for bf16 prefill rows are designs (4) and (5) in
+// csrc/psi_rows.cu: M (and, for kernel 2, N) picks between (4) and (3)
+// (kernels/psi_matmul.py::codes_launch_plan) and between (5) and (2)
+// (packed_launch_plan), and each pair gives the same bits (they share
+// csrc/psi_common.cuh and sum in one order).
 //
 // (1) psi_gemm_kernel, CUDA cores: x f32 (the reduced configurations; a TF32
 // product would miss their 1e-5 tolerance), for codes and planes alike.
@@ -91,6 +92,8 @@
 //     loaded as 0, so they add exact zeros; tokens past M load x = 0 and are
 //     never stored.  Unaligned rows (N % 4 != 0 or planes not 4-byte
 //     aligned) take a byte-load instantiation (VEC = false).
+//   * At prefill rows (kernels/psi_matmul.py::packed_launch_plan) design
+//     (5) in csrc/psi_rows.cu takes over with the same sums.
 //
 // (3) psi_gemm_codes_kernel, tensor cores: int8 codes with bf16 x (kernel 1
 // on the serving path, psi8).  Design (1) turned each code into a float and
@@ -274,34 +277,6 @@ psi_gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
 constexpr int kMmaBN = 32;              // channels per block (two A tiles)
 constexpr int kGroupRows = 8;           // plane rows per group (64 K)
 
-// One step of an 8 x 8 bit transpose (Hacker's Delight, transpose8),
-// done in four byte lanes at once: bits j + S of `lo` (j in the lower half
-// of each 2S-bit field, the bits MASK selects) trade places with bits j of
-// `hi`.  A shift and a lop3 for each word.
-template <int S, uint32_t MASK>
-__device__ __forceinline__ void transpose_step(uint32_t& lo, uint32_t& hi) {
-  const uint32_t l = (lo & ~(MASK << S)) | ((hi << S) & (MASK << S));
-  hi = (hi & ~MASK) | ((lo >> S) & MASK);
-  lo = l;
-}
-
-// The 32-bit word at p: columns n .. n+3 of a plane row (0 past the edges;
-// bytewise where rows are not word aligned).
-template <bool VEC>
-__device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ p,
-                                              bool row_ok, int n, int N) {
-  if (!row_ok || n >= N) return 0u;
-  if constexpr (VEC) {
-    return __ldg(reinterpret_cast<const unsigned int*>(p));
-  } else {
-    uint32_t v = 0;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (n + c < N) v |= (uint32_t)__ldg(p + c) << (8 * c);
-    return v;
-  }
-}
-
 // x[tok][8*row .. 8*row+7] as 16 bytes (0 past M or past K/8 rows)
 __device__ __forceinline__ uint4 load_x8(const __nv_bfloat16* __restrict__ x,
                                          int tok, int M, int row, int rows,
@@ -336,9 +311,6 @@ psi_gemm_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int n = nb + 4 * g;                         // this lane's 4 channels
   const int m0 = blockIdx.z * 8 * NT;
   const size_t pstride = (size_t)rows * N;
-  // bf16 pairs (128 + 2^(BITS-1)) and the 0x43 exponent byte of 128 + v
-  constexpr uint32_t kBias = (0x4300u | (1u << (BITS - 1))) * 0x10001u;
-  constexpr uint32_t kExp = 0x43434343u;
 
   float acc[2][NT][4];
 #pragma unroll
@@ -369,12 +341,8 @@ psi_gemm_mma_kernel(const __nv_bfloat16* __restrict__ x,
     // the two A tiles' words, byte lanes [ch 4g|4g+2 @ ra, ch 4g+1|4g+3 @
     // ra, the same @ rb]; planes past BITS are 0
     uint32_t W[2][8];
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const uint32_t p = P[b % BITS], q = Q[b % BITS];
-      W[0][b] = b < BITS ? __byte_perm(p, q, 0x5410) : 0u;
-      W[1][b] = b < BITS ? __byte_perm(p, q, 0x7632) : 0u;
-    }
+    tile_words<BITS>(P, Q, 0, W[0]);
+    tile_words<BITS>(P, Q, 1, W[1]);
     if (grp + kMmaWarps < ge) load_group(grp + kMmaWarps, P, Q);  // prefetch
     uint4 xa[NT], xb[NT];
 #pragma unroll
@@ -383,38 +351,19 @@ psi_gemm_mma_kernel(const __nv_bfloat16* __restrict__ x,
       xa[nt] = load_x8(x, tok, M, ra, rows, K);
       xb[nt] = load_x8(x, tok, M, rb, rows, K);
     }
-    // per byte lane, an 8 x 8 bit transpose (plane b, bit j) -> (j, b):
-    // afterwards W[a][j] holds in each byte lane the offset-binary weight of
-    // K row 8*(ra or rb) + j
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      transpose_step<4, 0x0F0F0F0Fu>(W[a][0], W[a][4]);
-      transpose_step<4, 0x0F0F0F0Fu>(W[a][1], W[a][5]);
-      transpose_step<4, 0x0F0F0F0Fu>(W[a][2], W[a][6]);
-      transpose_step<4, 0x0F0F0F0Fu>(W[a][3], W[a][7]);
-      transpose_step<2, 0x33333333u>(W[a][0], W[a][2]);
-      transpose_step<2, 0x33333333u>(W[a][1], W[a][3]);
-      transpose_step<2, 0x33333333u>(W[a][4], W[a][6]);
-      transpose_step<2, 0x33333333u>(W[a][5], W[a][7]);
-      transpose_step<1, 0x55555555u>(W[a][0], W[a][1]);
-      transpose_step<1, 0x55555555u>(W[a][2], W[a][3]);
-      transpose_step<1, 0x55555555u>(W[a][4], W[a][5]);
-      transpose_step<1, 0x55555555u>(W[a][6], W[a][7]);
-    }
+    // afterwards W[a][j] holds in each byte lane the offset-binary weight
+    // of K row 8*(ra or rb) + j
+    transpose_words(W[0]);
+    transpose_words(W[1]);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {                   // MMA k-step: bits 2q, 2q+1
       uint32_t afrag[2][4];
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          // rows g (bytes 0, 2) and g+8 (bytes 1, 3) as bf16 pairs
-          const uint32_t v = W[a][2 * q + h];
-          afrag[a][2 * h] = bf16x2_sub(__byte_perm(v, kExp, 0x4240),
-                                       kBias);
-          afrag[a][2 * h + 1] = bf16x2_sub(__byte_perm(v, kExp, 0x4341),
-                                           kBias);
-        }
+        for (int h = 0; h < 2; ++h)
+          tile_weights<BITS>(W[a][2 * q + h], afrag[a][2 * h],
+                             afrag[a][2 * h + 1]);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const uint32_t wa = q == 0 ? xa[nt].x : q == 1 ? xa[nt].y
@@ -422,8 +371,8 @@ psi_gemm_mma_kernel(const __nv_bfloat16* __restrict__ x,
         const uint32_t wb = q == 0 ? xb[nt].x : q == 1 ? xb[nt].y
                           : q == 2 ? xb[nt].z : xb[nt].w;
         // K rows 8ra+2q, 8rb+2q and 8ra+2q+1, 8rb+2q+1
-        const uint32_t b0 = __byte_perm(wa, wb, 0x5410);
-        const uint32_t b1 = __byte_perm(wa, wb, 0x7632);
+        uint32_t b0, b1;
+        x_pair(wa, wb, b0, b1);
         mma_bf16(acc[0][nt], afrag[0], b0, b1);
         mma_bf16(acc[1][nt], afrag[1], b0, b1);
       }

@@ -1,8 +1,14 @@
-// Kernel 1's route for prefill rows on Hopper (sm_90a): y[M,N] = (x[M,K] @
-// codes[K,N]) * scale[N], x bf16, codes int8 (PSI serving format, psi8),
-// f32 sums.  Replaces, with csrc/psi_matmul.cu's design (3), the Pallas
-// kernel repro/kernels/psi_matmul.py::psi_matmul_int8 (psi_matmul.py:153,
-// body _int8_kernel) at M above kernels/psi_matmul.py::CODES_ROWS_MIN_M.
+// The PSI matmuls' routes for prefill rows on Hopper (sm_90a): y[M,N] =
+// (x[M,K] @ W[K,N]) * scale[N], x bf16, f32 sums, M above the host's
+// threshold T.  Kernel 1 (int8 codes, psi8; design (4)) replaces, with
+// csrc/psi_matmul.cu's design (3), the Pallas kernel
+// repro/kernels/psi_matmul.py::psi_matmul_int8 (psi_matmul.py:153, body
+// _int8_kernel) at M above kernels/psi_matmul.py::CODES_ROWS_MIN_M.
+// Kernel 2 (uint8 bit-planes, bits 2-7; design (5)) replaces, with design
+// (2), repro/kernels/psi_matmul.py::psi_matmul_packed (psi_matmul.py:197,
+// body _packed_kernel) at M above PACKED_ROWS_MIN_M on weights of more
+// than PACKED_ROWS_MIN_N channels (kernels/psi_matmul.py::
+// packed_launch_plan).
 //
 // Design (4), psi_gemm_codes_rows_kernel, tensor cores: kernel 1 at
 // prefill rows (bf16 x, M above the host's threshold T).  Design (3)
@@ -47,6 +53,47 @@
 //     misaligned codes: VEC = false) are read as aligned 16-byte words and
 //     shifted into place; x rows (K % 8 != 0 or misaligned x: XVEC =
 //     false) element by element.
+//
+// Design (5), psi_gemm_packed_rows_kernel, tensor cores: kernel 2 at
+// prefill rows.  Design (2) reaches many rows by launching more of its
+// blocks: at M = 288 each 32-channel tile's planes are read and
+// bit-transposed again in 9 blocks of 32 tokens, each decode (~2.5
+// integer ops a weight at psi5) feeding 2 A tiles x 4 token tiles of MMAs,
+// so the integer pipe, not the tensor cores, set the pace (granite-34b's
+// 288-row prefill spent 138 of 170 ms in it, ~14 % of the operation
+// bound).  This route keeps what fixes a row's bits and changes where the
+// work runs:
+//   * Kept from (2), so that every row is (2)'s bit for bit whichever route
+//     is picked: the split plan (split_plan, from K and N only);
+//     mma.sync.m16n8k16 with the same k slots (lane t's plane rows ra =
+//     8*grp + t and rb = ra + 4, MMA q holding K rows 8ra+2q, 8rb+2q,
+//     8ra+2q+1, 8rb+2q+1) and the same decode (csrc/psi_common.cuh); each
+//     split's eight chains (chain w: groups gs+w, gs+w+8, ... from 0, q =
+//     0..3 in each); the block's sum in warp order (s = c0, s += c1, ...,
+//     c7, an empty chain adding +0); the splits added in split order into
+//     0, then scale and one rounding.
+//   * Changed: a block is 4 warps on 128 channels x 64 tokens, and a warp
+//     owns 32 channels (design (2)'s lane layout) for all 64 tokens: it
+//     decodes each group of its channels once and feeds the A fragments,
+//     from its registers, to 8 token tiles (64 MMAs a decode; (2) feeds 8
+//     to 32).  The block walks a split's chains one after another
+//     (PackedWalk), not eight warps at once: a chain's f32 operations
+//     depend only on its own sequence of MMAs, so only the current chain's
+//     sums (64 a thread) live in registers; at a chain's end each thread
+//     adds them into its s in shared memory (its own slots, no barrier).
+//     x goes through shared memory (cp.async, three stages, pieces
+//     swizzled so that the fragment reads hit every bank once), shared by
+//     the four warps; a warp's plane words are loaded a group ahead into
+//     its registers.  A tile's splits run one a block of a cluster (of
+//     one block where the plan has one split), added in split order
+//     through distributed shared memory.
+//   * What bounds it: see PERF.md (PR 31).
+//   * Edges masked, never padded: plane rows past K/8 load 0 (decoding to
+//     -2^(bits-1)) against x copied as 0, so they add exact zeros; columns
+//     past N load 0 and tokens past M copy x = 0, never stored.  Planes
+//     not word aligned (N % 4 != 0 or a misaligned pointer: VEC = false)
+//     are read byte by byte (load_word); x is 16-byte aligned (the
+//     wrapper clones it otherwise) and K % 8 == 0, so its pieces are.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -453,6 +500,291 @@ int launch_codes_rows(const void* x, const void* w, const void* scale,
                    x, w, scale, out, f32_out, M, K, N, chunk, n_split, s);
 }
 
+// ---------------------------------------------------------------------------
+// (5) Kernel 2's route for prefill rows (bit-planes, bf16 x).
+// ---------------------------------------------------------------------------
+constexpr int kPackedWarps = 4;         // warps a block, 32 channels each
+constexpr int kPackedThreads = kPackedWarps * 32;
+constexpr int kPackedTok = 64;          // tokens a block: 8 token tiles
+constexpr int kPackedTN = 32 * kPackedWarps;   // channels a block
+constexpr int kPackedGroupRows = 8;     // plane rows a group (64 K)
+constexpr int kPackedSums = 16;         // float4 sums a thread (64 outputs)
+constexpr int kPackedStages = 3;        // groups of x in flight
+// shared memory (bytes): the running sums s, [kPackedSums][128] float4 (a
+// thread's own slots), and kPackedStages stages of x, [64 tokens][8
+// pieces of 16 bytes]: 56 KB.  Two blocks an SM, so that a thread may hold
+// ~200 registers (64 sums, 32 A fragment words, the next group's plane
+// words) without spilling (held to three blocks an SM, it spilled).
+constexpr int kPackedSumBytes = kPackedSums * kPackedThreads * 16;
+constexpr int kPackedXBytes = kPackedTok * 128;
+constexpr int kPackedSmem = kPackedSumBytes + kPackedStages * kPackedXBytes;
+
+// A block's walk over the 64-K groups, one entry at a time: the splits
+// in order (split: groups [gs, gs + n), n = min(chunk, groups - gs)), and
+// within a split the chains one after another (chain w: groups gs + w,
+// gs + w + 8, ..., len = ceil((n - w) / 8) of them, in that order).
+// Design (2) sums each chain from 0 in one warp; walking them in turn
+// gives every chain the same sequence of MMAs.  Advanced by compares and
+// adds only (every thread of the block holds the same walk).  An entry is
+// one word: group << 5 | chain << 2 | chain's end << 1 | split's end.
+struct PackedWalk {
+  int gs, n, w, i, len;
+  __device__ __forceinline__ void start_split(int g, int chunk, int groups) {
+    gs = g;
+    n = min(groups, g + chunk) - g;
+    w = 0;
+    i = 0;
+    len = (n + 7) >> 3;
+  }
+  __device__ __forceinline__ int entry() const {
+    const bool chain_end = i == len - 1;
+    const bool split_end = chain_end && w == min(n, 8) - 1;
+    return (gs + w + 8 * i) << 5 | w << 2 | (int)chain_end << 1 |
+           (int)split_end;
+  }
+  __device__ __forceinline__ void advance(int chunk, int groups) {
+    if (++i < len) return;
+    i = 0;
+    if (++w < min(n, 8))
+      len = (n - w + 7) >> 3;
+    else
+      start_split(gs + chunk, chunk, groups);
+  }
+};
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// Grid (ceil(M/64), n_split, ceil(N/128)), 4 warps: one block owns 64
+// tokens x 128 channels over split blockIdx.y of K, the tile's splits a
+// cluster of (1, n_split, 1).
+// Warp w owns channels 32w .. 32w+31 of the tile and all 64 tokens: per
+// group of its walk (PackedWalk) it decodes its channels' planes as design
+// (2)'s warp does (lane (g, t): plane rows 8*grp + t and + 4, channels
+// 4g .. 4g+3, two A tiles; the words loaded a group ahead) and feeds
+// those A fragments, from registers, to all 8 token tiles (64 MMAs a
+// decode, against (2)'s 8 to 32).  x goes through shared memory, copied
+// with cp.async two groups ahead and read by all four warps.  At a
+// chain's end each thread adds its sums into s (s = the chain's sums for
+// chain 0); at the split's end s takes the empty chains' +0, and the
+// cluster's blocks add their s in split order into v = 0: design (2)'s
+// adds on the same operands, so every output is the decode route's bit
+// for bit.  s lives in shared memory, in the thread's own slots.
+template <int BITS, bool VEC>
+__global__ void __launch_bounds__(kPackedThreads, 2)
+psi_gemm_packed_rows_kernel(const __nv_bfloat16* __restrict__ x,
+                            const uint8_t* __restrict__ planes,
+                            const float* __restrict__ scale,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ out32, int M, int K, int N,
+                            int chunk) {
+  constexpr int kThreads = kPackedThreads;
+  extern __shared__ float4 packed_smem[];
+  float4* ss = packed_smem;                         // [16][128]: s
+  char* xs = reinterpret_cast<char*>(ss + kPackedSums * kThreads);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rows = K >> 3;                          // plane rows
+  const int groups = (rows + kPackedGroupRows - 1) / kPackedGroupRows;
+  const int m0 = blockIdx.x * kPackedTok, nb = blockIdx.z * kPackedTN;
+  const int e_begin = blockIdx.y * chunk;
+  const int e_end = min(groups, e_begin + chunk);
+  const size_t pstride = (size_t)rows * N;
+
+  // the walk's entries e, e + 1, e + 2: the MMAs' (and decode's), the
+  // plane loads', the x copy's (valid below e_end)
+  PackedWalk walk;
+  walk.start_split(e_begin, chunk, groups);
+  int en[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    en[j] = walk.entry();
+    walk.advance(chunk, groups);
+  }
+
+  // the group's x rows (64 tokens x 8 pieces of 16 bytes, 4 a thread):
+  // token row r = i / 8, piece c = i % 8 (K rows 64*grp + 8c ..), stored
+  // at piece c ^ 4(r & 1) so that a warp's fragment reads hit every bank
+  // once; 0 past M and past K (`live`: the entry is the block's)
+  auto copy_x = [&](int grp, int buf, bool live) {
+    char* st = xs + buf * kPackedXBytes;
+#pragma unroll
+    for (int j = 0; j < kPackedTok * 8 / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads, r = i >> 3, c = i & 7;
+      const bool ok = live && m0 + r < M && grp * 8 + c < rows;
+      cp_async16(st + r * 128 + ((c ^ ((r & 1) << 2)) << 4),
+                 ok ? x + (size_t)(m0 + r) * K + 64 * grp + 8 * c : x,
+                 ok ? 16 : 0);
+    }
+  };
+  // this lane's plane words: P rows 8*grp + t, Q rows 8*grp + 4 + t of
+  // every plane, channels n .. n+3 (design (2)'s load_group)
+  const int n = nb + 32 * warp + 4 * g;
+  const uint8_t* pw = planes + (size_t)t * N + n;
+  uint32_t P[BITS], Q[BITS];
+  auto load_planes = [&](int grp, bool live) {
+    const uint8_t* p = pw + (size_t)grp * 8 * N;
+    const bool pa = live && grp * 8 + t < rows;
+    const bool pb = live && grp * 8 + 4 + t < rows;
+#pragma unroll
+    for (int b = 0; b < BITS; ++b, p += pstride) {
+      P[b] = load_word<VEC>(p, pa, n, N);
+      Q[b] = load_word<VEC>(p + (size_t)4 * N, pb, n, N);
+    }
+  };
+
+  copy_x(en[0] >> 5, 0, true);
+  cp_async_commit();
+  copy_x(en[1] >> 5, 1, e_begin + 1 < e_end);
+  cp_async_commit();
+  load_planes(en[0] >> 5, true);
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][nt][c] = 0.f;
+  // this lane's x pieces in a stage (token tile 0, row g; tile nt is
+  // 1024 bytes on, its rows 8nt + g keeping g's parity): K rows 8ra ..
+  // (piece t) and 8rb .. (piece t + 4)
+  const int xfa = g * 128 + ((t ^ ((g & 1) << 2)) << 4);
+  const int xfb = g * 128 + (((t + 4) ^ ((g & 1) << 2)) << 4);
+  int s0 = 0;                                       // x stage: e % 3
+  for (int e = e_begin; e < e_end; ++e) {
+    const int s1 = s0 == 2 ? 0 : s0 + 1, s2 = s1 == 2 ? 0 : s1 + 1;
+    // entry e's x has landed (only the last commit group may be in
+    // flight), and every warp is done with stage s2 (entry e - 1)
+    cp_async_wait<1>();
+    __syncthreads();
+    copy_x(en[2] >> 5, s2, e + 2 < e_end);
+    cp_async_commit();
+    // entry e's A tiles, from the words loaded a group ahead, then the
+    // next group's words
+    uint32_t W[2][8];
+    tile_words<BITS>(P, Q, 0, W[0]);
+    tile_words<BITS>(P, Q, 1, W[1]);
+    load_planes(en[1] >> 5, e + 1 < e_end);
+    transpose_words(W[0]);
+    transpose_words(W[1]);
+    uint32_t af[2][4][4];                           // [tile][k-step][reg]
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          tile_weights<BITS>(W[a][2 * q + h], af[a][q][2 * h],
+                             af[a][q][2 * h + 1]);
+    const char* st = xs + s0 * kPackedXBytes;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const uint4 xa = *reinterpret_cast<const uint4*>(st + nt * 1024 + xfa);
+      const uint4 xb = *reinterpret_cast<const uint4*>(st + nt * 1024 + xfb);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t wa = q == 0 ? xa.x : q == 1 ? xa.y
+                          : q == 2 ? xa.z : xa.w;
+        const uint32_t wb = q == 0 ? xb.x : q == 1 ? xb.y
+                          : q == 2 ? xb.z : xb.w;
+        uint32_t b0, b1;
+        x_pair(wa, wb, b0, b1);
+        mma_bf16(acc[0][nt], af[0][q], b0, b1);
+        mma_bf16(acc[1][nt], af[1][q], b0, b1);
+      }
+    }
+    s0 = s1;
+    const int cur = en[0];
+    en[0] = en[1];
+    en[1] = en[2];
+    en[2] = walk.entry();
+    walk.advance(chunk, groups);
+    if (cur & 2) {                                  // the chain's end
+#pragma unroll
+      for (int k = 0; k < kPackedSums; ++k) {
+        float* c = acc[k >> 3][k & 7];
+        const int i = k * kThreads + threadIdx.x;
+        float4 s = make_float4(c[0], c[1], c[2], c[3]);
+        const int chain = (cur >> 2) & 7;
+        if (chain > 0) s = add4(ss[i], s);
+        // at the split's end, the empty chains' sums (0) after the last
+        if ((cur & 1) && chain < kMmaWarps - 1)
+          s = add4(s, make_float4(0.f, 0.f, 0.f, 0.f));
+        ss[i] = s;
+        c[0] = c[1] = c[2] = c[3] = 0.f;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  // sum k of thread T: acc[a = k / 8][nt = k % 8] of warp T / 32, lane T %
+  // 32: {(ch, tok), (ch, tok + 1), (ch + 1, tok), (ch + 1, tok + 1)}, ch =
+  // 32w + 4g + 2a (A tile a: row g is channel 4g + 2a, row g + 8 the next)
+  auto store4 = [&](int i, float4 y4) {
+    const int T = i % kThreads, k = i / kThreads;
+    const int w = T >> 5, l = T & 31;
+    const int col = nb + 32 * w + 4 * (l >> 2) + 2 * (k >> 3);
+    const int row = m0 + 8 * (k & 7) + 2 * (l & 3);
+    const float y[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = row + (c & 1), cc = col + (c >> 1);
+      if (r < M && cc < N)
+        store_out(out, out32, (size_t)r * N + cc, y[c] * scale[cc]);
+    }
+  };
+  // ss holds this split's sums: the cluster's blocks add the splits in
+  // split order into 0, as design (2) does, each block a share of the
+  // tile's outputs
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int n_split = (int)cluster.num_blocks();
+  for (int i = cluster.block_rank() * kThreads + threadIdx.x;
+       i < kPackedSums * kThreads; i += n_split * kThreads) {
+    float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < n_split; ++r)
+      y = add4(y, cluster.map_shared_rank(ss, r)[i]);
+    store4(i, y);
+  }
+  cluster.sync();              // keep ss alive until the cluster has read it
+}
+
+// One split a block, the tile's splits one cluster (of one block where
+// the plan has one split); word loads of the planes where rows allow them
+// (design (2)'s VEC).  `grid` is the wrapper's (kernels/psi_matmul.py::
+// packed_rows_grid), checked by the caller.
+template <int BITS>
+int launch_packed_rows(const void* x, const void* w, const void* scale,
+                       void* out, bool f32_out, int M, int K, int N,
+                       int chunk, dim3 grid, cudaStream_t stream) {
+  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  const auto kern = vec ? psi_gemm_packed_rows_kernel<BITS, true>
+                        : psi_gemm_packed_rows_kernel<BITS, false>;
+  // on every launch: the attribute holds for the current device only
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kPackedSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kPackedThreads);
+  cfg.dynamicSmemBytes = kPackedSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr1[1];
+  attr1[0].id = cudaLaunchAttributeClusterDimension;
+  attr1[0].val.clusterDim.x = 1;
+  attr1[0].val.clusterDim.y = grid.y;
+  attr1[0].val.clusterDim.z = 1;
+  cfg.attrs = attr1;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
+      f32_out ? nullptr : static_cast<__nv_bfloat16*>(out),
+      f32_out ? static_cast<float*>(out) : nullptr, M, K, N, chunk);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x bf16 (M, K), codes int8 (K, N), scale f32 (N,): design (4) on
@@ -484,4 +816,36 @@ extern "C" int psi_matmul_codes_rows(const void* x, const void* codes,
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return fn(x, codes, scale, out, out_dtype == 0, M, K, N, chunk, n_split,
             static_cast<cudaStream_t>(stream));
+}
+
+// x bf16 (M, K), 16-byte aligned; planes uint8 (bits, K/8, N), bits 2..7;
+// scale f32 (N,): design (5), K split into at most 8 chunks of `chunk`
+// 64-K groups (kernels/psi_matmul.py::split_plan, the decode route's),
+// blocks of 64 tokens x 128 channels, one split a block, a tile's splits
+// one cluster.  The grid (grid_m, grid_s, grid_n) is the wrapper's
+// (kernels/psi_matmul.py::packed_rows_grid): one that does not tile M, the
+// splits and N exactly with these blocks is refused.  out_dtype 0 writes
+// f32, 1 bf16.  Returns the launch's cudaError_t.
+extern "C" int psi_matmul_packed_rows(const void* x, const void* planes,
+                                      const void* scale, void* out, int M,
+                                      int K, int N, int bits, int out_dtype,
+                                      int chunk, int grid_m, int grid_s,
+                                      int grid_n, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || bits < 2 || bits > 7 ||
+      out_dtype < 0 || out_dtype > 1 || reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int groups = (K / 8 + kPackedGroupRows - 1) / kPackedGroupRows;
+  if (chunk < 1 || chunk > groups) return (int)cudaErrorInvalidValue;
+  const int n_split = (groups + chunk - 1) / chunk;
+  if (n_split > kMaxSplit || grid_m != (M + kPackedTok - 1) / kPackedTok ||
+      grid_s != n_split || grid_n != (N + kPackedTN - 1) / kPackedTN)
+    return (int)cudaErrorInvalidValue;
+  using Fn = int (*)(const void*, const void*, const void*, void*, bool, int,
+                     int, int, int, dim3, cudaStream_t);
+  constexpr Fn kRoute[] = {launch_packed_rows<2>, launch_packed_rows<3>,
+                           launch_packed_rows<4>, launch_packed_rows<5>,
+                           launch_packed_rows<6>, launch_packed_rows<7>};
+  return kRoute[bits - 2](x, planes, scale, out, out_dtype == 0, M, K, N,
+                          chunk, dim3(grid_m, grid_s, grid_n),
+                          static_cast<cudaStream_t>(stream));
 }

@@ -25,7 +25,9 @@ KERNELS = {
 # a kernel's second route, by name: (wrapper, attribute counting its
 # launches, which the wrapper's ``launches`` count too)
 ROUTES = {"psi_matmul_codes_rows": (_pm.psi_matmul_codes_cuda,
-                                    "rows_launches")}
+                                    "rows_launches"),
+          "psi_matmul_packed_rows": (_pm.psi_matmul_packed_cuda,
+                                     "rows_launches")}
 
 
 def launch_counts() -> dict:

@@ -1,5 +1,5 @@
 """Wrappers of the CUDA PSI matmul kernels (``csrc/psi_matmul.cu``, and
-``csrc/psi_rows.cu`` for kernel 1's prefill rows).
+``csrc/psi_rows.cu`` for both kernels' prefill rows).
 
 ``psi_matmul_codes_cuda`` replaces the Pallas ``psi_matmul_int8`` (alias
 ``psi_matmul_codes``) and ``psi_matmul_packed_cuda`` replaces the Pallas
@@ -12,16 +12,26 @@ current stream, raises if the launch failed, and counts its launches in
 Both kernels have two routes, picked from x's dtype: f32 x runs on CUDA
 cores, bf16 x on tensor cores with K split across the blocks of a cluster
 as :func:`codes_split_plan` (codes) or :func:`split_plan` (planes) says.
-Kernel 1's bf16 launches of more than ``CODES_ROWS_MIN_M`` rows (T = 64,
-measured on the H100) take a third route, ``psi_gemm_codes_rows_kernel``,
-built for prefill rows: a block owns 32 tokens over the whole of K and
-decodes each code step once for all of them, its splits summed one after
-another (or one a block of a cluster where that grid is small).  It runs
-the decode route's split plan, chains, tree and split order, so a row's
-outputs are bit for bit the same whichever route M picks
-(:func:`codes_launch_plan`).  The wrapper counts its launches in
-``psi_matmul_codes_cuda.launches`` with the decode route's, and again in
-``psi_matmul_codes_cuda.rows_launches``.
+Each has a third route for bf16 prefill rows, built so that a block
+decodes each piece of the weight once for many tokens:
+
+* kernel 1's bf16 launches of more than ``CODES_ROWS_MIN_M`` rows (T =
+  64, measured on the H100) take ``psi_gemm_codes_rows_kernel``: a block
+  owns 32 tokens over the whole of K, its splits summed one after another
+  (or one a block of a cluster where that grid is small)
+  (:func:`codes_launch_plan`);
+* kernel 2's take ``psi_gemm_packed_rows_kernel`` on weights of more than
+  ``PACKED_ROWS_MIN_N`` (256) channels at more than ``PACKED_ROWS_ALL_M``
+  (224) rows, and at more than ``PACKED_ROWS_MIN_M`` (T = 64) rows where
+  the weight alone gives a 128-channel tile per SM (thresholds measured on
+  the H100): a warp decodes its 32 channels once a 64-K group for 64
+  tokens, the block walking the decode route's chains one after another
+  (:func:`packed_launch_plan`).
+
+Each runs its decode route's split plan, chains, sums and split order, so
+a row's outputs are bit for bit the same whichever route is picked.  The
+wrapper counts those launches in its ``launches`` with the decode route's,
+and again in its ``rows_launches``.
 
 The output is x's dtype, or f32 when ``out_dtype=torch.float32`` is asked
 of a bf16 x: the same f32 sums times the scale, stored without the last
@@ -56,6 +66,8 @@ def _rows_lib():
     if not getattr(lib, "_argtypes_set", False):
         lib.psi_matmul_codes_rows.argtypes = [_P] * 4 + [_I] * 7 + [_P]
         lib.psi_matmul_codes_rows.restype = _I
+        lib.psi_matmul_packed_rows.argtypes = [_P] * 4 + [_I] * 9 + [_P]
+        lib.psi_matmul_packed_rows.restype = _I
         lib._argtypes_set = True
     return lib
 
@@ -79,6 +91,18 @@ CODES_BLOCKS_PER_SM = 2
 # CODES_ROWS_TOKENS tokens
 CODES_ROWS_MIN_M = 64
 CODES_ROWS_TOKENS = 32
+# the packed route at prefill rows (csrc/psi_rows.cu, design (5)): a block
+# owns PACKED_ROWS_TOKENS tokens x PACKED_ROWS_TILE channels (the kernel's
+# kPackedTok x kPackedTN: it refuses a grid of other blocks); bf16 launches
+# take it on weights of N > PACKED_ROWS_MIN_N channels at M >
+# PACKED_ROWS_ALL_M rows, and at M > PACKED_ROWS_MIN_M where the weight
+# alone gives a channel tile per SM (thresholds measured on the H100;
+# PERF.md)
+PACKED_ROWS_MIN_M = 64
+PACKED_ROWS_ALL_M = 224
+PACKED_ROWS_MIN_N = 256
+PACKED_ROWS_TOKENS = 64
+PACKED_ROWS_TILE = 128
 
 
 def _plan(units, tiles, blocks):
@@ -153,6 +177,32 @@ def codes_rows_grid(M, N, tile, n_split, rows_cluster):
     the whole of K, or over one split of it in a cluster of n_split."""
     return (-(-M // CODES_ROWS_TOKENS), n_split if rows_cluster else 1,
             -(-N // tile))
+
+
+def packed_launch_plan(M, K, N, n_sm=132):
+    """(chunk, rows) of a bf16 packed launch: the chunk :func:`split_plan`
+    gives for the weight, whatever M, and the route, speed only (both
+    give the same bits): rows 1 (the prefill route) on weights of N >
+    PACKED_ROWS_MIN_N channels at M > PACKED_ROWS_ALL_M, or at M >
+    PACKED_ROWS_MIN_M where ceil(N / PACKED_ROWS_TILE) >= n_sm (lm_head,
+    granite-34b's w_up); else rows 0 (the decode route).  (On the H100 the
+    prefill route lost at N <= 256 at every M, and below ~224 rows where
+    its grid of whole-K blocks covers the SMs thinly: granite-34b's 6144
+    x 6144 at 96-192 rows; ``chip_smoke.py``'s ``routes_device_ms``.)"""
+    chunk, _ = split_plan(K, N, n_sm)
+    wide = -(-N // PACKED_ROWS_TILE) >= n_sm
+    rows = N > PACKED_ROWS_MIN_N and (
+        M > PACKED_ROWS_ALL_M or (M > PACKED_ROWS_MIN_M and wide))
+    return chunk, int(rows)
+
+
+def packed_rows_grid(M, K, N, chunk):
+    """The grid of a packed prefill-route launch, as the wrapper passes it:
+    (token tiles, split blocks, channel tiles), blocks of
+    PACKED_ROWS_TOKENS rows x PACKED_ROWS_TILE channels, each over one
+    split of ``chunk`` 64-K groups, the splits of a tile one cluster."""
+    n_split = -(-(-(-K // GROUP_K)) // chunk)
+    return (-(-M // PACKED_ROWS_TOKENS), n_split, -(-N // PACKED_ROWS_TILE))
 
 
 def _out_dtype(x, out_dtype):
@@ -247,21 +297,41 @@ def psi_matmul_packed_cuda(x: torch.Tensor, planes: torch.Tensor,
     M, K = x.shape
     N = planes.shape[2]
     _check_common(x, planes, scale, torch.uint8, N)
-    chunk = 0
+    plan = (0, 0)
     if x.dtype == torch.bfloat16:
         if x.data_ptr() % 16:                 # the kernel reads x in 16 bytes
             x = x.clone()
-        chunk, _ = split_plan(K, N, _build.sm_count(x.device.index or 0))
+        plan = packed_launch_plan(M, K, N,
+                                  _build.sm_count(x.device.index or 0))
+    out = _packed_launch(x, planes, scale, bits, out_dtype, *plan)
+    psi_matmul_packed_cuda.launches += 1
+    psi_matmul_packed_cuda.rows_launches += plan[1]
+    return out
+
+
+def _packed_launch(x, planes, scale, bits, out_dtype, chunk, rows):
+    """One launch of kernel 2 at the plan given (checked tensors, a bf16 x
+    16-byte aligned).  The wrapper passes :func:`packed_launch_plan`'s;
+    the card's checks also pass the other route at the same M, to hold
+    the routes side by side."""
+    M, K = x.shape
+    N = planes.shape[2]
     out = torch.empty((M, N), dtype=_out_dtype(x, out_dtype),
                       device=x.device)
-    err = _lib().psi_matmul_packed(
-        x.data_ptr(), planes.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, int(bits), _DTYPE_CODE[x.dtype], _DTYPE_CODE[out.dtype],
-        chunk,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), planes.data_ptr(), scale.data_ptr(),
+            out.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if rows:
+        err = _rows_lib().psi_matmul_packed_rows(
+            *ptrs, M, K, N, int(bits), _DTYPE_CODE[out.dtype], chunk,
+            *packed_rows_grid(M, K, N, chunk), stream)
+    else:
+        err = _lib().psi_matmul_packed(
+            *ptrs, M, K, N, int(bits), _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[out.dtype], chunk, stream)
     _build.check(err, "psi_matmul_packed")
-    psi_matmul_packed_cuda.launches += 1
     return out
 
 
 psi_matmul_packed_cuda.launches = 0
+psi_matmul_packed_cuda.rows_launches = 0

@@ -356,13 +356,17 @@ def _check_tight(cuda, K, N, bits, M, misaligned=False, x_misaligned=False):
     packed = bits < 8
     key = "psi_matmul_packed" if packed else "psi_matmul_codes"
     before = ops.launch_counts()[key]
-    rows0 = ops.route_launch_counts()["psi_matmul_codes_rows"]
+    rows0 = ops.route_launch_counts()
     got = ops.psi_matmul_2d(x, psi.QuantizedTensor(
         data, scale, psi.get_format(bits), packed)).float()
     assert ops.launch_counts()[key] == before + 1
     from repro_torch.kernels import psi_matmul as pm
-    assert ops.route_launch_counts()["psi_matmul_codes_rows"] == rows0 + (
+    rows1 = ops.route_launch_counts()
+    assert rows1["psi_matmul_codes_rows"] == rows0["psi_matmul_codes_rows"] + (
         not packed and M > pm.CODES_ROWS_MIN_M)
+    assert rows1["psi_matmul_packed_rows"] == (
+        rows0["psi_matmul_packed_rows"]
+        + (packed and pm.packed_launch_plan(M, K, N, _build.sm_count(0))[1]))
     codes = psi.unpack_codes(data, bits) if packed else data
     x32 = x.float()
     want = ref.psi_matmul_codes_ref(x32, codes, scale)
@@ -376,9 +380,10 @@ def _check_tight(cuda, K, N, bits, M, misaligned=False, x_misaligned=False):
 def _check_batch_invariant(K, N, bits, Ms=()):
     """A row's output depends only on its own x row and W: computed alone,
     in an M = 4 launch and in an M = 16 launch it is the same, bit for bit
-    (the K split is planned from K and N only).  Each M of ``Ms`` (kernel
-    1's prefill route above CODES_ROWS_MIN_M) is launched too, and every
-    row of it equals that row of an M = 4 launch, bit for bit."""
+    (the K split is planned from K and N only).  Each M of ``Ms`` (the
+    prefill routes of kernels 1 and 2 above CODES_ROWS_MIN_M and
+    PACKED_ROWS_MIN_M) is launched too, and every row of it equals that
+    row of an M = 4 launch, bit for bit."""
     data, scale = _packed_weight(K, N, bits)
     qt = psi.QuantizedTensor(data, scale, psi.get_format(bits), bits < 8)
     x = _x(16, K, K + N + bits)
@@ -403,7 +408,7 @@ def test_psi_matmul_packed_bf16_tight(cuda, K, N, bits, M):
     _check_tight(cuda, K, N, bits, M)
 
 
-@pytest.mark.parametrize("M", [1, 4, 16, 72])
+@pytest.mark.parametrize("M", [1, 4, 16, 72, 288])
 @pytest.mark.parametrize("bits", [2, 5, 7])
 @pytest.mark.parametrize("K,N", [(4096, 1024), (1032, 1000), (64, 36)])
 def test_psi_matmul_packed_bf16_misaligned(cuda, K, N, bits, M):
@@ -485,6 +490,64 @@ def test_psi_matmul_codes_routes_bit_equal_at_the_same_rows(cuda, K, N, M):
     for cluster in ((0, 1) if tile == 64 else (0,)):
         assert torch.equal(pm._codes_launch(
             x, data, scale, None, tile, chunk, 1, cluster), want), cluster
+
+
+# kernel 2's prefill route (M > PACKED_ROWS_MIN_M, N > PACKED_ROWS_MIN_N): a
+# qwen3-8b psi5 prompt or burst (288, 320 rows) and 1500 rows, at the
+# shapes of ROWS_KN whose K planes can hold (K % 8 == 0) and granite-34b's
+# five weights
+PACKED_ROWS_KN = [kn for kn in ROWS_KN if kn[0] % 8 == 0] + [
+    (6144, 6144), (6144, 128), (6144, 24576), (24576, 6144), (6144, 49152)]
+
+
+@pytest.mark.parametrize("M", [288, 320, 1500])
+@pytest.mark.parametrize("bits", [3, 5])
+@pytest.mark.parametrize("K,N", PACKED_ROWS_KN)
+def test_psi_matmul_packed_bf16_tight_prefill_rows(cuda, K, N, bits, M):
+    _check_tight(cuda, K, N, bits, M)
+
+
+@pytest.mark.parametrize("bits", [3, 5])
+@pytest.mark.parametrize("K,N", PACKED_ROWS_KN)
+def test_psi_matmul_packed_prefill_rows_batch_invariant(cuda, K, N, bits):
+    _check_batch_invariant(K, N, bits, Ms=(288, 320))
+
+
+@pytest.mark.parametrize("K,N,bits,M", [
+    (K, N, bits, M) for K, N in PACKED_ROWS_KN for bits in (3, 5)
+    for M in (288, 320)] + [(4096, 1024, 4, 288), (4096, 1024, 6, 288)])
+def test_psi_matmul_packed_routes_bit_equal_at_the_same_rows(cuda, K, N,
+                                                            bits, M):
+    """At the same M, kernel 2's prefill route and its decode route give
+    the same bits (the wrapper picks the route by M and N alone), the
+    narrow weights too (N <= 256: forced onto the prefill route here);
+    bits 4 and 6 at one shape, so that every width the route builds runs
+    here or in the misaligned cases (2, 5, 7)."""
+    from repro_torch.kernels import psi_matmul as pm
+    data, scale = _packed_weight(K, N, bits)
+    x = _x(M, K, M * 7 + K + bits)
+    chunk, _ = pm.split_plan(K, N, _build.sm_count(0))
+    assert torch.equal(pm._packed_launch(x, data, scale, bits, None, chunk, 1),
+                       pm._packed_launch(x, data, scale, bits, None, chunk, 0))
+
+
+@pytest.mark.parametrize("bits", [3, 5])
+@pytest.mark.parametrize("K,N", PACKED_ROWS_KN)
+def test_psi_matmul_packed_prefill_rows_f32_out_casts_bit_equal(cuda, K, N,
+                                                               bits):
+    """Kernel 2's f32 output at M = 288 (a row-parallel partial, cast after
+    its all-reduce): its cast to bf16 is the bf16 output bit for bit, and
+    its rows are those of an M = 4 f32 launch."""
+    data, scale = _packed_weight(K, N, bits)
+    qt = psi.QuantizedTensor(data, scale, psi.get_format(bits), True)
+    x = _x(288, K, K * 5 + N + bits)
+    y32 = ops.psi_matmul_2d(x, qt, out_dtype=torch.float32)
+    assert y32.dtype == torch.float32
+    assert torch.equal(y32.to(torch.bfloat16), ops.psi_matmul_2d(x, qt))
+    for i in (0, 140, 284):
+        assert torch.equal(ops.psi_matmul_2d(
+            x[i:i + 4].contiguous(), qt, out_dtype=torch.float32),
+            y32[i:i + 4]), i
 
 
 # ---------------------------------------------------------------------------

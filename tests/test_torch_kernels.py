@@ -333,6 +333,104 @@ def test_codes_rows_grid_covers_every_row_and_column(K, N, n_sm):
                     tpm.CODES_STEP_K, tile)
 
 
+# the packed plan on 132 SMs at qwen3-8b's and granite-34b's five weights
+# (wq / wo, wk / wv, w_gate / w_up, w_down, lm_head): (chunk, n_split)
+PACKED_PLANS_PINNED = [
+    (4096, 4096, (32, 2)), (4096, 1024, (13, 5)), (4096, 12288, (64, 1)),
+    (12288, 4096, (96, 2)), (4096, 151936, (64, 1)),
+    (6144, 6144, (96, 1)), (6144, 128, (12, 8)), (6144, 24576, (96, 1)),
+    (24576, 6144, (384, 1)), (6144, 49152, (96, 1))]
+
+
+@pytest.mark.parametrize("K,N,plan", PACKED_PLANS_PINNED)
+def test_packed_split_plan_pinned_at_served_shapes(K, N, plan):
+    """The packed plan at the psi5 configs' weights on 132 SMs, as the card
+    has it: both bf16 routes of kernel 2 sum in its order, so a change
+    here changes every served row's bits."""
+    assert tpm.split_plan(K, N, 132) == plan
+
+
+PACKED_ROUTE_MS = (1, 4, 16, tpm.PACKED_ROWS_MIN_M,
+                   tpm.PACKED_ROWS_MIN_M + 1, tpm.PACKED_ROWS_ALL_M,
+                   tpm.PACKED_ROWS_ALL_M + 1, 288, 320, 6000)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 1])
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+def test_packed_route_is_picked_from_M_and_N_alone(K, N, n_sm):
+    """The decode route (rows 0) at M <= PACKED_ROWS_MIN_M (T) and at N <=
+    PACKED_ROWS_MIN_N whatever M; the prefill route (rows 1) above
+    PACKED_ROWS_ALL_M, and above T only where the weight's channel tiles
+    alone give one block per SM; the chunk of split_plan whatever M (so a
+    row's sums run in one order in both routes)."""
+    import inspect
+    assert list(inspect.signature(tpm.packed_launch_plan).parameters) == [
+        "M", "K", "N", "n_sm"]
+    T, ALL = tpm.PACKED_ROWS_MIN_M, tpm.PACKED_ROWS_ALL_M
+    chunk, _ = tpm.split_plan(K, N, n_sm)
+    wide = -(-N // tpm.PACKED_ROWS_TILE) >= n_sm
+    for M in PACKED_ROUTE_MS:
+        chunk_got, rows = tpm.packed_launch_plan(M, K, N, n_sm)
+        assert chunk_got == chunk
+        if M <= T or N <= tpm.PACKED_ROWS_MIN_N:
+            assert rows == 0, M
+        else:
+            assert rows == int(M > ALL or wide), M
+
+
+# the route at the psi5 configs' weights on 132 SMs, as the card has it,
+# and at the N rule's edge (N <= 256 never): (K, N, rows at M = 64, 80,
+# 128, 224, 225, 288)
+PACKED_ROUTES_PINNED = [
+    (4096, 256, (0, 0, 0, 0, 0, 0)), (4096, 257, (0, 0, 0, 0, 1, 1)),
+    (4096, 4096, (0, 0, 0, 0, 1, 1)), (4096, 1024, (0, 0, 0, 0, 1, 1)),
+    (4096, 12288, (0, 0, 0, 0, 1, 1)), (12288, 4096, (0, 0, 0, 0, 1, 1)),
+    (4096, 151936, (0, 1, 1, 1, 1, 1)),
+    (6144, 6144, (0, 0, 0, 0, 1, 1)), (6144, 128, (0, 0, 0, 0, 0, 0)),
+    (6144, 24576, (0, 1, 1, 1, 1, 1)), (24576, 6144, (0, 0, 0, 0, 1, 1)),
+    (6144, 49152, (0, 1, 1, 1, 1, 1))]
+
+
+@pytest.mark.parametrize("K,N,want", PACKED_ROUTES_PINNED)
+def test_packed_route_pinned_at_served_shapes(K, N, want):
+    """T = 64, PACKED_ROWS_ALL_M = 224, PACKED_ROWS_MIN_N = 256 and the
+    wide-weight rule at qwen3-8b's and granite-34b's weights (the served
+    psi5 shapes; granite's MQA wk / wv, N = 128, never): where each takes
+    the prefill route."""
+    assert (tpm.PACKED_ROWS_MIN_M, tpm.PACKED_ROWS_ALL_M,
+            tpm.PACKED_ROWS_MIN_N) == (64, 224, 256)
+    assert tuple(tpm.packed_launch_plan(M, K, N, 132)[1]
+                 for M in (64, 80, 128, 224, 225, 288)) == want
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 1])
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+def test_packed_rows_grid_covers_every_row_and_column(K, N, n_sm):
+    """The grid the wrapper passes to kernel 2's prefill route (blocks of
+    PACKED_ROWS_TOKENS rows x PACKED_ROWS_TILE channels, each over one
+    split of K, a tile's splits one cluster; the kernel refuses any other)
+    covers every row of M and every N column exactly once, with no empty
+    block, and its splits cover K as :func:`_check_plan` says, at M = T +
+    1, 288, 320, 6000."""
+    for M in PACKED_ROUTE_MS[4:]:
+        chunk, _ = tpm.packed_launch_plan(M, K, N, n_sm)
+        _, n_split = tpm.split_plan(K, N, n_sm)
+        gm, gs, gn = tpm.packed_rows_grid(M, K, N, chunk)
+        assert gs == n_split <= tpm.MAX_SPLIT
+        rows, tile = tpm.PACKED_ROWS_TOKENS, tpm.PACKED_ROWS_TILE
+        m_hits = np.zeros(M, np.int64)
+        for b in range(gm):
+            assert b * rows < M
+            m_hits[b * rows:(b + 1) * rows] += 1
+        assert (m_hits == 1).all()
+        n_hits = np.zeros(N, np.int64)
+        for b in range(gn):
+            assert b * tile < N
+            n_hits[b * tile:(b + 1) * tile] += 1
+        assert (n_hits == 1).all()
+        _check_plan(chunk, n_split, K, N, n_sm, tpm.GROUP_K, tpm.TILE_N)
+
+
 def test_packed_split_plan_depends_on_the_weight_only():
     """The plan takes K, N and the SM count, never M: a row's sums run in
     the same order whatever the batch it is launched in."""
@@ -360,16 +458,22 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_route_launch_counts_reset_and_add():
-    """Kernel 1's prefill-route count: zeroed with the kernels' counts,
-    and added to by name (as a graph replay adds its capture's) without
-    moving the kernels' counts."""
+    """Kernels 1 and 2's prefill-route counts: zeroed with the kernels'
+    counts, and added to by name (as a graph replay adds its capture's)
+    without moving the kernels' counts."""
+    zero = {"psi_matmul_codes_rows": 0, "psi_matmul_packed_rows": 0}
     ops.reset_launch_counts()
-    assert ops.route_launch_counts() == {"psi_matmul_codes_rows": 0}
-    ops.add_launches({"psi_matmul_codes": 3, "psi_matmul_codes_rows": 2})
-    assert ops.route_launch_counts() == {"psi_matmul_codes_rows": 2}
+    assert ops.route_launch_counts() == zero
+    ops.add_launches({"psi_matmul_codes": 3, "psi_matmul_codes_rows": 2,
+                      "psi_matmul_packed": 5, "psi_matmul_packed_rows": 4})
+    assert ops.route_launch_counts() == {"psi_matmul_codes_rows": 2,
+                                         "psi_matmul_packed_rows": 4}
     assert ops.launch_counts()["psi_matmul_codes"] == 3
+    assert ops.launch_counts()["psi_matmul_packed"] == 5
+    assert ops.ROUTES["psi_matmul_packed_rows"][0] is ops.KERNELS[
+        "psi_matmul_packed"]
     ops.reset_launch_counts()
-    assert ops.route_launch_counts() == {"psi_matmul_codes_rows": 0}
+    assert ops.route_launch_counts() == zero
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 

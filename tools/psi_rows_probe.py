@@ -1,4 +1,4 @@
-"""Where kernel 1's prefill route spends its time, on the card.
+"""Where the PSI matmuls' prefill routes spend their time, on the card.
 
     python tools/psi_rows_probe.py
 
@@ -13,6 +13,15 @@
    the outputs are wrong and only the times mean anything), timed at
    qwen3-8b's wq, w_gate and lm-head at 288 rows and whisper's 512 x 2048
    at 6000, in the layout the wrapper picks.
+3. ``psi_gemm_packed_rows_kernel`` (kernel 2's prefill route) built once
+   more with ``clock64()`` marks between the phases of its loop over the
+   64-K groups, read by lane 0 of each warp of the first block: clocks a
+   group in the copy wait, the barrier, the x copies' issue, the decode
+   (plane words to A fragments, the next group's plane loads issued), the
+   MMAs (x fragments read, ``mma.sync`` issued) and the walk with the
+   chains' sums, at psi5 on granite-34b's wq and w_down and qwen3-8b's
+   w_gate at 288 rows.  The marks order the phases, so the total is a
+   little above the route's own.
 
 Builds with nvcc into a temporary directory and prints one JSON line a
 measurement, each with the card's name and power limit.  Needs a card; imports
@@ -84,6 +93,45 @@ extern "C" int set_rows_probe(int p) {
 }
 """
 SKIPS = {0: "all", 1: "no_x_copies", 2: "no_code_copies", 3: "no_copies"}
+
+# kernel 2's prefill route with clock marks: lane 0 of each warp of block
+# (0, 0, 0) adds the clocks since the last mark to its phase's count
+PHASES = ("copy_wait", "barrier", "x_copies", "decode", "mma", "sums")
+CLOCK_PATCHES = (
+    ("namespace {\n", "__device__ long long packed_clocks[4][8];\n"
+     "namespace {\n"),
+    ("  int s0 = 0;                                       // x stage: e % 3\n",
+     "  int s0 = 0;\n"
+     "  long long clk[6] = {0, 0, 0, 0, 0, 0}, last = clock64();\n"
+     "  const bool mark = blockIdx.x + blockIdx.y + blockIdx.z == 0 && "
+     "lane == 0;\n"
+     "#define MARK(k) if (mark) { const long long c_ = clock64(); "
+     "clk[k] += c_ - last; last = c_; }\n"),
+    ("  for (int e = e_begin; e < e_end; ++e) {\n"
+     "    const int s1 = s0 == 2 ? 0 : s0 + 1, s2 = s1 == 2 ? 0 : s1 + 1;\n",
+     "  for (int e = e_begin; e < e_end; ++e) {\n"
+     "    MARK(5)\n"
+     "    const int s1 = s0 == 2 ? 0 : s0 + 1, s2 = s1 == 2 ? 0 : s1 + 1;\n"),
+    ("    cp_async_wait<1>();\n    __syncthreads();\n"
+     "    copy_x(en[2] >> 5, s2, e + 2 < e_end);\n    cp_async_commit();\n",
+     "    cp_async_wait<1>();\n    MARK(0)\n    __syncthreads();\n    MARK(1)\n"
+     "    copy_x(en[2] >> 5, s2, e + 2 < e_end);\n    cp_async_commit();\n"
+     "    MARK(2)\n"),
+    ("    const char* st = xs + s0 * kPackedXBytes;\n",
+     "    MARK(3)\n    const char* st = xs + s0 * kPackedXBytes;\n"),
+    ("    s0 = s1;\n    const int cur = en[0];\n",
+     "    MARK(4)\n    s0 = s1;\n    const int cur = en[0];\n"),
+    ("  cp_async_wait<0>();\n  // sum k of thread T: acc[a = k / 8]",
+     "  MARK(5)\n  if (mark) {\n    for (int k = 0; k < 6; ++k) "
+     "packed_clocks[warp][k] = clk[k];\n"
+     "    packed_clocks[warp][6] = e_end - e_begin;\n  }\n"
+     "  cp_async_wait<0>();\n  // sum k of thread T: acc[a = k / 8]"),
+)
+CLOCK_READER = """
+extern "C" int read_packed_clocks(long long* h) {
+  return (int)cudaMemcpyFromSymbol(h, packed_clocks, sizeof(packed_clocks));
+}
+"""
 
 
 def _nvcc(src: Path, out: Path) -> None:
@@ -183,6 +231,58 @@ def route(torch, tmp: Path, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def packed(torch, tmp: Path, card: str) -> None:
+    from repro_torch.core import psi
+    from repro_torch.kernels import psi_matmul as pm
+    src = (SRC / "repro_torch" / "csrc" / "psi_rows.cu").read_text()
+    for old, new in CLOCK_PATCHES:
+        if src.count(old) != 1:
+            raise SystemExit(f"csrc/psi_rows.cu no longer holds {old!r}")
+        src = src.replace(old, new)
+    cu = tmp / "psi_rows_clocks.cu"
+    cu.write_text(src + CLOCK_READER)
+    _nvcc(cu, tmp / "clocks.so")
+    lib = ctypes.CDLL(str(tmp / "clocks.so"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.psi_matmul_packed_rows.argtypes = [P] * 4 + [I] * 9 + [P]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [("granite wq", 6144, 6144, 288), ("granite w_down", 24576, 6144,
+                                                288),
+             ("qwen3-8b w_gate", 4096, 12288, 288)]
+    for label, K, N, M in cases:
+        w = torch.randn(K, N, generator=gen, device="cuda") * K ** -0.5
+        qt = psi.quantize_weights(w, 5, axis=(0,)).pack()
+        del w
+        scale = qt.scale.reshape(-1)
+        x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+        out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+        chunk, _ = pm.packed_launch_plan(M, K, N, n_sm)
+
+        def go():
+            err = lib.psi_matmul_packed_rows(
+                x.data_ptr(), qt.data.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), M, K, N, 5, 1, chunk,
+                *pm.packed_rows_grid(M, K, N, chunk),
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"probe launch failed: {err}")
+        ms = _ms(torch, go)
+        h = (ctypes.c_longlong * 32)()
+        if lib.read_packed_clocks(h):
+            raise SystemExit("could not read the clock marks")
+        groups = h[6]
+        row = {"probe": "packed_rows_phases", "card": card, "weight": label,
+               "K": K, "N": N, "M": M, "bits": 5, "device_ms": ms,
+               "groups_a_block": groups}
+        for k, name in enumerate(PHASES):
+            row[f"{name}_clocks_a_group"] = sum(
+                h[8 * wp + k] for wp in range(4)) / 4 / groups
+        print(json.dumps(row), flush=True)
+        del qt, x, out
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -196,6 +296,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         ceiling(torch, Path(d), card)
         route(torch, Path(d), card)
+        packed(torch, Path(d), card)
     return 0
 
 
